@@ -1,0 +1,116 @@
+"""Score-analysis inference CLI of the port.
+
+Counterpart of ``analysisgnn_tpu/cli/predict.py::main`` for ``--score`` and
+``--score_dir`` with CSV output.  A port checkpoint is a directory holding
+``model_config.json`` (the training configuration) and ``<tag>.pt``, a
+``torch.save``d state dict of the analysis model.
+
+    python -m analysisgnn_tpu_torch.cli.predict --checkpoint_dir CKPT --score piece.musicxml
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+SCORE_EXTENSIONS = (".musicxml", ".xml", ".mxl")
+
+
+def get_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Predict analysis for a score (PyTorch port)")
+    p.add_argument("--score", type=str, default=None, help="MusicXML/.mxl path")
+    p.add_argument("--score_dir", type=str, default=None,
+                   help="batch mode: predict every score file in this directory (recursive)")
+    p.add_argument("--output_dir", type=str, default=None,
+                   help="batch mode: write per-score CSVs here (default: alongside each score)")
+    p.add_argument("--bucket_factor", type=float, default=1.25,
+                   help="batch mode: pad graphs to a geometric capacity ladder with this "
+                        "growth factor (0 disables bucketing)")
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints",
+                   help="directory with model_config.json and <checkpoint>.pt")
+    p.add_argument("--checkpoint", type=str, default="best", help="state-dict tag inside checkpoint_dir")
+    p.add_argument("--tasks", type=str, default=None, help="comma list; default all")
+    p.add_argument("--output_csv", type=str, default=None)
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def load_model(checkpoint_dir: str, tag: str, device: "str | torch.device"):
+    from analysisgnn_tpu_torch.models.analysis import model_from_config
+
+    with open(os.path.join(checkpoint_dir, "model_config.json")) as f:
+        cfg = json.load(f)
+    model = model_from_config(cfg, device=device)
+    state = torch.load(os.path.join(checkpoint_dir, f"{tag}.pt"), map_location=device, weights_only=True)
+    model.load_state_dict(state)
+    return model.eval(), cfg
+
+
+def main(argv=None) -> None:
+    args = get_parser().parse_args(argv)
+    if bool(args.score) == bool(args.score_dir):
+        raise SystemExit("exactly one of --score / --score_dir is required")
+    from analysisgnn_tpu_torch.core.graph import resolve_device
+    from analysisgnn_tpu_torch.data.musicxml import load_score
+    from analysisgnn_tpu_torch.inference.predict import (
+        decode_predictions,
+        export_predictions_csv,
+        predict_score_ids,
+    )
+
+    device = resolve_device(args.device)
+    model, cfg = load_model(args.checkpoint_dir, args.checkpoint, device)
+    tasks = args.tasks.split(",") if args.tasks else None
+
+    if args.score_dir:
+        paths = sorted(
+            os.path.join(r, f)
+            for r, _d, fs in os.walk(args.score_dir)
+            for f in fs
+            if f.lower().endswith(SCORE_EXTENSIONS)
+        )
+        if not paths:
+            raise SystemExit(f"no score files under {args.score_dir}")
+        # factor <= 1 (incl. the documented 0) disables bucketing
+        bucket = args.bucket_factor if args.bucket_factor > 1.0 else None
+    else:
+        paths = [args.score]
+        bucket = None  # single score: exact shapes, no padding waste
+
+    if args.output_dir:
+        os.makedirs(args.output_dir, exist_ok=True)
+    feature_type = cfg.get("feature_type", "simple").replace("simple", "voice")
+    for path in paths:
+        parsed = load_score(path)
+        ids = predict_score_ids(
+            model,
+            parsed.note_array,
+            measures=parsed.measures,
+            tasks=tasks,
+            feature_type=feature_type,
+            add_beats=cfg.get("add_beats", False),
+            add_measures=cfg.get("add_measures", False),
+            bucket_factor=bucket,
+            device=device,
+        )
+        decoded = decode_predictions(ids)
+        if args.score_dir and args.output_dir:
+            # flatten into output_dir without basename collisions across subdirectories
+            rel = os.path.relpath(path, args.score_dir)
+            base = os.path.splitext(rel)[0].replace(os.sep, "__")
+            out_csv = os.path.join(args.output_dir, f"{base}_analysis.csv")
+        elif args.score_dir:
+            base = os.path.splitext(os.path.basename(path))[0]
+            out_csv = os.path.join(os.path.dirname(path), f"{base}_analysis.csv")
+        else:
+            base = os.path.splitext(os.path.basename(path))[0]
+            out_csv = args.output_csv or f"{base}_analysis.csv"
+        export_predictions_csv(out_csv, parsed.note_array, decoded)
+        print(f"wrote {out_csv}")
+
+
+if __name__ == "__main__":
+    main()

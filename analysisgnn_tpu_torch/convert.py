@@ -1,0 +1,100 @@
+"""Convert a JAX analysis-model parameter tree into the port's state dict.
+
+The caller hands over the flax tree as nested dicts of numpy arrays (reading
+an Orbax checkpoint needs JAX, so it stays outside this package).  Layout
+differences handled here:
+
+* a flax ``Dense`` kernel is ``[in, out]``, a torch ``Linear`` weight
+  ``[out, in]``: transposed;
+* stacked parameters (``FusedHeteroSage`` ``w_neigh [T, F, F]``, ``w_self``,
+  ``w_agg``, ``b_*``; ``FusedTaskHeads`` ``w1``, ``w2``, ``b*``, ``ln_*``) keep
+  their layout;
+* flax ``OptimizedLSTMCell`` keeps separate ``ii/if/ig/io`` input kernels
+  (no bias) and ``hi/hf/hg/ho`` hidden kernels (with bias); the port's
+  ``LSTMCell`` packs them in ``i, f, g, o`` order.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+GATES = ("i", "f", "g", "o")
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+    out: Dict[Tuple[str, ...], np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v, np.float32)
+    return out
+
+
+def _dense(prefix: str, leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        return f"{prefix}.weight", v.T
+    if leaf == "bias":
+        return f"{prefix}.bias", v
+    raise KeyError(f"unexpected Dense parameter {leaf!r} under {prefix}")
+
+
+def _conv_layer(prefix: str, rest: Tuple[str, ...], v: np.ndarray) -> Tuple[str, np.ndarray]:
+    head = rest[0]
+    if head.startswith("fused_") and len(rest) == 2:
+        return f"{prefix}.fused.{head[len('fused_'):]}.{rest[1]}", v
+    if head.startswith("conv_") and len(rest) == 3:
+        return _dense(f"{prefix}.convs.{head[len('conv_'):]}.{rest[1]}", rest[2], v)
+    if head.startswith("self_") and len(rest) == 2:
+        return _dense(f"{prefix}.selfs.{head[len('self_'):]}", rest[1], v)
+    raise KeyError(f"unexpected hetero-conv parameter {'/'.join(rest)} under {prefix}")
+
+
+def _lstm(flat: Dict[Tuple[str, ...], np.ndarray], cell: str) -> Dict[str, np.ndarray]:
+    base = ("encoder", "jk", cell)
+    ih = np.concatenate([flat.pop(base + (f"i{g}", "kernel")) for g in GATES], axis=1)
+    hh = np.concatenate([flat.pop(base + (f"h{g}", "kernel")) for g in GATES], axis=1)
+    hb = np.concatenate([flat.pop(base + (f"h{g}", "bias")) for g in GATES])
+    name = {"OptimizedLSTMCell_0": "fwd", "OptimizedLSTMCell_1": "bwd"}[cell]
+    return {f"encoder.jk.{name}.ih.weight": ih.T, f"encoder.jk.{name}.hh.weight": hh.T, f"encoder.jk.{name}.hh.bias": hb}
+
+
+def state_dict_from_flax(params: Mapping, cfg: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``AnalysisGNN`` state dict for a flax ``AnalysisGNN`` tree
+    (``{"params": ...}`` or the inner dict) of the configuration ``cfg``."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    for cell in ("OptimizedLSTMCell_0", "OptimizedLSTMCell_1"):
+        if ("encoder", "jk", cell, "ii", "kernel") in flat:
+            out.update(_lstm(flat, cell))
+    layers = set()
+    for path, v in flat.items():
+        top = path[0]
+        if top in ("pitch_embedding", "key_embedding") and path[1:] == ("embedding",):
+            key, val = f"{top}.weight", v
+        elif top == "project_enc":
+            key, val = _dense("project_enc.dense", path[-1], v)
+        elif top.startswith("project_"):
+            key, val = _dense(f"project.{top[len('project_'):]}.dense", path[-1], v)
+        elif top == "heads" and path[1] == "clf" and len(path) == 3:
+            key, val = f"heads.clf.{path[2]}", v
+        elif top == "encoder" and path[1] == "jk" and path[2] == "Dense_0":
+            key, val = _dense("encoder.jk.attn", path[3], v)
+        elif top == "encoder" and re.fullmatch(r"layer_\d+", path[1]):
+            i = int(path[1].split("_")[1])
+            layers.add(i)
+            key, val = _conv_layer(f"encoder.layers.{i}", path[2:], v)
+        elif top == "encoder" and path[1] == "final":
+            key, val = _conv_layer("encoder.final", path[2:], v)
+        else:
+            raise KeyError(f"no port parameter for flax path {'/'.join(path)}")
+        out[key] = val
+    if layers != set(range(cfg["num_layers"])):
+        raise ValueError(f"parameter tree has encoder layers {sorted(layers)}, config says {cfg['num_layers']}")
+    return {k: torch.tensor(v) for k, v in out.items()}

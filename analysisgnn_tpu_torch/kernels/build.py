@@ -1,0 +1,81 @@
+"""Build a CUDA source under ``csrc/`` with ``nvcc`` and load it with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and includes
+no PyTorch header, so ``nvcc`` compiles it in seconds into a shared library.
+The library lands in ``analysisgnn_tpu_torch/_build/`` (ignored by git), keyed
+by a hash of the source and the flags.  It is written under a temporary name
+and renamed into place, so a killed build leaves neither a half-written
+library nor a lock behind.  Nothing is built at import time: the first launch
+builds, or a caller builds up front with :func:`build`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.isfile(cand):
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build the CUDA kernels")
+    return cand
+
+
+def library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build(name: str) -> Tuple[float, str]:
+    """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the wall
+    seconds (0.0 when already built) and the compiler's output (ptxas register
+    report); raises with that output if ``nvcc`` fails."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"CUDA build of {name} failed (nvcc exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return seconds, proc.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build(name)
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,128 @@
+"""K1: sorted-segment mean with a base row, as a hand-written CUDA kernel.
+
+Replaces the Pallas TPU kernel
+``analysisgnn_tpu/kernels/pallas_segment.py::segment_mean_base_sorted``.
+The CUDA source is ``csrc/segment_mean_base.cu``, built with ``nvcc`` for
+``sm_90a`` and loaded with ctypes (``kernels/build.py``).
+
+For segment ids sorted ascending, ``out[s] = (x_base[s mod m] + sum of the
+messages of segment s) / max(count_s, 1)``; the base row is added but not
+counted, empty segments keep their base row, ids ``>= num_segments`` are
+padding and drop.  The counts are returned too.
+
+Bound on the H100: bytes.  It reads ``E*F*4 + E*4 + m*F*4`` bytes and writes
+``S*F*4 + S*4``, with about one add per message element.  The kernel reads
+each message once, walks contiguous edge ranges from CSR row pointers with
+16-byte loads, and writes each output row once, with no atomics.
+
+On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels.segment_ops import segment_count, segment_sum
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+    """One graph's edge order for a :func:`segment_mean_base` launch: edges
+    sorted by segment id, computed once and reused by every layer."""
+
+    gather: torch.Tensor  # [E] int64: message row of each sorted edge
+    seg: torch.Tensor  # [E] int32: ascending segment ids, padding = num_segments
+    num_segments: int
+    base_rows: int  # m: segment s takes the base row s mod m
+
+
+def plan_segments(seg: torch.Tensor, gather: torch.Tensor, num_segments: int, base_rows: int) -> SegmentPlan:
+    order = torch.argsort(seg, stable=True)
+    return SegmentPlan(
+        gather=gather[order].long().contiguous(),
+        seg=seg[order].to(torch.int32).contiguous(),
+        num_segments=num_segments,
+        base_rows=base_rows,
+    )
+
+
+def aggregate(plan: SegmentPlan, rows: torch.Tensor, x_base: torch.Tensor) -> torch.Tensor:
+    """Gather each sorted edge's message from ``rows`` and reduce it."""
+    out, _ = segment_mean_base(rows[plan.gather], plan.seg, x_base, plan.num_segments)
+    return out
+
+
+def segment_mean_base_plain(
+    msgs: torch.Tensor, seg_sorted: torch.Tensor, x_base: torch.Tensor, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the kernel (``index_add_`` sums and counts)."""
+    counts = segment_count(seg_sorted, num_segments)
+    sums = segment_sum(msgs, seg_sorted, num_segments)
+    base = x_base.repeat(num_segments // x_base.shape[0], 1)
+    return (base + sums) / counts.clamp_min(1.0)[:, None], counts
+
+
+def _check(msgs, seg_sorted, x_base, num_segments) -> None:
+    if msgs.dtype != torch.float32 or x_base.dtype != torch.float32:
+        raise TypeError(f"msgs and x_base must be float32, got {msgs.dtype} and {x_base.dtype}")
+    if seg_sorted.dtype != torch.int32:
+        raise TypeError(f"seg_sorted must be int32, got {seg_sorted.dtype}")
+    if msgs.dim() != 2 or x_base.dim() != 2 or seg_sorted.dim() != 1:
+        raise ValueError("expected msgs [E, F], seg_sorted [E], x_base [m, F]")
+    if msgs.shape[0] != seg_sorted.shape[0] or msgs.shape[1] != x_base.shape[1]:
+        raise ValueError(f"shape mismatch: msgs {tuple(msgs.shape)}, seg {tuple(seg_sorted.shape)}, x_base {tuple(x_base.shape)}")
+    m = x_base.shape[0]
+    if m == 0 or num_segments % m != 0:
+        raise ValueError(f"num_segments ({num_segments}) must be a positive multiple of x_base rows ({m})")
+    if not (msgs.device == seg_sorted.device == x_base.device):
+        raise ValueError("msgs, seg_sorted and x_base must be on one device")
+    if not (msgs.is_contiguous() and seg_sorted.is_contiguous() and x_base.is_contiguous()):
+        raise ValueError("msgs, seg_sorted and x_base must be contiguous")
+
+
+def segment_mean_base(
+    msgs: torch.Tensor, seg_sorted: torch.Tensor, x_base: torch.Tensor, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out [S, F], counts [S])`` for ascending ``seg_sorted``; see the module
+    docstring.  ``segment_mean_base.launches`` counts kernel launches."""
+    _check(msgs, seg_sorted, x_base, num_segments)
+    if msgs.device.type == "cpu":
+        return segment_mean_base_plain(msgs, seg_sorted, x_base, num_segments)
+    if msgs.device.type != "cuda":
+        raise ValueError(f"segment_mean_base runs on cpu or cuda tensors, got {msgs.device}")
+    lib = _launcher()
+    f = msgs.shape[1]
+    with torch.cuda.device(msgs.device):
+        bounds = torch.arange(num_segments + 1, dtype=torch.int32, device=msgs.device)
+        row_ptr = torch.searchsorted(seg_sorted, bounds, out_int32=True)
+        out = torch.empty((num_segments, f), dtype=torch.float32, device=msgs.device)
+        counts = torch.empty(num_segments, dtype=torch.float32, device=msgs.device)
+        vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, x_base, out))
+        stream = torch.cuda.current_stream(msgs.device).cuda_stream
+        rc = lib.segment_mean_base_launch(
+            msgs.data_ptr(), row_ptr.data_ptr(), x_base.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), num_segments, x_base.shape[0], f, int(vec), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"segment_mean_base kernel launch failed: cudaError {rc}")
+    segment_mean_base.launches += 1
+    return out, counts
+
+
+segment_mean_base.launches = 0
+
+
+def _launcher():
+    lib = build.load("segment_mean_base")
+    fn = lib.segment_mean_base_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,39 @@
+"""Segment reductions in plain PyTorch, with the framework's padding convention.
+
+Counterpart of ``analysisgnn_tpu/kernels/segment_ops.py``.  Padding edges
+carry ids at or past ``num_segments``; ``jax.ops.segment_sum`` drops those,
+while ``index_add_`` raises on them.  So every id is clamped to one dummy row
+at ``num_segments``, the sum runs over ``num_segments + 1`` rows, and the
+dummy row is sliced off.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _dummy_row_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    return segment_ids.long().clamp(0, num_segments)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Sum ``data`` rows into ``num_segments`` buckets; out-of-range ids drop."""
+    out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
+    out.index_add_(0, _dummy_row_ids(segment_ids, num_segments), data)
+    return out[:num_segments]
+
+
+def segment_count(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32, device=segment_ids.device)
+    return segment_sum(ones, segment_ids, num_segments)
+
+
+def segment_mean_with_base(
+    data: torch.Tensor, segment_ids: torch.Tensor, base: torch.Tensor
+) -> torch.Tensor:
+    """``(base + sum of messages) / max(count, 1)`` per segment: the base row is
+    added but not counted, and empty segments keep their base row."""
+    num_segments = base.shape[0]
+    total = segment_sum(data, segment_ids, num_segments) + base
+    count = segment_count(segment_ids, num_segments)
+    return total / count.clamp_min(1.0).reshape((-1,) + (1,) * (base.dim() - 1))

@@ -1,0 +1,179 @@
+"""The multi-task score-analysis model at inference (counterpart of
+``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN encoder,
+single-Linear projections, no logit fusion and no RNN).
+
+Pipeline: pitch-spelling (35 -> 64) and key-signature (15 -> 64) embeddings
+concatenated onto the note features; per-node-type projections; the HybridGNN
+encoder; onset pooling (K1 over target-restricted onset edges) concatenated
+onto the embeddings; a projection; the fused task heads.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType, metadata
+from analysisgnn_tpu_torch.models.conv import sage_plan
+from analysisgnn_tpu_torch.kernels.segment_mean import aggregate
+from analysisgnn_tpu_torch.models.encoders import HybridGNN
+from analysisgnn_tpu_torch.models.heads import TaskHeads
+from analysisgnn_tpu_torch.models.hetero import plan_hetero
+from analysisgnn_tpu_torch.models.mlp import PlainProjection
+from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
+
+PITCH_SPELLING_CLASSES = 35
+KEY_SIGNATURE_CLASSES = 15
+EMBED_DIM = 64
+
+
+def restrict_edges_to_targets(
+    edge_index: torch.Tensor, num_targets: int, num_nodes_cap: int, drop_self_loops: bool = True
+) -> torch.Tensor:
+    """Move the endpoints of edges that touch a non-target node (and of self
+    loops) past the end, so reductions drop them."""
+    src, dst = edge_index[0], edge_index[1]
+    bad = (src >= num_targets) | (dst >= num_targets)
+    if drop_self_loops:
+        bad = bad | (src == dst)
+    fill = torch.full_like(src, num_nodes_cap)
+    return torch.stack([torch.where(bad, fill, src), torch.where(bad, fill, dst)])
+
+
+class AnalysisGNN(nn.Module):
+    def __init__(
+        self,
+        node_types: Sequence[str],
+        edge_types: Sequence[EdgeType],
+        in_channels: int,
+        hidden_channels: int,
+        out_channels: int,
+        task_dict: Sequence[Tuple[str, int]],
+        num_layers: int = 3,
+        use_jk: bool = True,
+        final_norm: bool = True,
+    ):
+        super().__init__()
+        self.node_types = tuple(node_types)
+        self.edge_types = tuple(edge_types)
+        self.task_dict = tuple(task_dict)
+        self.pitch_embedding = nn.Embedding(PITCH_SPELLING_CLASSES, EMBED_DIM)
+        self.key_embedding = nn.Embedding(KEY_SIGNATURE_CLASSES, EMBED_DIM)
+        self.project = nn.ModuleDict(
+            {
+                t: PlainProjection(in_channels + (2 * EMBED_DIM if t == NOTE else 0), hidden_channels)
+                for t in self.node_types
+            }
+        )
+        self.encoder = HybridGNN(
+            hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm
+        )
+        self.project_enc = PlainProjection(2 * hidden_channels, out_channels)
+        self.heads = TaskHeads(self.task_dict, out_channels)
+
+    def encode(
+        self,
+        x_dict: Mapping[str, torch.Tensor],
+        edge_index_dict: Mapping[EdgeType, torch.Tensor],
+        pitch_spelling: torch.Tensor,
+        key_signature: torch.Tensor,
+        num_target_nodes: int,
+    ) -> torch.Tensor:
+        """Note embeddings ``[N_cap, out_channels]``."""
+        emb = torch.cat(
+            [
+                x_dict[NOTE],
+                self.pitch_embedding(pitch_spelling.clamp(0, PITCH_SPELLING_CLASSES - 1)),
+                self.key_embedding(key_signature.clamp(0, KEY_SIGNATURE_CLASSES - 1)),
+            ],
+            dim=-1,
+        )
+        h = {NOTE: self.project[NOTE](emb)}
+        for t, x in x_dict.items():
+            if t != NOTE and t in self.project:
+                h[t] = self.project[t](x)
+        # every K1 edge order of this graph, sorted once for all layers
+        plans = plan_hetero(edge_index_dict, self.edge_types, {t: v.shape[0] for t, v in h.items()})
+        x = self.encoder(h, plans)
+        n = x.shape[0]
+        onset = restrict_edges_to_targets(edge_index_dict[(NOTE, "onset", NOTE)], num_target_nodes, n)
+        x_pool = aggregate(sage_plan(onset, n, n), x, x)
+        return self.project_enc(torch.cat([x, x_pool], dim=-1))
+
+    def classify(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.heads(x)
+
+    def forward(
+        self,
+        x_dict: Mapping[str, torch.Tensor],
+        edge_index_dict: Mapping[EdgeType, torch.Tensor],
+        pitch_spelling: torch.Tensor,
+        key_signature: torch.Tensor,
+        num_target_nodes: int,
+    ) -> Dict[str, torch.Tensor]:
+        x = self.encode(x_dict, edge_index_dict, pitch_spelling, key_signature, num_target_nodes)
+        return self.classify(x)
+
+
+# The serving configuration of the repo's trained HybridGNN checkpoints
+# (checkpoints_parity_l_r5/model_config.json): full width, note nodes only.
+SERVE_CONFIG = {
+    "model": "HybridGNN", "num_layers": 3, "hidden_channels": 256, "out_channels": 128,
+    "use_jk": True, "final_norm": True, "plain_proj": True, "logit_fusion": False,
+    "use_rnn": False, "conv_impl": "node", "add_beats": False, "add_measures": False,
+    "in_channels": 25, "feature_type": "simple",
+}
+
+# model_config.json keys whose values the port supports, with those values
+_SUPPORTED = {
+    "model": ("HybridGNN", "hybridgnn"),
+    "plain_proj": (True,),
+    "logit_fusion": (False,),
+    "use_rnn": (False,),
+    "conv_impl": ("node",),
+}
+
+
+def model_from_config(cfg: Mapping, device: "str | torch.device" = "cpu") -> AnalysisGNN:
+    """The analysis model a ``model_config.json`` describes, with uninitialized
+    parameters (load a state dict or call :func:`init_parameters`)."""
+    for key, allowed in _SUPPORTED.items():
+        if key in cfg and cfg[key] not in allowed:
+            raise NotImplementedError(f"model_config {key}={cfg[key]!r} is not ported (supported: {allowed})")
+    nodes, edges = metadata(cfg.get("add_beats", False), cfg.get("add_measures", False))
+    with torch.device(device):
+        return AnalysisGNN(
+            nodes,
+            edges,
+            in_channels=cfg["in_channels"],
+            hidden_channels=cfg["hidden_channels"],
+            out_channels=cfg["out_channels"],
+            task_dict=tuple(TASK_DICT.items()),
+            num_layers=cfg["num_layers"],
+            use_jk=cfg.get("use_jk", True),
+            final_norm=cfg.get("final_norm", False),
+        )
+
+
+_ZERO_INIT = ("bias", "b_neigh", "b_out", "b1", "b2", "ln_bias")
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialization: biases zero, LayerNorm scales one, embeddings
+    N(0, 1), every weight N(0, 1/fan_in).  Draws on the CPU generator in
+    parameter order, so the weights do not depend on the model's device."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _ZERO_INIT:
+            p.zero_()
+            continue
+        if leaf == "ln_scale":
+            p.fill_(1.0)
+            continue
+        # fan_in is dim 1 both of a Linear weight [out, in] and of a stacked [T, in, out]
+        std = 1.0 if "embedding" in name else 1.0 / math.sqrt(p.shape[1])
+        p.copy_(torch.randn(p.shape, generator=generator) * std)

@@ -1,0 +1,77 @@
+"""Heterogeneous conv dispatch (counterpart of ``analysisgnn_tpu/models/hetero.py``,
+the fused-SAGE path with mean reduction across edge types).
+
+A node type with two or more same-type relations gets one
+:class:`FusedHeteroSage` over all of them; every other relation gets its own
+:class:`SageConv`.  A node type's next state is the mean of the contributions
+of the relations whose source it is; a type with none gets a plain Linear.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from analysisgnn_tpu_torch.core.graph import EdgeType, edge_type_key
+from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan
+from analysisgnn_tpu_torch.models.conv import SageConv, sage_plan
+from analysisgnn_tpu_torch.models.fused import FusedHeteroSage, fused_plan
+
+
+def fusion_groups(edge_types: Sequence[EdgeType]) -> Tuple[Dict[str, List[EdgeType]], List[EdgeType]]:
+    """(node type -> its fused same-type relations, the remaining relations)."""
+    by_type: Dict[str, List[EdgeType]] = {}
+    for et in edge_types:
+        if et[0] == et[2]:
+            by_type.setdefault(et[0], []).append(et)
+    groups = {t: rels for t, rels in by_type.items() if len(rels) >= 2}
+    fused = {et for rels in groups.values() for et in rels}
+    return groups, [et for et in edge_types if et not in fused]
+
+
+def plan_hetero(
+    edge_index_dict: Mapping[EdgeType, torch.Tensor],
+    edge_types: Sequence[EdgeType],
+    capacities: Mapping[str, int],
+) -> Dict[object, SegmentPlan]:
+    """Every K1 edge order one hetero layer needs, keyed by node type (fused
+    groups) or edge type (single relations).  The same for every layer."""
+    groups, singles = fusion_groups(edge_types)
+    plans: Dict[object, SegmentPlan] = {
+        t: fused_plan([edge_index_dict[et] for et in rels], capacities[t]) for t, rels in groups.items()
+    }
+    for et in singles:
+        plans[et] = sage_plan(edge_index_dict[et], capacities[et[0]], capacities[et[2]])
+    return plans
+
+
+class HeteroConv(nn.Module):
+    def __init__(self, in_features: int, out_features: int, node_types: Sequence[str], edge_types: Sequence[EdgeType]):
+        super().__init__()
+        self.groups, self.singles = fusion_groups(edge_types)
+        self.fused = nn.ModuleDict(
+            {t: FusedHeteroSage(in_features, out_features, len(rels), reduce="sum") for t, rels in self.groups.items()}
+        )
+        self.convs = nn.ModuleDict({edge_type_key(et): SageConv(in_features, out_features) for et in self.singles})
+        sources = set(self.groups) | {et[0] for et in self.singles}
+        self.selfs = nn.ModuleDict({t: nn.Linear(in_features, out_features) for t in node_types if t not in sources})
+
+    def forward(self, x_dict: Dict[str, torch.Tensor], plans: Mapping[object, SegmentPlan]) -> Dict[str, torch.Tensor]:
+        contributions: Dict[str, list] = {t: [] for t in x_dict}
+        for t, rels in self.groups.items():
+            contributions[t].append((self.fused[t](x_dict[t], plans[t]), len(rels)))
+        for et in self.singles:
+            conv = self.convs[edge_type_key(et)]
+            contributions[et[0]].append((conv(x_dict[et[0]], x_dict[et[2]], plans[et]), 1))
+        result: Dict[str, torch.Tensor] = {}
+        for t, outs in contributions.items():
+            if outs:
+                total = outs[0][0]
+                for arr, _w in outs[1:]:
+                    total = total + arr
+                result[t] = total / sum(w for _arr, w in outs)
+            else:
+                result[t] = self.selfs[t](x_dict[t])
+        return result

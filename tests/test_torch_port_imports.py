@@ -1,0 +1,77 @@
+"""The port imports nothing of JAX or of the JAX package, and its entry points
+never fall back to the CPU on their own."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "analysisgnn_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "analysisgnn_tpu")
+
+IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of these now raises ImportError
+import analysisgnn_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(analysisgnn_tpu_torch.__path__, "analysisgnn_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in {FORBIDDEN!r})
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip().splitlines()[-1]) >= 20  # every module of the port was imported
+
+
+def test_port_sources_name_no_jax_import():
+    pattern = re.compile(
+        r"^\s*(?:import|from)\s+(?:" + "|".join(FORBIDDEN) + r")\b(?!_)"
+        r"|import_module\(\s*['\"](?:" + "|".join(FORBIDDEN) + r")\b(?!_)",
+        re.MULTILINE,
+    )
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 20
+    offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
+    assert not offenders, offenders
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CPU-only refusal cannot be shown here")
+
+
+def test_predict_without_device_cpu_raises_instead_of_running_on_cpu():
+    _no_cuda()
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.inference.predict import predict_score_ids
+    from analysisgnn_tpu_torch.models.analysis import model_from_config
+
+    cfg = {"num_layers": 1, "hidden_channels": 8, "out_channels": 4, "in_channels": 25}
+    model = model_from_config(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        predict_score_ids(model, synthetic_score(20), add_beats=False, add_measures=False)
+    with pytest.raises(ValueError, match="model is on"):
+        predict_score_ids(model, synthetic_score(20), device="meta")
+
+
+def test_cli_without_device_cpu_raises(tmp_path):
+    _no_cuda()
+    from analysisgnn_tpu_torch.cli.predict import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--checkpoint_dir", str(tmp_path), "--score", str(tmp_path / "x.musicxml")])
