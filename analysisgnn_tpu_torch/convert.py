@@ -1,4 +1,5 @@
-"""Convert a JAX analysis-model parameter tree into the port's state dict.
+"""Convert a JAX analysis-model parameter tree into the port's state dict,
+and back.
 
 The caller hands over the flax tree as nested dicts of numpy arrays (reading
 an Orbax checkpoint needs JAX, so it stays outside this package).  Layout
@@ -98,3 +99,61 @@ def state_dict_from_flax(params: Mapping, cfg: Mapping) -> Dict[str, torch.Tenso
     if layers != set(range(cfg["num_layers"])):
         raise ValueError(f"parameter tree has encoder layers {sorted(layers)}, config says {cfg['num_layers']}")
     return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def trainables_from_flax(params: Mapping, mt_params, cfg: Mapping) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """``(state dict, mt_params)`` of the port for the trainables of a JAX
+    ``TrainState`` (``state.params``, ``state.mt_params``)."""
+    return state_dict_from_flax(params, cfg), torch.tensor(np.asarray(mt_params, np.float32))
+
+
+def _conv_path(rest: str) -> Tuple[str, ...]:
+    kind, name, *leaf = rest.split(".")
+    if kind == "fused":
+        return (f"fused_{name}", *leaf)
+    if kind == "convs":
+        return (f"conv_{name}", leaf[0], {"weight": "kernel", "bias": "bias"}[leaf[1]])
+    if kind == "selfs":
+        return (f"self_{name}", {"weight": "kernel", "bias": "bias"}[leaf[0]])
+    raise KeyError(f"unexpected hetero-conv parameter {rest}")
+
+
+def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+    """The flax ``AnalysisGNN`` parameter tree (the inner dict, numpy leaves)
+    of a port state dict: the inverse of :func:`state_dict_from_flax`."""
+    tree: Dict[str, object] = {}
+
+    def put(path: Tuple[str, ...], v: np.ndarray) -> None:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+
+    dense_leaf = {"weight": "kernel", "bias": "bias"}
+    for key, t in state_dict.items():
+        v = t.detach().cpu().numpy()
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "weight" and v.ndim == 2 and "embedding" not in key:
+            v = v.T  # torch Linear [out, in] -> flax Dense kernel [in, out]
+        m = re.fullmatch(r"encoder\.jk\.(fwd|bwd)\.(ih|hh)\.(weight|bias)", key)
+        if key.endswith("_embedding.weight"):
+            put((key.split(".")[0], "embedding"), v)
+        elif m:
+            cell = {"fwd": "OptimizedLSTMCell_0", "bwd": "OptimizedLSTMCell_1"}[m.group(1)]
+            for gate, part in zip(GATES, np.split(v, 4, axis=-1)):
+                put(("encoder", "jk", cell, f"{m.group(2)[0]}{gate}", dense_leaf[m.group(3)]), part)
+        elif key.startswith("encoder.jk.attn."):
+            put(("encoder", "jk", "Dense_0", dense_leaf[leaf]), v)
+        elif key.startswith("project_enc.dense."):
+            put(("project_enc", "Dense_0", dense_leaf[leaf]), v)
+        elif key.startswith("project."):
+            put((f"project_{key.split('.')[1]}", "Dense_0", dense_leaf[leaf]), v)
+        elif key.startswith("heads.clf."):
+            put(("heads", "clf", leaf), v)
+        elif m := re.fullmatch(r"encoder\.layers\.(\d+)\.(.+)", key):
+            put(("encoder", f"layer_{m.group(1)}", *_conv_path(m.group(2))), v)
+        elif key.startswith("encoder.final."):
+            put(("encoder", "final", *_conv_path(key[len("encoder.final."):])), v)
+        else:
+            raise KeyError(f"no flax path for port parameter {key}")
+    return tree

@@ -107,6 +107,11 @@ class HeteroGraph:
     def edges(self, et: EdgeType) -> torch.Tensor:
         return self.edge_index[et]
 
+    def target_mask(self) -> torch.Tensor:
+        """``[N_cap]`` bool: the target notes, which come first."""
+        x = self.node_features[NOTE]
+        return torch.arange(x.shape[0], device=x.device) < self.num_target_nodes
+
     @staticmethod
     def from_numpy(
         node_features: Mapping[str, np.ndarray],

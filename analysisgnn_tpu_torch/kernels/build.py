@@ -6,7 +6,7 @@ The library lands in ``analysisgnn_tpu_torch/_build/`` (ignored by git), keyed
 by a hash of the source and the flags.  It is written under a temporary name
 and renamed into place, so a killed build leaves neither a half-written
 library nor a lock behind.  Nothing is built at import time: the first launch
-builds, or a caller builds up front with :func:`build`.
+builds, or a caller builds up front with :func:`build` or :func:`build_all`.
 """
 
 from __future__ import annotations
@@ -17,8 +17,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -69,6 +70,14 @@ def build(name: str) -> Tuple[float, str]:
         raise RuntimeError(f"CUDA build of {name} failed (nvcc exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
     return seconds, proc.stdout
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Tuple[float, str]]:
+    """:func:`build` for several sources at once: one ``nvcc`` each, all
+    started together."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

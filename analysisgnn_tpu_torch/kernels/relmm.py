@@ -1,0 +1,140 @@
+"""K3: relation-weighted matmul ``out[n] = sum_t alpha[t, n] * (x[n] @ w[t])``
+and its gradients, as hand-written CUDA kernels.
+
+Replaces the Pallas TPU kernels of
+``analysisgnn_tpu/kernels/pallas_relmm.py::relation_weighted_matmul`` (forward
+and the ``_dwa_kernel`` backward).  The CUDA source is
+``csrc/relation_weighted_matmul.cu``, built with ``nvcc`` for ``sm_90a`` and
+loaded with ctypes (``kernels/build.py``).  It is the base term of the
+edge-layout fused SAGE (``models/fused.py``, ``conv_impl="edge-zxp"``).
+
+Backward: ``dx`` is the forward kernel with a contiguous ``[T, G, F]`` copy of
+``w^T``; ``dw[t] = (alpha_t * x)^T g`` and ``d alpha[t, n] = <x[n] @ w[t], g[n]>``
+have kernels of their own.  Each kernel launches only when autograd asks for
+its gradient.
+
+Bound on the H100: operations (``2*T*N*F*G`` f32 multiply-adds per kernel
+against a few tens of MB moved).
+
+On a CPU tensor the wrapper computes the plain version (``torch.einsum``,
+gradients by autograd); on a CUDA tensor it launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from analysisgnn_tpu_torch.kernels import build
+
+_NAME = "relation_weighted_matmul"
+
+
+def relation_weighted_matmul_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: one einsum, gradients by autograd."""
+    return torch.einsum("tn,nf,tfg->ng", alpha, x, w)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> None:
+    if not (x.dtype == w.dtype == alpha.dtype == torch.float32):
+        raise TypeError(f"x, w and alpha must be float32, got {x.dtype}, {w.dtype}, {alpha.dtype}")
+    if x.dim() != 2 or w.dim() != 3 or alpha.dim() != 2:
+        raise ValueError("expected x [N, F], w [T, F, G], alpha [T, N]")
+    n, f = x.shape
+    t = w.shape[0]
+    if w.shape[1] != f or tuple(alpha.shape) != (t, n):
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(w.shape)}, alpha {tuple(alpha.shape)}")
+    if not (x.device == w.device == alpha.device):
+        raise ValueError("x, w and alpha must be on one device")
+
+
+def _launcher():
+    lib = build.load(_NAME)
+    if lib.rwm_forward_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.rwm_forward_launch, lib.rwm_dw_launch, lib.rwm_dalpha_launch):
+            fn.argtypes = [p, p, p, p, ctypes.c_int64, i, i, i, p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(fn_name: str, out_shape, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, n: int, f: int, g: int, t: int):
+    """Launch one of the three kernels on the current stream into a fresh output."""
+    a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
+    with torch.cuda.device(a.device):
+        out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = getattr(_launcher(), fn_name)(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), n, f, g, t, stream)
+    if rc != 0:
+        raise RuntimeError(f"{_NAME} kernel {fn_name} failed to launch: cudaError {rc}")
+    return out
+
+
+def rwm_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The forward kernel: ``[N, G]``."""
+    n, f = x.shape
+    t, _, g = w.shape
+    out = _launch("rwm_forward_launch", (n, g), x, w, alpha, n, f, g, t)
+    relation_weighted_matmul.launches += 1
+    return out
+
+
+def rwm_dx(gout: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """``dx [N, F]``: the forward kernel on ``gout`` with a contiguous ``w^T``."""
+    n, g = gout.shape
+    t, f, _ = w.shape
+    out = _launch("rwm_forward_launch", (n, f), gout, w.transpose(1, 2), alpha, n, g, f, t)
+    relation_weighted_matmul.dx_launches += 1
+    return out
+
+
+def rwm_dw(x: torch.Tensor, gout: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """``dw [T, F, G]``."""
+    n, f = x.shape
+    t, g = alpha.shape[0], gout.shape[1]
+    out = _launch("rwm_dw_launch", (t, f, g), x, gout, alpha, n, f, g, t)
+    relation_weighted_matmul.dw_launches += 1
+    return out
+
+
+def rwm_dalpha(x: torch.Tensor, w: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
+    """``d alpha [T, N]``."""
+    n, f = x.shape
+    t, _, g = w.shape
+    out = _launch("rwm_dalpha_launch", (t, n), x, w, gout, n, f, g, t)
+    relation_weighted_matmul.dalpha_launches += 1
+    return out
+
+
+class _RelationWeightedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, alpha):
+        ctx.save_for_backward(x, w, alpha)
+        return rwm_forward(x, w, alpha)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, w, alpha = ctx.saved_tensors
+        dx = rwm_dx(gout, w, alpha) if ctx.needs_input_grad[0] else None
+        dw = rwm_dw(x, gout, alpha) if ctx.needs_input_grad[1] else None
+        dalpha = rwm_dalpha(x, w, gout) if ctx.needs_input_grad[2] else None
+        return dx, dw, dalpha
+
+
+def relation_weighted_matmul(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """``[N, G] = sum_t alpha[t, :, None] * (x @ w[t])`` without the
+    ``[T, N, G]`` intermediate.  Counters: ``relation_weighted_matmul.launches``
+    (forward), ``.dx_launches``, ``.dw_launches``, ``.dalpha_launches``."""
+    _check(x, w, alpha)
+    if x.device.type == "cpu":
+        return relation_weighted_matmul_plain(x, w, alpha)
+    if x.device.type != "cuda":
+        raise ValueError(f"relation_weighted_matmul runs on cpu or cuda tensors, got {x.device}")
+    return _RelationWeightedMatmul.apply(x, w, alpha)
+
+
+relation_weighted_matmul.launches = 0
+relation_weighted_matmul.dx_launches = 0
+relation_weighted_matmul.dw_launches = 0
+relation_weighted_matmul.dalpha_launches = 0

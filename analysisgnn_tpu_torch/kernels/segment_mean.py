@@ -16,7 +16,10 @@ each message once, walks contiguous edge ranges from CSR row pointers with
 16-byte loads, and writes each output row once, with no atomics.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises.  Either way the result carries gradients
+through one ``torch.autograd.Function`` whose backward is plain PyTorch (a
+gather and a sum, as the JAX package's XLA backward); padding edges get a
+zero gradient.
 """
 
 from __future__ import annotations
@@ -52,9 +55,18 @@ def plan_segments(seg: torch.Tensor, gather: torch.Tensor, num_segments: int, ba
     )
 
 
+def spread_rows(num_edges: int, num_rows: int, device) -> torch.Tensor:
+    """Message rows for padding edges: ``i mod num_rows``.  Padding messages
+    are never read and get a zero gradient, so any row will do; spreading
+    them keeps the gather's backward from adding thousands of zeros into one
+    row, which serializes (a single clamped row made the train step 3x slower
+    on the H100)."""
+    return torch.arange(num_edges, device=device) % num_rows
+
+
 def aggregate(plan: SegmentPlan, rows: torch.Tensor, x_base: torch.Tensor) -> torch.Tensor:
     """Gather each sorted edge's message from ``rows`` and reduce it."""
-    out, _ = segment_mean_base(rows[plan.gather], plan.seg, x_base, plan.num_segments)
+    out, _ = segment_mean_base(rows.index_select(0, plan.gather), plan.seg, x_base, plan.num_segments)
     return out
 
 
@@ -86,16 +98,7 @@ def _check(msgs, seg_sorted, x_base, num_segments) -> None:
         raise ValueError("msgs, seg_sorted and x_base must be contiguous")
 
 
-def segment_mean_base(
-    msgs: torch.Tensor, seg_sorted: torch.Tensor, x_base: torch.Tensor, num_segments: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out [S, F], counts [S])`` for ascending ``seg_sorted``; see the module
-    docstring.  ``segment_mean_base.launches`` counts kernel launches."""
-    _check(msgs, seg_sorted, x_base, num_segments)
-    if msgs.device.type == "cpu":
-        return segment_mean_base_plain(msgs, seg_sorted, x_base, num_segments)
-    if msgs.device.type != "cuda":
-        raise ValueError(f"segment_mean_base runs on cpu or cuda tensors, got {msgs.device}")
+def _launch(msgs, seg_sorted, x_base, num_segments):
     lib = _launcher()
     f = msgs.shape[1]
     with torch.cuda.device(msgs.device):
@@ -113,6 +116,50 @@ def segment_mean_base(
         raise RuntimeError(f"segment_mean_base kernel launch failed: cudaError {rc}")
     segment_mean_base.launches += 1
     return out, counts
+
+
+class _SegmentMeanBase(torch.autograd.Function):
+    """Forward: the kernel on the card, the plain version on the CPU.  Backward
+    (plain PyTorch, as the JAX package's ``_smb_bwd`` is plain XLA): with
+    ``gd = g / max(count, 1)``, ``d msgs = gd[seg]`` and ``d x_base`` sums
+    ``gd`` over the relation blocks.  Padding edges (``seg >= num_segments``)
+    get a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, msgs, seg_sorted, x_base, num_segments):
+        if msgs.device.type == "cpu":
+            out, counts = segment_mean_base_plain(msgs, seg_sorted, x_base, num_segments)
+        else:
+            out, counts = _launch(msgs, seg_sorted, x_base, num_segments)
+        ctx.save_for_backward(seg_sorted, counts)
+        ctx.num_segments, ctx.base_rows = num_segments, x_base.shape[0]
+        ctx.mark_non_differentiable(counts)
+        return out, counts
+
+    @staticmethod
+    def backward(ctx, g, _g_counts):
+        seg, counts = ctx.saved_tensors
+        gd = g / counts.clamp_min(1.0)[:, None]
+        d_msgs = d_base = None
+        if ctx.needs_input_grad[0]:
+            # a zero row past the end takes every padding edge
+            padded = torch.cat([gd, gd.new_zeros((1, gd.shape[1]))])
+            d_msgs = padded[seg.long().clamp(max=ctx.num_segments)]
+        if ctx.needs_input_grad[2]:
+            d_base = gd.view(-1, ctx.base_rows, gd.shape[1]).sum(0)
+        return d_msgs, None, d_base, None
+
+
+def segment_mean_base(
+    msgs: torch.Tensor, seg_sorted: torch.Tensor, x_base: torch.Tensor, num_segments: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out [S, F], counts [S])`` for ascending ``seg_sorted``; see the module
+    docstring.  Differentiable in ``msgs`` and ``x_base`` on both devices.
+    ``segment_mean_base.launches`` counts kernel launches."""
+    _check(msgs, seg_sorted, x_base, num_segments)
+    if msgs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_mean_base runs on cpu or cuda tensors, got {msgs.device}")
+    return _SegmentMeanBase.apply(msgs, seg_sorted, x_base, num_segments)
 
 
 segment_mean_base.launches = 0

@@ -1,4 +1,4 @@
-"""The multi-task score-analysis model at inference (counterpart of
+"""The multi-task score-analysis model (counterpart of
 ``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN encoder,
 single-Linear projections, no logit fusion and no RNN).
 
@@ -11,12 +11,12 @@ onto the embeddings; a projection; the fused task heads.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType, metadata
+from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType, metadata, resolve_device
 from analysisgnn_tpu_torch.models.conv import sage_plan
 from analysisgnn_tpu_torch.kernels.segment_mean import aggregate
 from analysisgnn_tpu_torch.models.encoders import HybridGNN
@@ -55,8 +55,11 @@ class AnalysisGNN(nn.Module):
         num_layers: int = 3,
         use_jk: bool = True,
         final_norm: bool = True,
+        dropout: float = 0.0,
+        conv_impl: str = "node",
     ):
         super().__init__()
+        self.conv_impl = conv_impl
         self.node_types = tuple(node_types)
         self.edge_types = tuple(edge_types)
         self.task_dict = tuple(task_dict)
@@ -69,7 +72,8 @@ class AnalysisGNN(nn.Module):
             }
         )
         self.encoder = HybridGNN(
-            hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm
+            hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm,
+            dropout=dropout, conv_impl=conv_impl,
         )
         self.project_enc = PlainProjection(2 * hidden_channels, out_channels)
         self.heads = TaskHeads(self.task_dict, out_channels)
@@ -81,8 +85,11 @@ class AnalysisGNN(nn.Module):
         pitch_spelling: torch.Tensor,
         key_signature: torch.Tensor,
         num_target_nodes: int,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Note embeddings ``[N_cap, out_channels]``."""
+        """Note embeddings ``[N_cap, out_channels]``.  Dropout runs between the
+        encoder layers unless ``deterministic``, drawn from ``generator``."""
         emb = torch.cat(
             [
                 x_dict[NOTE],
@@ -95,9 +102,9 @@ class AnalysisGNN(nn.Module):
         for t, x in x_dict.items():
             if t != NOTE and t in self.project:
                 h[t] = self.project[t](x)
-        # every K1 edge order of this graph, sorted once for all layers
-        plans = plan_hetero(edge_index_dict, self.edge_types, {t: v.shape[0] for t, v in h.items()})
-        x = self.encoder(h, plans)
+        # every edge order / edge stack of this graph, built once for all layers
+        plans = plan_hetero(edge_index_dict, self.edge_types, {t: v.shape[0] for t, v in h.items()}, self.conv_impl)
+        x = self.encoder(h, plans, deterministic, generator)
         n = x.shape[0]
         onset = restrict_edges_to_targets(edge_index_dict[(NOTE, "onset", NOTE)], num_target_nodes, n)
         x_pool = aggregate(sage_plan(onset, n, n), x, x)
@@ -113,8 +120,12 @@ class AnalysisGNN(nn.Module):
         pitch_spelling: torch.Tensor,
         key_signature: torch.Tensor,
         num_target_nodes: int,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        x = self.encode(x_dict, edge_index_dict, pitch_spelling, key_signature, num_target_nodes)
+        x = self.encode(
+            x_dict, edge_index_dict, pitch_spelling, key_signature, num_target_nodes, deterministic, generator
+        )
         return self.classify(x)
 
 
@@ -133,18 +144,21 @@ _SUPPORTED = {
     "plain_proj": (True,),
     "logit_fusion": (False,),
     "use_rnn": (False,),
-    "conv_impl": ("node",),
+    "conv_impl": ("node", "edge", "edge-zxp"),
+    "add_beats": (False, True),
+    "add_measures": (False, True),
 }
 
 
-def model_from_config(cfg: Mapping, device: "str | torch.device" = "cpu") -> AnalysisGNN:
+def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> AnalysisGNN:
     """The analysis model a ``model_config.json`` describes, with uninitialized
-    parameters (load a state dict or call :func:`init_parameters`)."""
+    parameters (load a state dict or call :func:`init_parameters`), on
+    ``device`` (the GPU unless the caller asks for the CPU)."""
     for key, allowed in _SUPPORTED.items():
         if key in cfg and cfg[key] not in allowed:
             raise NotImplementedError(f"model_config {key}={cfg[key]!r} is not ported (supported: {allowed})")
     nodes, edges = metadata(cfg.get("add_beats", False), cfg.get("add_measures", False))
-    with torch.device(device):
+    with torch.device(resolve_device(device)):
         return AnalysisGNN(
             nodes,
             edges,
@@ -155,6 +169,8 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cpu") -> Ana
             num_layers=cfg["num_layers"],
             use_jk=cfg.get("use_jk", True),
             final_norm=cfg.get("final_norm", False),
+            dropout=cfg.get("dropout", 0.3),
+            conv_impl=cfg.get("conv_impl", "node"),
         )
 
 

@@ -10,15 +10,17 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan, aggregate, plan_segments
+from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan, aggregate, plan_segments, spread_rows
 
 
 def sage_plan(edge_index: torch.Tensor, n_src: int, n_dst: int) -> SegmentPlan:
-    """Edge order of a single relation: segment ``src``, message row
-    ``min(dst, n_dst - 1)``.  Padding (``src >= n_src``) sorts past the last
-    segment, where the kernel never reads it."""
+    """Edge order of a single relation: segment ``src``, message row ``dst``.
+    Padding (``src >= n_src``) sorts past the last segment, where the kernel
+    never reads it; its message rows are spread (:func:`spread_rows`)."""
+    padding = edge_index[0] >= n_src
     seg = edge_index[0].clamp(max=n_src)
-    gather = edge_index[1].clamp(max=n_dst - 1)
+    spread = spread_rows(edge_index.shape[1], n_dst, edge_index.device)
+    gather = torch.where(padding, spread, edge_index[1].clamp(max=n_dst - 1))
     return plan_segments(seg, gather, n_src, n_src)
 
 

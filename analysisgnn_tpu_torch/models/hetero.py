@@ -2,14 +2,15 @@
 the fused-SAGE path with mean reduction across edge types).
 
 A node type with two or more same-type relations gets one
-:class:`FusedHeteroSage` over all of them; every other relation gets its own
-:class:`SageConv`.  A node type's next state is the mean of the contributions
-of the relations whose source it is; a type with none gets a plain Linear.
+:class:`FusedHeteroSage` over all of them, in the layout ``conv_impl`` names
+(``models/fused.py``); every other relation gets its own :class:`SageConv`.
+A node type's next state is the mean of the contributions of the relations
+whose source it is; a type with none gets a plain Linear.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -17,7 +18,7 @@ from torch import nn
 from analysisgnn_tpu_torch.core.graph import EdgeType, edge_type_key
 from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan
 from analysisgnn_tpu_torch.models.conv import SageConv, sage_plan
-from analysisgnn_tpu_torch.models.fused import FusedHeteroSage, fused_plan
+from analysisgnn_tpu_torch.models.fused import EdgePlan, FusedHeteroSage, edge_plan, fused_plan
 
 
 def fusion_groups(edge_types: Sequence[EdgeType]) -> Tuple[Dict[str, List[EdgeType]], List[EdgeType]]:
@@ -35,12 +36,16 @@ def plan_hetero(
     edge_index_dict: Mapping[EdgeType, torch.Tensor],
     edge_types: Sequence[EdgeType],
     capacities: Mapping[str, int],
-) -> Dict[object, SegmentPlan]:
-    """Every K1 edge order one hetero layer needs, keyed by node type (fused
-    groups) or edge type (single relations).  The same for every layer."""
+    conv_impl: str = "node",
+) -> Dict[object, Union[SegmentPlan, EdgePlan]]:
+    """Every plan one hetero layer needs, keyed by node type (fused groups:
+    a K1 edge order for ``conv_impl="node"``, the stacked ``[T, E_max]``
+    edges otherwise) or edge type (single relations: a K1 edge order).  The
+    same for every layer, so it is built once per graph."""
     groups, singles = fusion_groups(edge_types)
-    plans: Dict[object, SegmentPlan] = {
-        t: fused_plan([edge_index_dict[et] for et in rels], capacities[t]) for t, rels in groups.items()
+    make = fused_plan if conv_impl == "node" else edge_plan
+    plans: Dict[object, Union[SegmentPlan, EdgePlan]] = {
+        t: make([edge_index_dict[et] for et in rels], capacities[t]) for t, rels in groups.items()
     }
     for et in singles:
         plans[et] = sage_plan(edge_index_dict[et], capacities[et[0]], capacities[et[2]])
@@ -48,17 +53,21 @@ def plan_hetero(
 
 
 class HeteroConv(nn.Module):
-    def __init__(self, in_features: int, out_features: int, node_types: Sequence[str], edge_types: Sequence[EdgeType]):
+    def __init__(
+        self, in_features: int, out_features: int, node_types: Sequence[str], edge_types: Sequence[EdgeType],
+        conv_impl: str = "node",
+    ):
         super().__init__()
         self.groups, self.singles = fusion_groups(edge_types)
-        self.fused = nn.ModuleDict(
-            {t: FusedHeteroSage(in_features, out_features, len(rels), reduce="sum") for t, rels in self.groups.items()}
-        )
+        self.fused = nn.ModuleDict({
+            t: FusedHeteroSage(in_features, out_features, len(rels), reduce="sum", impl=conv_impl)
+            for t, rels in self.groups.items()
+        })
         self.convs = nn.ModuleDict({edge_type_key(et): SageConv(in_features, out_features) for et in self.singles})
         sources = set(self.groups) | {et[0] for et in self.singles}
         self.selfs = nn.ModuleDict({t: nn.Linear(in_features, out_features) for t in node_types if t not in sources})
 
-    def forward(self, x_dict: Dict[str, torch.Tensor], plans: Mapping[object, SegmentPlan]) -> Dict[str, torch.Tensor]:
+    def forward(self, x_dict: Dict[str, torch.Tensor], plans: Mapping[object, object]) -> Dict[str, torch.Tensor]:
         contributions: Dict[str, list] = {t: [] for t in x_dict}
         for t, rels in self.groups.items():
             contributions[t].append((self.fused[t](x_dict[t], plans[t]), len(rels)))

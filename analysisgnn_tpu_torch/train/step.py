@@ -1,0 +1,162 @@
+"""The multi-task train step (counterpart of ``analysisgnn_tpu/train/step.py``:
+``StepConfig``, ``compute_losses`` with the wloss combiner and the feature-norm
+loss, the step body with its NaN/Inf skip, ``make_train_step`` and the K-step
+``make_train_step_multi`` as a plain loop).
+
+Distillation, EWC, the edge-consistency loss, SMOTE, FAMO and bf16 compute
+come with the Trainer (ROADMAP queue 1 item 7); a config asking for one of
+them is refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph
+from analysisgnn_tpu_torch.train.losses import masked_cross_entropy, multi_task_loss
+from analysisgnn_tpu_torch.train.state import ClippedAdamW, TrainState
+
+# task -> its extra validity-mask attribute
+TASK_MASK_ATTRS: Dict[str, str] = {
+    "cadence": "valid_cadence_label",
+    "phrase": "valid_phrase_label",
+    "organ_point": "valid_organ_point_label",
+    "section": "valid_section_start_label",
+}
+
+_LATER = "is not ported yet: it comes with the Trainer slice (ROADMAP queue 1 item 7)"
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    task_dict: Tuple[Tuple[str, int], ...]  # all heads
+    active_tasks: Tuple[str, ...]  # tasks with labels in this dataset
+    previous_tasks: Tuple[str, ...] = ()  # distillation targets (refused)
+    mt_strategy: str = "wloss"  # "wloss", or any other name for the plain sum ("famo" refused)
+    lambda_featl: float = 0.1
+    label_smoothing: float = 0.1
+    use_ewc: bool = False  # refused
+    use_edge_loss: bool = False  # refused
+    use_smote: bool = False  # refused
+    compute_dtype: str = "float32"  # "bfloat16" refused
+
+    def __post_init__(self):
+        refused = {
+            "previous_tasks (distillation)": bool(self.previous_tasks),
+            "mt_strategy='famo'": self.mt_strategy == "famo",
+            "use_ewc": self.use_ewc,
+            "use_edge_loss": self.use_edge_loss,
+            "use_smote": self.use_smote,
+            f"compute_dtype={self.compute_dtype!r}": self.compute_dtype != "float32",
+        }
+        for name, on in refused.items():
+            if on:
+                raise NotImplementedError(f"StepConfig {name} {_LATER}")
+
+
+def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    correct = (logits.argmax(-1) == labels).float() * weight.float()
+    return correct.sum() / weight.float().sum().clamp_min(1.0)
+
+
+def _task_weights(batch: HeteroGraph, cfg: StepConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``target & valid_label`` as the base weight, and per task the base
+    weight with the task's own validity mask."""
+    attrs = batch.node_attrs[NOTE]
+    base = batch.target_mask()
+    if "valid_label" in attrs:
+        base = base & attrs["valid_label"].bool()
+    weights = {}
+    for task in cfg.active_tasks:
+        mask_attr = TASK_MASK_ATTRS.get(task)
+        weights[task] = base & attrs[mask_attr].bool() if mask_attr in attrs else base
+    return base, weights
+
+
+def compute_losses(
+    model: nn.Module,
+    mt_params: torch.Tensor,
+    batch: HeteroGraph,
+    cfg: StepConfig,
+    deterministic: bool,
+    generator: Optional[torch.Generator] = None,
+):
+    """Forward and loss assembly: ``(task total, feature loss, task losses,
+    metrics)``."""
+    task_sizes = dict(cfg.task_dict)
+    attrs = batch.node_attrs[NOTE]
+    base_w, task_w = _task_weights(batch, cfg)
+    x = model.encode(
+        batch.node_features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
+        batch.num_target_nodes, deterministic, generator,
+    )
+    # feature-norm regularizer over the valid target rows
+    fw = base_w.float()
+    feature_loss = ((x.float() ** 2).sum(-1) * fw).sum() / (fw.sum() * x.shape[-1]).clamp_min(1.0)
+    logits = model.classify(x)
+    task_losses: Dict[str, torch.Tensor] = {}
+    metrics: Dict[str, torch.Tensor] = {}
+    for task in cfg.active_tasks:
+        n_cls = task_sizes[task]
+        labels = attrs[task]
+        labels = torch.where(labels < n_cls, labels, 0)  # out-of-range labels -> 0
+        w = task_w[task]
+        task_losses[task] = masked_cross_entropy(logits[task], labels, w, cfg.label_smoothing)
+        metrics[f"{task}_acc"] = masked_accuracy(logits[task], labels, w)
+        metrics[f"{task}_acc__w"] = w.sum().float()
+    # the weighted task losses are summed, NOT divided by the task count
+    total = multi_task_loss(task_losses, mt_params, tuple(t for t, _ in cfg.task_dict), cfg.mt_strategy)
+    return total, feature_loss, task_losses, metrics
+
+
+def make_train_step(
+    model: nn.Module, optimizer: ClippedAdamW, cfg: StepConfig
+) -> Callable[[TrainState, HeteroGraph], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """``step(state, batch) -> (state, aux)``: one optimizer update of the
+    model's parameters (in place) and of ``state``."""
+    params = list(model.parameters())
+
+    def step_body(state: TrainState, batch: HeteroGraph) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        trainables = [*params, state.mt_params]
+        total, feature_loss, task_losses, metrics = compute_losses(
+            model, state.mt_params, batch, cfg, False, state.generator
+        )
+        loss = total + cfg.lambda_featl * feature_loss
+        grads = torch.autograd.grad(loss, trainables, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainables, grads)]
+        # NaN/Inf-loss skip: params, mt_params and the optimizer stay as they
+        # were; the step count and the generator still advance
+        finite = bool(torch.isfinite(loss))
+        if finite:
+            optimizer.update(trainables, grads, state.opt_state)
+        state.step += 1
+        aux = {
+            "total_loss": loss,
+            "task_loss": total,
+            "feature_loss": feature_loss,
+            **{f"{k}_loss": v for k, v in task_losses.items()},
+            **metrics,
+        }
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["skipped_nonfinite"] = torch.tensor(0.0 if finite else 1.0, device=loss.device)
+        return state, aux
+
+    return step_body
+
+
+def make_train_step_multi(
+    model: nn.Module, optimizer: ClippedAdamW, cfg: StepConfig
+) -> Callable[[TrainState, Sequence[HeteroGraph]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """``step(state, batches) -> (state, auxes)``: K updates, one per batch,
+    with every aux value stacked ``[K]``."""
+    body = make_train_step(model, optimizer, cfg)
+
+    def train_step_multi(state: TrainState, batches: Sequence[HeteroGraph]):
+        auxes = [body(state, b)[1] for b in batches]
+        return state, {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+    return train_step_multi

@@ -1,12 +1,15 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
 Phases, each on its own line with elapsed seconds:
   1. environment: torch / CUDA versions, the card's name and power limit,
      TF32 off for matmuls and cuDNN;
-  2. build: K1's CUDA source analysisgnn_tpu_torch/csrc/segment_mean_base.cu
-     with nvcc into the git-ignored analysisgnn_tpu_torch/_build/;
+  2. build: the CUDA sources of K1 (analysisgnn_tpu_torch/csrc/
+     segment_mean_base.cu) and K3 (csrc/relation_weighted_matmul.cu), one
+     nvcc each, started together, into the git-ignored
+     analysisgnn_tpu_torch/_build/;
   3. kernel check: K1 (segment_mean_base) against its plain PyTorch version on
      the card, at the shapes of the largest request (the fused 7-relation note
      layer and onset pooling, F=256) and at edge cases (padding ids, empty
@@ -19,13 +22,33 @@ Phases, each on its own line with elapsed seconds:
      are held against the port on the CPU (plain versions, same weights);
   5. trace: one more 20,000-note request under torch.profiler, with the host
      time of the request's stages (the predict.* spans), the device's busy
-     share of the request and its kernels by device time.
+     share of the request and its kernels by device time;
+  6. train corpus: the 8 synthetic 2,000-note scores of bench.py with beats,
+     measures and random labels for the 21 tasks, sampled by the port's
+     SubgraphSampler (500-note subgraphs x 8, neighbours (5, 5), src-sorted);
+  7. K3 check: relation_weighted_matmul's forward, dx, dw and d alpha kernels
+     against the plain version's value and autograd gradients, at the train
+     step's shape (N = the batch's note capacity, F = G = 256, T = 7) and at
+     edge cases, with median times of each kernel, the plain version and a
+     torch.einsum yardstick, beside the operations bound; K1's gradient
+     through the CUDA kernel against the plain version's at the fused-layer
+     shape, padding edges included;
+  8. train: the full-width HybridGNN train step of bench.py (dropout 0.3,
+     wloss, AdamW + clip 1.0, warmup-cosine 5e-3, torch-style init seed 0)
+     with conv_impl "edge-zxp" (K3 base term) and "node" (K1): ms per step,
+     valid message edges per second, K3 and K1 launches per step against the
+     code's prediction, a finite loss that falls over 20 steps on one batch;
+     then one step on the GPU against the same step on the CPU (plain
+     versions, same weights and batch, dropout 0);
+  9. train trace: one edge-zxp step under torch.profiler, with the device's
+     busy share of the step and its kernels by device time.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,6 +66,30 @@ LOGIT_ATOL = 1e-3  # GPU vs CPU logits of the whole model at full width
 REQUEST_NOTES = (2000, 8000, 20000)
 BUCKET_FACTOR = 1.25
 REPEATS = 3
+# K3 kernel vs plain, elementwise, relative to the same contraction of the
+# absolute values (the sum of |terms|, which bounds f32 rounding): sums of
+# up to T*F = 1,792 (forward, dx), N = 5,376 (dw) or F*G = 65,536 (d alpha)
+# terms in another order; a random walk of K roundings is about
+# sqrt(K) * 6e-8 = 4.4e-6 of it at K = 5,376, a wrong index is O(1)
+K3_RTOL = 1e-4
+# the train workload of bench.py: HybridGNN 3 x 256 -> 128 over 500-note x 8 subgraphs
+TRAIN_CFG = {"model": "HybridGNN", "num_layers": 3, "hidden_channels": 256, "out_channels": 128, "in_channels": 25,
+             "use_jk": True, "final_norm": True, "plain_proj": True, "dropout": 0.3,
+             "add_beats": True, "add_measures": True}
+TIMED_STEPS = {"edge-zxp": 6, "node": 3}
+FALL_STEPS = 20
+# GPU vs CPU after one train step at the constant rate PARITY_LR, with the
+# optimizer's eps raised to PARITY_EPS: Adam's first step moves every
+# coordinate by +-lr whatever its gradient's size, so a coordinate whose true
+# gradient is zero (the JK attention bias: the softmax over layers ignores
+# it) moves by +-lr on rounding noise, differently on each device; with
+# eps = 1 the update is lr * g / (|g| + 1), linear in the gradient, and the
+# parameters check the gradients.  The loss relative (the same f32 model in
+# another summation order); every parameter absolute: the largest parameters
+# (embeddings drawn from N(0, 1), up to about 5) have an f32 spacing of
+# 4.8e-7, so the tolerance allows two roundings of the updated value.
+PARITY_LR, PARITY_EPS = 5e-3, 1.0
+PARITY_LOSS_RTOL, PARITY_PARAM_ATOL = 1e-5, 1e-6
 
 
 def phase(msg: str) -> None:
@@ -85,12 +132,14 @@ def environment() -> str:
 def build_kernels() -> None:
     from analysisgnn_tpu_torch.kernels import build
 
-    name = "segment_mean_base"
-    seconds, log = build.build(name)
-    phase(f"build: {name} nvcc {seconds:.2f}s -> {build.library_path(name).name}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            phase(f"build:   {line.strip()}")
+    t = time.perf_counter()
+    built = build.build_all(["segment_mean_base", "relation_weighted_matmul"])
+    for name, (seconds, log) in built.items():
+        phase(f"build: {name} nvcc {seconds:.2f}s -> {build.library_path(name).name}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                phase(f"build:   {line.strip()}")
+    phase(f"build: both sources in {time.perf_counter() - t:.2f}s wall")
 
 
 def k1_bound_ms(e_valid: int, f: int, m: int, s: int) -> tuple:
@@ -294,8 +343,344 @@ def trace(model, notes: int, top: int = 10) -> None:
         phase(f"trace:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
 
+# ----------------------------------------------------------------- training
+
+
+def k3_bound_ms(n: int, f: int, g: int, t: int) -> tuple:
+    """Least time for one K3 kernel's work: 2*T*N*F*G f32 operations (each of
+    the forward, dx, dw and d alpha does as many), or its inputs read and
+    its output written once."""
+    ops = 2 * t * n * f * g
+    bytes_moved = 4 * (n * f + t * f * g + t * n + n * g)
+    t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dict:
+    """K3's four kernels against the plain version (value and autograd
+    gradients) on the same inputs; with ``timed``, medians of each kernel,
+    the plain version and a torch.einsum yardstick."""
+    from analysisgnn_tpu_torch.kernels import relmm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(n * 7 + t)
+    x = torch.randn(n, f, generator=gen).to(dev)
+    w = (torch.randn(t, f, g, generator=gen) / f**0.5).to(dev)
+    alpha = torch.rand(t, n, generator=gen).to(dev)
+    gout = torch.randn(n, g, generator=gen).to(dev)
+    leaves = [v.clone().requires_grad_(True) for v in (x, w, alpha)]
+    out = relmm.relation_weighted_matmul(*leaves)
+    got = (out.detach(), *torch.autograd.grad(out, leaves, gout))
+    plain_leaves = [v.clone().requires_grad_(True) for v in (x, w, alpha)]
+    ref_out = relmm.relation_weighted_matmul_plain(*plain_leaves)
+    want = (ref_out.detach(), *torch.autograd.grad(ref_out, plain_leaves, gout, retain_graph=True))
+    # the sums of |terms| of each result, the scale of its rounding
+    abs_leaves = [v.abs().requires_grad_(True) for v in (x, w, alpha)]
+    abs_out = relmm.relation_weighted_matmul_plain(*abs_leaves)
+    scales = (abs_out.detach(), *torch.autograd.grad(abs_out, abs_leaves, gout.abs()))
+    torch.cuda.synchronize()
+    errs = {}
+    for part, a, b, sc in zip(("forward", "dx", "dw", "dalpha"), got, want, scales):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"K3 {name} {part}: shape {tuple(a.shape)} vs {tuple(b.shape)} or non-finite values")
+        err = (a - b).abs()
+        if not bool((err <= K3_RTOL * sc).all()):
+            worst = float((err / sc.clamp_min(1e-30)).max())
+            raise AssertionError(f"K3 {name} {part}: |kernel - plain| reaches {worst:.3e} of the sum of |terms| "
+                                 f"(tol {K3_RTOL})")
+        errs[part] = float(err.max())
+    row = {"case": name, "N": n, "F": f, "G": g, "T": t, "max_abs_err": errs}
+    line = (f"kernel check: K3 {name}: N={n} F={f} G={g} T={t} max|d| "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {K3_RTOL} of the sum of |terms|)")
+    if timed:
+        bound, bound_by = k3_bound_ms(n, f, g, t)
+        xp, wp, ap = plain_leaves
+        # the plain version's gradients, each one backward of its einsum graph
+        plain_grad = lambda leaf: (lambda: torch.autograd.grad(ref_out, leaf, gout, retain_graph=True))
+        parts = {
+            "forward": (lambda: relmm.rwm_forward(x, w, alpha),
+                        lambda: relmm.relation_weighted_matmul_plain(x, w, alpha),
+                        lambda: torch.einsum("tn,nf,tfg->ng", alpha, x, w)),
+            "dx": (lambda: relmm.rwm_dx(gout, w, alpha), plain_grad(xp),
+                   lambda: torch.einsum("tn,ng,tfg->nf", alpha, gout, w)),
+            "dw": (lambda: relmm.rwm_dw(x, gout, alpha), plain_grad(wp),
+                   lambda: torch.einsum("tn,nf,ng->tfg", alpha, x, gout)),
+            "dalpha": (lambda: relmm.rwm_dalpha(x, w, gout), plain_grad(ap),
+                       lambda: torch.einsum("nf,tfg,ng->tn", x, w, gout)),
+        }
+        row["timed"] = {}
+        for part, (kernel, plain, library) in parts.items():
+            r = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": errs[part]}
+            row["timed"][part] = r
+            line += (f"\nkernel check:   K3 {part}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, einsum "
+                     f"yardstick {r['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}, "
+                     f"{100 * bound / r['ms']:.1f}% of the kernel's time)")
+    for part in line.split("\n"):
+        phase(part)
+    return row
+
+
+def k3_checks(n_train: int) -> list:
+    rows = [check_k3("train shape", n_train, 256, 256, 7, timed=True)]
+    # N not a multiple of the 64-row tile; T=1; F != G, G not a tile multiple; F not a multiple of the 16-deep chunk
+    for name, n, f, g, t in (("N=300", 300, 256, 256, 7), ("T=1", 1000, 256, 256, 1),
+                             ("F=64 G=96", 300, 64, 96, 3), ("F=40 G=24", 77, 40, 24, 2)):
+        rows.append(check_k3(name, n, f, g, t, timed=False))
+    return rows
+
+
+def check_k1_backward(batch) -> dict:
+    """K1's gradient through the CUDA kernel against the plain version's
+    autograd, at the fused note layer's shape of a train batch (F = 256),
+    padding edges included."""
+    from analysisgnn_tpu_torch.core.graph import NOTE, NOTE_EDGE_TYPES
+    from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base, segment_mean_base_plain
+    from analysisgnn_tpu_torch.models.fused import fused_plan
+
+    n = batch.capacity(NOTE)
+    plan = fused_plan([batch.edges(et) for et in NOTE_EDGE_TYPES], n)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    e, f = plan.seg.shape[0], TRAIN_CFG["hidden_channels"]
+    msgs = torch.randn(e, f, generator=gen).cuda()
+    x_base = torch.randn(n, f, generator=gen).cuda()
+    g = torch.randn(plan.num_segments, f, generator=gen).cuda()
+    grads = {}
+    for name, fn in (("kernel", segment_mean_base), ("plain", segment_mean_base_plain)):
+        leaves = [msgs.clone().requires_grad_(True), x_base.clone().requires_grad_(True)]
+        out, _ = fn(leaves[0], plan.seg, leaves[1], plan.num_segments)
+        grads[name] = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    padding = plan.seg.long() >= plan.num_segments
+    worst = 0.0
+    for part, a, b in zip(("d msgs", "d x_base"), grads["kernel"], grads["plain"]):
+        err = (a - b).abs()
+        if not bool((err <= K1_RTOL * (1.0 + b.abs())).all()):
+            raise AssertionError(
+                f"K1 backward {part}: max |kernel - plain| = {float(err.max()):.3e} exceeds {K1_RTOL} rel")
+        worst = max(worst, float(err.max()))
+    if int(padding.sum()) == 0 or bool(grads["kernel"][0][padding].any()):
+        raise AssertionError("K1 backward: the batch has no padding edges, or they got a nonzero gradient")
+    phase(f"kernel check: K1 backward at the fused note layer: E={e} ({int(padding.sum())} padding) F={f} "
+          f"S={plan.num_segments}: max|d| {worst:.3e} (tol {K1_RTOL} rel), padding gradients exactly 0")
+    return {"E": e, "E_padding": int(padding.sum()), "F": f, "S": plan.num_segments, "max_abs_err": worst}
+
+
+def train_corpus():
+    """bench.py's corpus and sampler, built by the port."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.data.features import select_features
+    from analysisgnn_tpu_torch.data.graph_build import build_score_graph
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.data.sampler import SamplerConfig, ScoreSample, SubgraphSampler
+    from analysisgnn_tpu_torch.theory.encoders import KeySignatureEncoder, PitchEncoder
+    from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
+
+    samples = []
+    for s in range(8):
+        na = synthetic_score(num_notes=2000, seed=s)
+        feats = select_features(na, "voice")
+        g = build_score_graph(na, add_beats=True, add_measures=True)
+        features = {
+            NOTE: feats,
+            "beat": np.zeros((max(g.num_beats, 1), feats.shape[1]), np.float32),
+            "measure": np.zeros((max(g.num_measures, 1), feats.shape[1]), np.float32),
+        }
+        rng = np.random.default_rng(s)
+        attrs = {
+            "pitch_spelling": PitchEncoder().encode(na),
+            "key_signature": KeySignatureEncoder().encode(na),
+            "onset_div": na["onset_div"].astype(np.int64),
+            "valid_label": np.ones(len(na), np.int64),
+        }
+        for task, n_cls in TASK_DICT.items():
+            attrs[task] = rng.integers(0, n_cls, size=len(na)).astype(np.int64)
+        samples.append(ScoreSample(features=features, edges=g.edges, note_attrs=attrs))
+    cfg = SamplerConfig(subgraph_size=500, batch_size=8, num_neighbors=(5, 5), seed=0, sort_edges_by_src=True)
+    return SubgraphSampler(samples, cfg)
+
+
+def _train_model(conv_impl: str, dropout: float, device: str):
+    from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
+    from analysisgnn_tpu_torch.train.state import torch_style_reinit
+
+    model = model_from_config({**TRAIN_CFG, "conv_impl": conv_impl, "dropout": dropout}, device=device)
+    init_parameters(model, torch.Generator(device="cpu").manual_seed(0))
+    torch_style_reinit(model, seed=0)
+    return model
+
+
+def _trainer(model, opt):
+    from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
+    from analysisgnn_tpu_torch.train.state import create_train_state
+    from analysisgnn_tpu_torch.train.step import StepConfig, make_train_step
+
+    tasks = tuple(TASK_DICT.items())
+    state = create_train_state(model, len(tasks), opt, seed=1)
+    return state, make_train_step(model, opt, StepConfig(task_dict=tasks, active_tasks=tuple(t for t, _ in tasks)))
+
+
+def _launch_counters():
+    from analysisgnn_tpu_torch.kernels.relmm import relation_weighted_matmul as k3
+    from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base as k1
+
+    return k1, k3
+
+
+def _reset_counts() -> None:
+    k1, k3 = _launch_counters()
+    k1.launches = 0
+    k3.launches = k3.dx_launches = k3.dw_launches = k3.dalpha_launches = 0
+
+
+def _counts() -> dict:
+    k1, k3 = _launch_counters()
+    return {"segment_mean_base": k1.launches, "relation_weighted_matmul": k3.launches,
+            "relation_weighted_matmul.dx": k3.dx_launches, "relation_weighted_matmul.dw": k3.dw_launches,
+            "relation_weighted_matmul.dalpha": k3.dalpha_launches}
+
+
+def predicted_launches(model) -> dict:
+    """Launches per train step the code predicts: every hetero conv (the
+    layers and the final one) runs one K1 per single relation, plus one per
+    fused group under "node" or one K3 forward, dx and dw per fused group
+    under "edge-zxp"; onset pooling runs one K1.  No d alpha: the edge
+    layout's alpha = 1 / max(count, 1) carries no gradient."""
+    from analysisgnn_tpu_torch.models.hetero import fusion_groups
+
+    groups, singles = fusion_groups(model.edge_types)
+    convs = len(model.encoder.layers) + 1
+    zxp = model.conv_impl == "edge-zxp"
+    k1 = convs * (len(singles) + (len(groups) if model.conv_impl == "node" else 0)) + 1
+    k3 = convs * len(groups) if zxp else 0
+    return {"segment_mean_base": k1, "relation_weighted_matmul": k3, "relation_weighted_matmul.dx": k3,
+            "relation_weighted_matmul.dw": k3, "relation_weighted_matmul.dalpha": 0}
+
+
+def train(conv_impl: str, batches: list) -> dict:
+    """One warm-up step, then the timed steps on fresh batches (the main
+    path's run, with the launch counts read around it); for edge-zxp also
+    FALL_STEPS steps on one fixed batch, whose loss must fall."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.train.schedules import warmup_cosine_schedule
+    from analysisgnn_tpu_torch.train.state import make_optimizer
+
+    model = _train_model(conv_impl, TRAIN_CFG["dropout"], "cuda")
+    state, step = _trainer(model, make_optimizer(warmup_cosine_schedule(5e-3, total_steps=1000)))
+    state, aux = step(state, batches[0])
+    torch.cuda.synchronize()
+    k = TIMED_STEPS[conv_impl]
+    timed = batches[1:1 + k]
+    _reset_counts()  # the main path's run starts here
+    times, losses, skipped = [], [], 0.0
+    for b in timed:
+        t = time.perf_counter()
+        state, aux = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(aux["total_loss"]))
+        skipped += float(aux["skipped_nonfinite"])
+    counts = _counts()
+    expected = predicted_launches(model)
+    per_step = {name: c / k for name, c in counts.items()}
+    if per_step != expected:
+        raise AssertionError(f"{conv_impl}: launches per step {per_step}, the code predicts {expected}")
+    if not all(np.isfinite(losses)) or skipped:
+        raise AssertionError(f"{conv_impl}: non-finite loss {losses}")
+    # bench.py:191-194: valid message edges per step, every edge type once
+    edges = statistics.mean(sum(b.num_edges.values()) for b in timed)
+    ms = statistics.median(times) * 1e3
+    row = {"conv_impl": conv_impl, "steps": k, "median_ms": ms, "step_ms": [t * 1e3 for t in times],
+           "edges_per_step": edges, "edges_per_s": edges / (ms / 1e3), "launches": counts,
+           "launches_per_step": per_step, "losses": losses, "notes": batches[0].capacity(NOTE)}
+    phase(f"train {conv_impl}: {k} steps after one warm-up: median {ms:.2f} ms/step "
+          f"(each {', '.join(f'{t * 1e3:.1f}' for t in times)}), {edges:.0f} valid message edges per step, "
+          f"{row['edges_per_s']:.4g} edges/s; losses {', '.join(f'{v:.4f}' for v in losses)}")
+    phase(f"train {conv_impl}: launches per step {per_step} (the code predicts the same); "
+          f"max memory allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if conv_impl == "edge-zxp":
+        fixed = batches[0]
+        fall = []
+        for _ in range(FALL_STEPS):
+            state, aux = step(state, fixed)
+            fall.append(float(aux["total_loss"]))
+        first, last = statistics.mean(fall[:3]), statistics.mean(fall[-3:])
+        if not (all(np.isfinite(fall)) and last < first):
+            raise AssertionError(f"{conv_impl}: loss on one fixed batch did not fall over {FALL_STEPS} steps: {fall}")
+        row["fall"] = fall
+        phase(f"train {conv_impl}: {FALL_STEPS} steps on one batch: loss {fall[0]:.4f} -> {fall[-1]:.4f} "
+              f"(mean of the first 3 {first:.4f}, of the last 3 {last:.4f})")
+        row["model"], row["state"], row["step"] = model, state, step
+    return row
+
+
+def _graph_to(batch, device: str):
+    return dataclasses.replace(
+        batch,
+        node_features={k: v.to(device) for k, v in batch.node_features.items()},
+        edge_index={k: v.to(device) for k, v in batch.edge_index.items()},
+        node_attrs={t: {k: v.to(device) for k, v in d.items()} for t, d in batch.node_attrs.items()},
+    )
+
+
+def step_parity(batch) -> dict:
+    """One edge-zxp step on the GPU (kernels) against the same step on the
+    CPU (plain versions): same weights, same batch, dropout 0, constant rate."""
+    from analysisgnn_tpu_torch.train.state import ClippedAdamW
+
+    model = _train_model("edge-zxp", 0.0, "cpu")
+    gpu_model = _train_model("edge-zxp", 0.0, "cuda")
+    gpu_model.load_state_dict(model.state_dict())
+    out = {}
+    for dev, m, b in (("cuda", gpu_model, batch), ("cpu", model, _graph_to(batch, "cpu"))):
+        state, step = _trainer(m, ClippedAdamW(lambda _step: PARITY_LR, eps=PARITY_EPS))
+        t = time.perf_counter()
+        state, aux = step(state, b)
+        out[dev] = (float(aux["total_loss"]), {k: v.detach().cpu() for k, v in m.state_dict().items()},
+                    state.mt_params.detach().cpu(), time.perf_counter() - t)
+    loss_g, params_g, mt_g, _ = out["cuda"]
+    loss_c, params_c, mt_c, cpu_s = out["cpu"]
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst = max(float((params_g[k] - params_c[k]).abs().max()) for k in params_c)
+    worst = max(worst, float((mt_g - mt_c).abs().max()))
+    if not (np.isfinite(loss_g) and rel <= PARITY_LOSS_RTOL and worst <= PARITY_PARAM_ATOL):
+        raise AssertionError(f"GPU vs CPU train step: loss {loss_g} vs {loss_c} (rel {rel:.2e}, "
+                             f"tol {PARITY_LOSS_RTOL}), "
+                             f"parameters max|d| {worst:.3e} (tol {PARITY_PARAM_ATOL})")
+    phase(f"train: one edge-zxp step, GPU vs CPU (plain versions, same weights and batch, dropout 0, lr {PARITY_LR}, "
+          f"eps {PARITY_EPS}): "
+          f"loss {loss_g:.6f} vs {loss_c:.6f} (rel {rel:.2e}, tol {PARITY_LOSS_RTOL}); every parameter and mt_params "
+          f"max|d| {worst:.3e} (tol {PARITY_PARAM_ATOL} abs); CPU step {cpu_s:.1f} s")
+    return {"loss_rel": rel, "param_max_abs": worst}
+
+
+def trace_train(row: dict, batch, top: int = 12) -> dict:
+    """One edge-zxp step under torch.profiler: the device's busy share of
+    the step and its kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, state, step = row["model"], row["state"], row["step"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        raise AssertionError("the profiled train step shows no device time")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    phase(f"train trace: one edge-zxp step, wall {wall_ms:.2f} ms under the profiler, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% of the wall), {sum(e.count for e in kernels)} kernel launches")
+    for e in kernels[:top]:
+        phase(f"train trace:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+
 def main() -> None:
     smi = environment()
+    from analysisgnn_tpu_torch.core.graph import NOTE
     from analysisgnn_tpu_torch.models.analysis import SERVE_CONFIG as CFG
     from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
 
@@ -311,14 +696,50 @@ def main() -> None:
     check_logits(model, max(REQUEST_NOTES))
     phase(f"serve: done; K1 launches on the main path: {served['main_path_launches']}")
     trace(model, max(REQUEST_NOTES))
+    del model
+
+    t = time.perf_counter()
+    sampler = train_corpus()
+    batches = [sampler.sample_batch(device="cuda") for _ in range(1 + max(TIMED_STEPS.values()))]
+    n_train = batches[0].capacity(NOTE)
+    phase(f"train corpus: 8 scores x 2000 notes, {len(batches)} batches of {n_train} note rows "
+          f"({batches[0].num_target_nodes} targets) in {time.perf_counter() - t:.2f}s")
+    k3_rows = k3_checks(n_train)
+    k1_backward = check_k1_backward(batches[0])
+    phase("kernel check: K3 and K1 backward done")
+    trained = {impl: train(impl, batches) for impl in TIMED_STEPS}
+    parity = step_parity(batches[0])
+    traced = trace_train(trained["edge-zxp"], batches[1])
+
     main_row = rows[0]
+    zxp = trained["edge-zxp"]
+    shape = k3_rows[0]
+    k3_shape = f"train step: N={shape['N']} F={shape['F']} G={shape['G']} T={shape['T']}"
+    k3_replaces = {"forward": "analysisgnn_tpu/kernels/pallas_relmm.py:93",
+                   "dx": "analysisgnn_tpu/kernels/pallas_relmm.py:116",
+                   "dw": "analysisgnn_tpu/kernels/pallas_relmm.py:122",
+                   "dalpha": "analysisgnn_tpu/kernels/pallas_relmm.py:122"}
+
+    def k3_entry(part: str, name: str) -> dict:
+        r = k3_rows[0]["timed"][part]
+        return {"name": name, "route": "cuda", "source": "analysisgnn_tpu_torch/csrc/relation_weighted_matmul.cu",
+                "replaces": k3_replaces[part], "launches": zxp["launches"][name],
+                "max_abs_err": max(row["max_abs_err"][part] for row in k3_rows),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "shape": k3_shape}
+
+    dw_entry = k3_entry("dw", "relation_weighted_matmul.dw")
+    # d alpha is held against the plain version here but is not on the main
+    # path (alpha carries no gradient in the edge-zxp model): a sub-row of dw,
+    # whose TPU kernel computed both
+    dw_entry["dalpha"] = k3_entry("dalpha", "relation_weighted_matmul.dalpha")
     kernels = [{
         "name": "segment_mean_base",
         "route": "cuda",
         "source": "analysisgnn_tpu_torch/csrc/segment_mean_base.cu",
         "replaces": "analysisgnn_tpu/kernels/pallas_segment.py:263",
         "launches": served["main_path_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "max_abs_err": max(max(r["max_abs_err"] for r in rows), k1_backward["max_abs_err"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -327,8 +748,17 @@ def main() -> None:
         "shape": f"{main_row['case']}: E={main_row['E']} (valid {main_row['E_valid']}) "
                  f"F={main_row['F']} S={main_row['S']}",
         "onset_pooling": {k: rows[1][k] for k in ("E", "E_valid", "S", "ms", "plain_ms", "library_ms", "bound_ms")},
-    }]
-    phase("all phases passed")
+        "train_launches": {impl: r["launches"]["segment_mean_base"] for impl, r in trained.items()},
+        "backward": k1_backward,
+    },
+        k3_entry("forward", "relation_weighted_matmul"),
+        k3_entry("dx", "relation_weighted_matmul.dx"),
+        dw_entry,
+    ]
+    per_step = ", ".join(f"{impl} {r['median_ms']:.2f}" for impl, r in trained.items())
+    phase(f"train: done; ms per step {per_step}; trace busy {traced['busy_ms']:.2f} of {traced['wall_ms']:.2f} ms; "
+          f"parity {parity}")
+    phase(f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ for name in names:
 import chip_smoke
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in {FORBIDDEN!r})
 assert not loaded, loaded
-print(len(names))
+print(",".join(names))
 """
 
 
@@ -35,7 +35,11 @@ def test_every_port_module_imports_without_jax():
         [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 20  # every module of the port was imported
+    names = set(res.stdout.strip().splitlines()[-1].split(","))
+    assert len(names) >= 38  # every module of the port was imported, the train slice's included
+    assert {f"analysisgnn_tpu_torch.{m}" for m in (
+        "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
+    )} <= names
 
 
 def test_port_sources_name_no_jax_import():
@@ -45,7 +49,7 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 20
+    assert len(files) >= 38
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
     assert not offenders, offenders
 
@@ -62,7 +66,7 @@ def test_predict_without_device_cpu_raises_instead_of_running_on_cpu():
     from analysisgnn_tpu_torch.models.analysis import model_from_config
 
     cfg = {"num_layers": 1, "hidden_channels": 8, "out_channels": 4, "in_channels": 25}
-    model = model_from_config(cfg)
+    model = model_from_config(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         predict_score_ids(model, synthetic_score(20), add_beats=False, add_measures=False)
     with pytest.raises(ValueError, match="model is on"):
@@ -75,3 +79,29 @@ def test_cli_without_device_cpu_raises(tmp_path):
 
     with pytest.raises(RuntimeError, match="cuda"):
         main(["--checkpoint_dir", str(tmp_path), "--score", str(tmp_path / "x.musicxml")])
+
+
+def test_model_from_config_without_device_cpu_raises():
+    _no_cuda()
+    from analysisgnn_tpu_torch.models.analysis import model_from_config
+
+    cfg = {"num_layers": 1, "hidden_channels": 8, "out_channels": 4, "in_channels": 25}
+    with pytest.raises(RuntimeError, match="cuda"):
+        model_from_config(cfg)
+    assert next(model_from_config(cfg, device="cpu").parameters()).device.type == "cpu"
+
+
+def test_sampler_without_device_cpu_raises():
+    _no_cuda()
+    import numpy as np
+
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.data.sampler import SamplerConfig, ScoreSample, SubgraphSampler
+
+    sample = ScoreSample(features={NOTE: np.zeros((10, 3), np.float32)},
+                         edges={(NOTE, "onset", NOTE): np.zeros((2, 0), np.int64)},
+                         note_attrs={"valid_label": np.ones(10, np.int64)})
+    sampler = SubgraphSampler([sample], SamplerConfig(subgraph_size=4, batch_size=1, calibrate_batches=0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        sampler.sample_batch()
+    assert sampler.sample_batch(device="cpu").num_target_nodes == 4

@@ -51,7 +51,7 @@ def _models(cfg, note_array, seed):
     a = g.node_attrs[NOTE]
     params = jm.init(jax.random.PRNGKey(seed), g.x_dict(), g.edge_index_dict(), g.batch,
                      a["pitch_spelling"], a["key_signature"], g.num_target_nodes)
-    tm = model_from_config(cfg)
+    tm = model_from_config(cfg, device="cpu")
     tm.load_state_dict(state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params), cfg))
     return jm, params, tm.eval()
 
