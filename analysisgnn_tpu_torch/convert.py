@@ -12,7 +12,12 @@ differences handled here:
   their layout;
 * flax ``OptimizedLSTMCell`` keeps separate ``ii/if/ig/io`` input kernels
   (no bias) and ``hi/hf/hg/ho`` hidden kernels (with bias); the port's
-  ``LSTMCell`` packs them in ``i, f, g, o`` order.
+  ``LSTMCell`` packs them in ``i, f, g, o`` order;
+* an HGT layer's Dense ``qkv_{t}``, ``out_{t}`` and ``res_{t}`` become
+  ``qkv.{t}``, ``out.{t}`` and ``res.{t}`` Linears; its ``watt_{g}``,
+  ``wmsg_{g}``, ``prior_{g}`` (``g`` a relation stack: ``g0`` .. or
+  ``src__dst``) and scalar ``skip_{t}`` keep their layout, as
+  ``watt.{g}`` and so on.
 """
 
 from __future__ import annotations
@@ -44,15 +49,25 @@ def _dense(prefix: str, leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
     raise KeyError(f"unexpected Dense parameter {leaf!r} under {prefix}")
 
 
+# HGT layer parameters: flax name prefix -> port ParameterDict / ModuleDict
+HGT_LEAVES = ("watt", "wmsg", "prior", "skip")
+HGT_DENSES = ("qkv", "out", "res")
+
+
 def _conv_layer(prefix: str, rest: Tuple[str, ...], v: np.ndarray) -> Tuple[str, np.ndarray]:
     head = rest[0]
-    if head.startswith("fused_") and len(rest) == 2:
-        return f"{prefix}.fused.{head[len('fused_'):]}.{rest[1]}", v
-    if head.startswith("conv_") and len(rest) == 3:
-        return _dense(f"{prefix}.convs.{head[len('conv_'):]}.{rest[1]}", rest[2], v)
-    if head.startswith("self_") and len(rest) == 2:
-        return _dense(f"{prefix}.selfs.{head[len('self_'):]}", rest[1], v)
-    raise KeyError(f"unexpected hetero-conv parameter {'/'.join(rest)} under {prefix}")
+    kind, _, name = head.partition("_")
+    if kind == "fused" and len(rest) == 2:
+        return f"{prefix}.fused.{name}.{rest[1]}", v
+    if kind == "conv" and len(rest) == 3:
+        return _dense(f"{prefix}.convs.{name}.{rest[1]}", rest[2], v)
+    if kind == "self" and len(rest) == 2:
+        return _dense(f"{prefix}.selfs.{name}", rest[1], v)
+    if kind in HGT_DENSES and len(rest) == 2:
+        return _dense(f"{prefix}.{kind}.{name}", rest[1], v)
+    if kind in HGT_LEAVES and len(rest) == 1:
+        return f"{prefix}.{kind}.{name}", v
+    raise KeyError(f"unexpected encoder-layer parameter {'/'.join(rest)} under {prefix}")
 
 
 def _lstm(flat: Dict[Tuple[str, ...], np.ndarray], cell: str) -> Dict[str, np.ndarray]:
@@ -109,13 +124,18 @@ def trainables_from_flax(params: Mapping, mt_params, cfg: Mapping) -> Tuple[Dict
 
 def _conv_path(rest: str) -> Tuple[str, ...]:
     kind, name, *leaf = rest.split(".")
+    dense_leaf = {"weight": "kernel", "bias": "bias"}
     if kind == "fused":
         return (f"fused_{name}", *leaf)
     if kind == "convs":
-        return (f"conv_{name}", leaf[0], {"weight": "kernel", "bias": "bias"}[leaf[1]])
+        return (f"conv_{name}", leaf[0], dense_leaf[leaf[1]])
     if kind == "selfs":
-        return (f"self_{name}", {"weight": "kernel", "bias": "bias"}[leaf[0]])
-    raise KeyError(f"unexpected hetero-conv parameter {rest}")
+        return (f"self_{name}", dense_leaf[leaf[0]])
+    if kind in HGT_DENSES:
+        return (f"{kind}_{name}", dense_leaf[leaf[0]])
+    if kind in HGT_LEAVES and not leaf:
+        return (f"{kind}_{name}",)
+    raise KeyError(f"unexpected encoder-layer parameter {rest}")
 
 
 def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, object]:
@@ -127,7 +147,7 @@ def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[st
         node = tree
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(v)
+        node[path[-1]] = np.ascontiguousarray(v).reshape(v.shape)  # keeps a 0-d leaf 0-d
 
     dense_leaf = {"weight": "kernel", "bias": "bias"}
     for key, t in state_dict.items():

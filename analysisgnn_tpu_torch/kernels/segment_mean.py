@@ -8,7 +8,7 @@ The CUDA source is ``csrc/segment_mean_base.cu``, built with ``nvcc`` for
 For segment ids sorted ascending, ``out[s] = (x_base[s mod m] + sum of the
 messages of segment s) / max(count_s, 1)``; the base row is added but not
 counted, empty segments keep their base row, ids ``>= num_segments`` are
-padding and drop.  The counts are returned too.
+padding and drop, as negative ids do.  The counts are returned too.
 
 Bound on the H100: bytes.  It reads ``E*F*4 + E*4 + m*F*4`` bytes and writes
 ``S*F*4 + S*4``, with about one add per message element.  The kernel reads
@@ -31,7 +31,7 @@ from typing import Tuple
 import torch
 
 from analysisgnn_tpu_torch.kernels import build
-from analysisgnn_tpu_torch.kernels.segment_ops import segment_count, segment_sum
+from analysisgnn_tpu_torch.kernels.segment_ops import dummy_row_ids, segment_count, segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,9 +142,9 @@ class _SegmentMeanBase(torch.autograd.Function):
         gd = g / counts.clamp_min(1.0)[:, None]
         d_msgs = d_base = None
         if ctx.needs_input_grad[0]:
-            # a zero row past the end takes every padding edge
+            # a zero row past the end takes every padding edge (ids past the end or negative)
             padded = torch.cat([gd, gd.new_zeros((1, gd.shape[1]))])
-            d_msgs = padded[seg.long().clamp(max=ctx.num_segments)]
+            d_msgs = padded[dummy_row_ids(seg, ctx.num_segments)]
         if ctx.needs_input_grad[2]:
             d_base = gd.view(-1, ctx.base_rows, gd.shape[1]).sum(0)
         return d_msgs, None, d_base, None

@@ -1,10 +1,11 @@
 """Segment reductions in plain PyTorch, with the framework's padding convention.
 
 Counterpart of ``analysisgnn_tpu/kernels/segment_ops.py``.  Padding edges
-carry ids at or past ``num_segments``; ``jax.ops.segment_sum`` drops those,
-while ``index_add_`` raises on them.  So every id is clamped to one dummy row
-at ``num_segments``, the sum runs over ``num_segments + 1`` rows, and the
-dummy row is sliced off.
+carry ids at or past ``num_segments``; ``jax.ops.segment_sum`` drops those
+and negative ids alike, while ``index_add_`` raises on them.  So every id out
+of ``[0, num_segments)`` goes to one dummy row at ``num_segments``, the
+reduction runs over ``num_segments + 1`` rows, and the dummy row is sliced
+off.
 """
 
 from __future__ import annotations
@@ -12,15 +13,25 @@ from __future__ import annotations
 import torch
 
 
-def _dummy_row_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    return segment_ids.long().clamp(0, num_segments)
+def dummy_row_ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    ids = segment_ids.long()
+    return torch.where(ids < 0, num_segments, ids.clamp(max=num_segments))
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Sum ``data`` rows into ``num_segments`` buckets; out-of-range ids drop."""
     out = data.new_zeros((num_segments + 1,) + tuple(data.shape[1:]))
-    out.index_add_(0, _dummy_row_ids(segment_ids, num_segments), data)
+    out.index_add_(0, dummy_row_ids(segment_ids, num_segments), data)
     return out[:num_segments]
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Row-wise max per segment, as ``jax.ops.segment_max``: ``-inf`` for an
+    empty segment; out-of-range ids drop."""
+    ids = dummy_row_ids(segment_ids, num_segments)
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]), float("-inf"))
+    index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, index, data, "amax", include_self=True)[:num_segments]
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

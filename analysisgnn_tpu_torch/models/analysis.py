@@ -1,11 +1,11 @@
 """The multi-task score-analysis model (counterpart of
-``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN encoder,
-single-Linear projections, no logit fusion and no RNN).
+``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN or
+HybridHGT encoder, single-Linear projections, no logit fusion and no RNN).
 
 Pipeline: pitch-spelling (35 -> 64) and key-signature (15 -> 64) embeddings
-concatenated onto the note features; per-node-type projections; the HybridGNN
-encoder; onset pooling (K1 over target-restricted onset edges) concatenated
-onto the embeddings; a projection; the fused task heads.
+concatenated onto the note features; per-node-type projections; the encoder;
+onset pooling (K1 over target-restricted onset edges) concatenated onto the
+embeddings; a projection; the fused task heads.
 """
 
 from __future__ import annotations
@@ -19,9 +19,8 @@ from torch import nn
 from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType, metadata, resolve_device
 from analysisgnn_tpu_torch.models.conv import sage_plan
 from analysisgnn_tpu_torch.kernels.segment_mean import aggregate
-from analysisgnn_tpu_torch.models.encoders import HybridGNN
+from analysisgnn_tpu_torch.models.encoders import HybridGNN, HybridHGT
 from analysisgnn_tpu_torch.models.heads import TaskHeads
-from analysisgnn_tpu_torch.models.hetero import plan_hetero
 from analysisgnn_tpu_torch.models.mlp import PlainProjection
 from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
 
@@ -57,9 +56,19 @@ class AnalysisGNN(nn.Module):
         final_norm: bool = True,
         dropout: float = 0.0,
         conv_impl: str = "node",
+        encoder_type: str = "hybridgnn",
+        use_pallas: bool = False,
+        hgt_group_mode: str = "pair",
+        hgt_softmax_stab: str = "global",
     ):
         super().__init__()
+        encoder_type = encoder_type.lower()
+        if encoder_type not in ("hybridgnn", "hgt"):
+            raise NotImplementedError(f"encoder_type={encoder_type!r} is not ported (supported: hybridgnn, hgt)")
+        if encoder_type == "hgt" and conv_impl != "node":
+            raise ValueError(f"conv_impl={conv_impl!r} is a fused-SAGE option; encoder_type='hgt' cannot honor it")
         self.conv_impl = conv_impl
+        self.encoder_type = encoder_type
         self.node_types = tuple(node_types)
         self.edge_types = tuple(edge_types)
         self.task_dict = tuple(task_dict)
@@ -71,10 +80,18 @@ class AnalysisGNN(nn.Module):
                 for t in self.node_types
             }
         )
-        self.encoder = HybridGNN(
-            hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm,
-            dropout=dropout, conv_impl=conv_impl,
-        )
+        if encoder_type == "hgt":
+            # K2 needs the union capacity-binned stacks, as in the JAX model
+            self.encoder = HybridHGT(
+                hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, dropout=dropout,
+                group_mode="emax" if use_pallas else hgt_group_mode, use_pallas=use_pallas,
+                softmax_stab=hgt_softmax_stab,
+            )
+        else:
+            self.encoder = HybridGNN(
+                hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm,
+                dropout=dropout, conv_impl=conv_impl,
+            )
         self.project_enc = PlainProjection(2 * hidden_channels, out_channels)
         self.heads = TaskHeads(self.task_dict, out_channels)
 
@@ -103,8 +120,8 @@ class AnalysisGNN(nn.Module):
             if t != NOTE and t in self.project:
                 h[t] = self.project[t](x)
         # every edge order / edge stack of this graph, built once for all layers
-        plans = plan_hetero(edge_index_dict, self.edge_types, {t: v.shape[0] for t, v in h.items()}, self.conv_impl)
-        x = self.encoder(h, plans, deterministic, generator)
+        plan = self.encoder.plan(edge_index_dict, {t: v.shape[0] for t, v in h.items()})
+        x = self.encoder(h, plan, deterministic, generator)
         n = x.shape[0]
         onset = restrict_edges_to_targets(edge_index_dict[(NOTE, "onset", NOTE)], num_target_nodes, n)
         x_pool = aggregate(sage_plan(onset, n, n), x, x)
@@ -140,13 +157,16 @@ SERVE_CONFIG = {
 
 # model_config.json keys whose values the port supports, with those values
 _SUPPORTED = {
-    "model": ("HybridGNN", "hybridgnn"),
+    "model": ("HybridGNN", "hybridgnn", "HGT", "hgt"),
     "plain_proj": (True,),
     "logit_fusion": (False,),
     "use_rnn": (False,),
     "conv_impl": ("node", "edge", "edge-zxp"),
     "add_beats": (False, True),
     "add_measures": (False, True),
+    "hgt_group_mode": ("pair", "emax"),
+    "hgt_softmax_stab": ("global", "segment"),
+    "use_pallas": (False, True),
 }
 
 
@@ -157,6 +177,12 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
     for key, allowed in _SUPPORTED.items():
         if key in cfg and cfg[key] not in allowed:
             raise NotImplementedError(f"model_config {key}={cfg[key]!r} is not ported (supported: {allowed})")
+    if cfg.get("hgt_stage_dtype", "float32") != "float32":
+        raise NotImplementedError(
+            f"model_config hgt_stage_dtype={cfg['hgt_stage_dtype']!r} is not ported yet: bf16 staging comes with "
+            "the Trainer slice (ROADMAP queue 1 item 7), as StepConfig's bf16 compute does"
+        )
+    encoder_type = cfg.get("model", "HybridGNN").lower()
     nodes, edges = metadata(cfg.get("add_beats", False), cfg.get("add_measures", False))
     with torch.device(resolve_device(device)):
         return AnalysisGNN(
@@ -171,25 +197,39 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
             final_norm=cfg.get("final_norm", False),
             dropout=cfg.get("dropout", 0.3),
             conv_impl=cfg.get("conv_impl", "node"),
+            encoder_type=encoder_type,
+            use_pallas=cfg.get("use_pallas", False),
+            hgt_group_mode=cfg.get("hgt_group_mode", "pair"),
+            hgt_softmax_stab=cfg.get("hgt_softmax_stab", "global"),
         )
 
 
 _ZERO_INIT = ("bias", "b_neigh", "b_out", "b1", "b2", "ln_bias")
 
 
+# HGT parameters held in ParameterDicts (``<kind>.<relation stack or node type>``)
+_ONE_INIT = ("prior", "skip")  # ones, as flax initializes them
+_HEAD_TRANSFORMS = ("watt", "wmsg")  # [R, H, D, D]: fan_in D
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialization: biases zero, LayerNorm scales one, embeddings
-    N(0, 1), every weight N(0, 1/fan_in).  Draws on the CPU generator in
-    parameter order, so the weights do not depend on the model's device."""
+    """Seeded initialization: biases zero, LayerNorm scales and the HGT priors
+    and skip gates one, embeddings N(0, 1), every weight N(0, 1/fan_in).
+    Draws on the CPU generator in parameter order, so the weights do not
+    depend on the model's device."""
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
+        parts = name.split(".")
+        kind, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
         if leaf in _ZERO_INIT:
             p.zero_()
             continue
-        if leaf == "ln_scale":
+        if leaf == "ln_scale" or kind in _ONE_INIT:
             p.fill_(1.0)
             continue
-        # fan_in is dim 1 both of a Linear weight [out, in] and of a stacked [T, in, out]
-        std = 1.0 if "embedding" in name else 1.0 / math.sqrt(p.shape[1])
+        if kind in _HEAD_TRANSFORMS:
+            std = 1.0 / math.sqrt(p.shape[-2])
+        else:
+            # fan_in is dim 1 both of a Linear weight [out, in] and of a stacked [T, in, out]
+            std = 1.0 if "embedding" in name else 1.0 / math.sqrt(p.shape[1])
         p.copy_(torch.randn(p.shape, generator=generator) * std)

@@ -1,15 +1,28 @@
-"""The HybridGNN encoder (counterpart of ``analysisgnn_tpu/models/encoders.py``,
-``l2_normalize`` and ``HybridGNN``)."""
+"""The HybridGNN and HybridHGT encoders (counterpart of
+``analysisgnn_tpu/models/encoders.py``: ``l2_normalize``, ``HybridGNN``, the
+HGT edge stacks, ``HGTLayer`` and ``HybridHGT``).
+
+Every encoder has ``plan(edge_index_dict, capacities)``, which builds what
+depends only on the graph once for all its layers, and
+``forward(x_dict, plan, deterministic, generator)``.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+import dataclasses
+import math
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType
-from analysisgnn_tpu_torch.models.hetero import HeteroConv
+from analysisgnn_tpu_torch.kernels.segment_mean import spread_rows
+from analysisgnn_tpu_torch.kernels.segment_ops import segment_max
+from analysisgnn_tpu_torch.kernels.softmax_agg import SoftmaxAggPlan, plan_softmax_agg, segment_softmax_agg
+from analysisgnn_tpu_torch.models.fused import PADDING_ROWS
+from analysisgnn_tpu_torch.models.hetero import HeteroConv, plan_hetero, present_relations
 from analysisgnn_tpu_torch.models.rnn import LayerAttentionJK
 
 
@@ -55,6 +68,11 @@ class HybridGNN(nn.Module):
         )
         self.jk = LayerAttentionJK(hidden, num_layers) if use_jk else None
         self.final = HeteroConv(hidden, hidden, node_types, edge_types, conv_impl)
+        self.edge_types = tuple(edge_types)
+        self.conv_impl = conv_impl
+
+    def plan(self, edge_index_dict: Mapping[EdgeType, torch.Tensor], capacities: Mapping[str, int]):
+        return plan_hetero(edge_index_dict, self.edge_types, capacities, self.conv_impl)
 
     def forward(
         self,
@@ -75,3 +93,343 @@ class HybridGNN(nn.Module):
         if self.final_norm:
             y = l2_normalize(torch.relu(y))
         return y
+
+
+# ------------------------------------------------------------------ HybridHGT
+
+GROUP_MODES = ("pair", "emax")
+SOFTMAX_STABS = ("global", "segment")
+
+
+def stack_edge_groups(
+    edge_index_dict: Mapping[EdgeType, torch.Tensor], edge_types: Sequence[EdgeType], capacities: Mapping[str, int]
+) -> Dict[Tuple[str, str], Tuple[torch.Tensor, Tuple[str, ...]]]:
+    """The relations the graph holds, grouped by ``(src_type, dst_type)``:
+    one ``[R, 2, E_max]`` stack each, shorter relations padded with the node
+    capacities, and the relation names in stack order."""
+    groups: Dict[Tuple[str, str], List[EdgeType]] = {}
+    for et in present_relations(edge_types, edge_index_dict, capacities):
+        groups.setdefault((et[0], et[2]), []).append(et)
+    out = {}
+    for (src_t, dst_t), ets in groups.items():
+        e_max = max(edge_index_dict[et].shape[1] for et in ets)
+        stacked = []
+        for et in ets:
+            ei = edge_index_dict[et].long()
+            pad = e_max - ei.shape[1]
+            src = F.pad(ei[0], (0, pad), value=capacities[src_t])
+            dst = F.pad(ei[1], (0, pad), value=capacities[dst_t])
+            stacked.append(torch.stack([src, dst]))
+        out[(src_t, dst_t)] = (torch.stack(stacked), tuple(et[1] for et in ets))
+    return out
+
+
+def node_type_offsets(capacities: Mapping[str, int]) -> Tuple[Dict[str, int], int]:
+    """Union-node-space offsets: node types concatenated in dict order."""
+    offsets: Dict[str, int] = {}
+    n_union = 0
+    for t, n in capacities.items():
+        offsets[t] = n_union
+        n_union += n
+    return offsets, n_union
+
+
+def edge_family(et: EdgeType) -> int:
+    """The ``emax`` stack of a relation: 0 note-note, 1 across node types, 2
+    other same-type chains (beat-beat, measure-measure)."""
+    src_t, _, dst_t = et
+    if src_t == NOTE and dst_t == NOTE:
+        return 0
+    return 1 if src_t != dst_t else 2
+
+
+def stack_edge_groups_emax(
+    edge_index_dict: Mapping[EdgeType, torch.Tensor], edge_types: Sequence[EdgeType], capacities: Mapping[str, int]
+) -> Tuple[Tuple[torch.Tensor, Tuple[EdgeType, ...]], ...]:
+    """The relations the graph holds, binned by :func:`edge_family` (in-group
+    order: sorted edge types) into union-node-space ``[R, 2, E_max]`` stacks:
+    row 0 the aggregating node (padding ``n_union``), row 1 the source of
+    information (clamped into its type; padding 0)."""
+    offsets, n_union = node_type_offsets(capacities)
+    families: Dict[int, List[EdgeType]] = {}
+    for et in sorted(present_relations(edge_types, edge_index_dict, capacities)):
+        families.setdefault(edge_family(et), []).append(et)
+    out = []
+    for _fam, ets in sorted(families.items()):
+        e_max = max(edge_index_dict[et].shape[1] for et in ets)
+        stacked = []
+        for et in ets:
+            src_t, _, dst_t = et
+            ei = edge_index_dict[et].long()
+            src = torch.where(ei[0] >= capacities[src_t], n_union, ei[0] + offsets[src_t])
+            dst = ei[1].clamp(max=capacities[dst_t] - 1) + offsets[dst_t]
+            pad = e_max - ei.shape[1]
+            stacked.append(torch.stack([F.pad(src, (0, pad), value=n_union), F.pad(dst, (0, pad), value=0)]))
+        out.append((torch.stack(stacked), tuple(ets)))
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class HGTGroup:
+    """One relation stack of an HGT layer, in the union node space, with each
+    relation row sorted by aggregating node (padding last)."""
+
+    name: str  # parameter suffix: "g0" (emax) or "note__beat" (pair)
+    relations: Tuple[EdgeType, ...]
+    q_rows: torch.Tensor  # [R * E_max] int64: union row of each edge's aggregating node
+    kv_rows: torch.Tensor  # [R * E_max] int64: union row of each edge's source of information
+    num_relations: int
+    e_max: int
+
+
+@dataclasses.dataclass(frozen=True)
+class HGTPlan:
+    """Everything an HGT layer needs of one graph, built once for all layers.
+
+    Padding edges gather spread rows (:func:`spread_rows`): their logits and
+    messages are never read (K2 and the scatters drop them) and get zero
+    gradients, and spreading keeps the gathers' backward from adding them all
+    into one row, which serializes on the card."""
+
+    node_types: Tuple[str, ...]
+    offsets: Dict[str, int]
+    n_union: int
+    groups: Tuple[HGTGroup, ...]
+    aggregating: frozenset  # node types with at least one relation whose source they are
+    valid: torch.Tensor  # [Eu, 1] bool: the stacked edges that are not padding
+    scatter_rows: torch.Tensor  # [Eu] int64: the aggregating node; padding in [n_union, n_union + PADDING_ROWS)
+    k2: SoftmaxAggPlan  # the union softmax's edge order (k2.node: aggregating node, n_union for padding)
+
+
+def plan_hgt(
+    edge_index_dict: Mapping[EdgeType, torch.Tensor],
+    edge_types: Sequence[EdgeType],
+    capacities: Mapping[str, int],
+    group_mode: str = "pair",
+) -> HGTPlan:
+    """The HGT layers' plan of one graph (``capacities`` in the union's node
+    type order).  Each relation row is sorted by aggregating node, stably,
+    whatever order the sampler gave: K2 needs it, and elsewhere it changes
+    only the order of the sums."""
+    offsets, n_union = node_type_offsets(capacities)
+    stacks: List[Tuple[str, Tuple[EdgeType, ...], torch.Tensor, torch.Tensor]] = []
+    if group_mode == "emax":
+        for i, (idx, rels) in enumerate(stack_edge_groups_emax(edge_index_dict, edge_types, capacities)):
+            stacks.append((f"g{i}", rels, idx[:, 0], idx[:, 1]))
+    elif group_mode == "pair":
+        for (src_t, dst_t), (idx, names) in stack_edge_groups(edge_index_dict, edge_types, capacities).items():
+            n_src, n_dst = capacities[src_t], capacities[dst_t]
+            seg = torch.where(idx[:, 0] >= n_src, n_union, idx[:, 0] + offsets[src_t])
+            kv = idx[:, 1].clamp(max=n_dst - 1) + offsets[dst_t]
+            stacks.append((f"{src_t}__{dst_t}", tuple((src_t, r, dst_t) for r in names), seg, kv))
+    else:
+        raise ValueError(f"group_mode must be one of {GROUP_MODES}, got {group_mode!r}")
+    device = next(iter(edge_index_dict.values())).device if edge_index_dict else torch.device("cpu")
+    empty = torch.zeros(0, dtype=torch.long, device=device)
+    blocks, num_blocks = [], 0  # the relation block of every stacked edge, numbered across the stacks
+    for _, _, s, _ in stacks:
+        blocks.append(torch.arange(num_blocks, num_blocks + s.shape[0], device=device).repeat_interleave(s.shape[1]))
+        num_blocks += s.shape[0]
+    segs = torch.cat([empty] + [s.reshape(-1) for _, _, s, _ in stacks])
+    kvs = torch.cat([empty] + [k.reshape(-1) for _, _, _, k in stacks])
+    k2 = plan_softmax_agg(segs, torch.cat([empty] + blocks), n_union, num_blocks)
+    segs, kvs = k2.node, kvs[k2.order]
+    valid = segs < n_union
+    spread = spread_rows(segs.shape[0], max(n_union, 1), device)
+    q_rows, kv_rows = torch.where(valid, segs, spread), torch.where(valid, kvs, spread)
+    groups, start = [], 0
+    for name, rels, s, _ in stacks:
+        stop = start + s.numel()
+        groups.append(HGTGroup(name, rels, q_rows[start:stop], kv_rows[start:stop], s.shape[0], s.shape[1]))
+        start = stop
+    return HGTPlan(
+        node_types=tuple(capacities),
+        offsets=offsets,
+        n_union=n_union,
+        groups=tuple(groups),
+        aggregating=frozenset(et[0] for g in groups for et in g.relations),
+        valid=valid[:, None],
+        scatter_rows=torch.where(valid, segs, n_union + spread_rows(segs.shape[0], PADDING_ROWS, device)),
+        k2=k2,
+    )
+
+
+def hgt_groups(edge_types: Sequence[EdgeType], group_mode: str) -> Dict[str, Tuple[EdgeType, ...]]:
+    """The relation stacks of a graph that holds every one of ``edge_types``:
+    parameter suffix -> relations in stack order (what :func:`plan_hgt`
+    builds, without the graph)."""
+    if group_mode == "emax":
+        families: Dict[int, List[EdgeType]] = {}
+        for et in sorted(edge_types):
+            families.setdefault(edge_family(et), []).append(et)
+        return {f"g{i}": tuple(ets) for i, (_f, ets) in enumerate(sorted(families.items()))}
+    groups: Dict[str, List[EdgeType]] = {}
+    for et in edge_types:
+        groups.setdefault(f"{et[0]}__{et[2]}", []).append(et)
+    return {name: tuple(ets) for name, ets in groups.items()}
+
+
+class HGTLayer(nn.Module):
+    """Heterogeneous Graph Transformer layer, relation-batched (the JAX
+    ``HGTLayer`` in float32).
+
+    Per node type one fused ``qkv_{t}`` Linear; q and (k | v) rows live in a
+    union node space (all node types concatenated).  Per relation stack, the
+    per-relation per-head transforms ``watt``, ``wmsg`` ``[R, H, D, D]`` and
+    the priors ``[R, H]``; each edge's logit is ``<q[src], k[dst] @ watt>_h *
+    prior / sqrt(D)`` and its message ``v[dst] @ wmsg``.  Every aggregating
+    node takes a softmax over all its edges of all relations and sums the
+    weighted messages: through K2 when ``use_pallas`` (``group_mode="emax"``),
+    else with one packed ``index_add_`` of the exp-weighted messages and
+    weights, stabilized by one per-head max over all edges (``"global"``) or
+    by each node's own max (``"segment"``).  An aggregating type's update is
+    ``out_{t}(gelu(agg))``, mixed with its input (projected by ``res_{t}``
+    when the widths differ) through the gate ``sigmoid(skip_{t})``; other
+    types pass through.
+
+    The typed transforms are head-batched einsums over the stacks; the JAX
+    layer embeds the same ``[H, D, D]`` blocks in a block-diagonal matrix (a
+    TPU layout device, H times the operations), which gives the same values
+    up to the order of f32 sums.
+    """
+
+    def __init__(
+        self,
+        in_features: int,
+        hidden: int,
+        node_types: Sequence[str],
+        edge_types: Sequence[EdgeType],
+        heads: int = 4,
+        group_mode: str = "pair",
+        use_pallas: bool = False,
+        softmax_stab: str = "global",
+    ):
+        super().__init__()
+        if group_mode not in GROUP_MODES:
+            raise ValueError(f"group_mode must be one of {GROUP_MODES}, got {group_mode!r}")
+        if softmax_stab not in SOFTMAX_STABS:
+            raise ValueError(f"softmax_stab must be one of {SOFTMAX_STABS}, got {softmax_stab!r}")
+        if use_pallas and group_mode != "emax":
+            raise ValueError("use_pallas (K2) needs group_mode='emax'")
+        if hidden % heads:
+            raise ValueError(f"hidden {hidden} is not a multiple of heads {heads}")
+        self.hidden, self.heads = hidden, heads
+        self.use_pallas, self.softmax_stab = use_pallas, softmax_stab
+        self.groups = hgt_groups(edge_types, group_mode)
+        d = hidden // heads
+        self.qkv = nn.ModuleDict({t: nn.Linear(in_features, 3 * hidden) for t in node_types})
+        per_stack = lambda make: nn.ParameterDict({g: nn.Parameter(make(len(r))) for g, r in self.groups.items()})
+        self.watt = per_stack(lambda r: torch.empty(r, heads, d, d))
+        self.wmsg = per_stack(lambda r: torch.empty(r, heads, d, d))
+        self.prior = per_stack(lambda r: torch.ones(r, heads))
+        aggregating = [t for t in node_types if any(et[0] == t for r in self.groups.values() for et in r)]
+        self.out = nn.ModuleDict({t: nn.Linear(hidden, hidden) for t in aggregating})
+        self.res = nn.ModuleDict({t: nn.Linear(in_features, hidden) for t in aggregating if in_features != hidden})
+        self.skip = nn.ParameterDict({t: nn.Parameter(torch.ones(())) for t in aggregating})
+
+    def _edges(self, q_u: torch.Tensor, kv_u: torch.Tensor, group: HGTGroup) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(logits [R*E, H], msgs [R*E, H*D])`` of one stack."""
+        if group.relations != self.groups.get(group.name):
+            raise ValueError(
+                f"the graph's relation stack {group.name} holds {group.relations}; the layer was built for "
+                f"{self.groups.get(group.name)} (a JAX model initialised on this graph has other parameters)"
+            )
+        r, e, h = group.num_relations, group.e_max, self.heads
+        d = self.hidden // h
+        q_e = q_u.index_select(0, group.q_rows).view(r, e, h, d)
+        kv_e = kv_u.index_select(0, group.kv_rows).view(r, e, 2, h, d)
+        k_t = torch.einsum("rehd,rhdf->rehf", kv_e[:, :, 0], self.watt[group.name])
+        msg = torch.einsum("rehd,rhdf->rehf", kv_e[:, :, 1], self.wmsg[group.name])
+        logits = (q_e * k_t).sum(-1) * self.prior[group.name][:, None, :] / math.sqrt(d)
+        return logits.reshape(r * e, h), msg.reshape(r * e, h * d)
+
+    def _softmax_sum(self, logits: torch.Tensor, msgs: torch.Tensor, plan: HGTPlan) -> torch.Tensor:
+        """The union softmax and weighted sum without K2: one packed scatter
+        of the exp-weighted messages and the exp weights."""
+        h, n = self.heads, plan.n_union
+        # padding logits as the JAX layer computes them in the emax layout
+        # (a zero q row): the global max sees them, nothing else does
+        logits = torch.where(plan.valid, logits, 0.0)
+        if self.softmax_stab == "global":
+            expw = torch.exp(logits - logits.detach().amax(0))
+        else:
+            seg_max = segment_max(logits.detach(), plan.k2.node, n)
+            seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+            expw = torch.exp(logits - torch.cat([seg_max, seg_max.new_zeros((1, h))])[plan.k2.node])
+        e = logits.shape[0]
+        packed = torch.cat([(msgs.view(e, h, -1) * expw[..., None]).view(e, -1), expw], dim=-1)
+        summed = packed.new_zeros((n + PADDING_ROWS, packed.shape[1])).index_add_(0, plan.scatter_rows, packed)[:n]
+        num = summed[:, : self.hidden].view(n, h, -1)
+        den = summed[:, self.hidden :].clamp_min(1e-16)
+        return (num / den[..., None]).reshape(n, self.hidden)
+
+    def forward(self, x_dict: Mapping[str, torch.Tensor], plan: HGTPlan) -> Dict[str, torch.Tensor]:
+        qkv = [self.qkv[t](x_dict[t]) for t in plan.node_types]
+        q_u = torch.cat([v[:, : self.hidden] for v in qkv])
+        kv_u = torch.cat([v[:, self.hidden :] for v in qkv])
+        out: Dict[str, torch.Tensor] = {}
+        if plan.groups:
+            parts = [self._edges(q_u, kv_u, g) for g in plan.groups]
+            logits = torch.cat([p[0] for p in parts])
+            msgs = torch.cat([p[1] for p in parts])
+            if self.use_pallas:
+                agg_u = segment_softmax_agg(logits, msgs, plan.k2)
+            else:
+                agg_u = self._softmax_sum(logits, msgs, plan)
+        for t in plan.node_types:
+            x = x_dict[t]
+            if t not in plan.aggregating:
+                out[t] = x
+                continue
+            agg = agg_u[plan.offsets[t] : plan.offsets[t] + x.shape[0]]
+            upd = self.out[t](F.gelu(agg, approximate="tanh"))  # flax nn.gelu is the tanh form
+            res = self.res[t](x) if t in self.res else x
+            gate = torch.sigmoid(self.skip[t])
+            out[t] = gate * upd + (1 - gate) * res
+        return out
+
+
+class HybridHGT(nn.Module):
+    """HGT layers, each followed by dropout on every node type, and the
+    LSTM-attention JumpingKnowledge over the note states (the JAX
+    ``HybridHGT``)."""
+
+    def __init__(
+        self,
+        hidden: int,
+        num_layers: int,
+        node_types: Sequence[str],
+        edge_types: Sequence[EdgeType],
+        heads: int = 4,
+        use_jk: bool = True,
+        dropout: float = 0.0,
+        group_mode: str = "pair",
+        use_pallas: bool = False,
+        softmax_stab: str = "global",
+    ):
+        super().__init__()
+        self.dropout = dropout
+        self.edge_types = tuple(edge_types)
+        self.group_mode = group_mode
+        self.layers = nn.ModuleList(
+            HGTLayer(hidden, hidden, node_types, edge_types, heads, group_mode, use_pallas, softmax_stab)
+            for _ in range(num_layers)
+        )
+        self.jk = LayerAttentionJK(hidden, num_layers) if use_jk else None
+
+    def plan(self, edge_index_dict: Mapping[EdgeType, torch.Tensor], capacities: Mapping[str, int]) -> HGTPlan:
+        return plan_hgt(edge_index_dict, self.edge_types, capacities, self.group_mode)
+
+    def forward(
+        self,
+        x_dict: Dict[str, torch.Tensor],
+        plan: HGTPlan,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        h = dict(x_dict)
+        note_states = []
+        for layer in self.layers:
+            h = {t: dropout(v, self.dropout, deterministic, generator) for t, v in layer(h, plan).items()}
+            note_states.append(h[NOTE])
+        return self.jk(note_states) if self.jk is not None else h[NOTE]

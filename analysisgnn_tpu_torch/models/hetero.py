@@ -6,6 +6,15 @@ A node type with two or more same-type relations gets one
 (``models/fused.py``); every other relation gets its own :class:`SageConv`.
 A node type's next state is the mean of the contributions of the relations
 whose source it is; a type with none gets a plain Linear.
+
+The modules follow the relations the model is built for, as the JAX
+``HeteroConv`` builds its parameters from the relations of the graph it is
+initialised on.  A graph may lack some of them: like the JAX layer, the port
+skips a relation that the graph does not hold (or whose node types it lacks).
+Where that would change the modules themselves (a fused group that loses a
+member, a node type left without any contribution and without a Linear of its
+own), the JAX model initialised on that graph has other parameters, and the
+port raises.
 """
 
 from __future__ import annotations
@@ -32,6 +41,13 @@ def fusion_groups(edge_types: Sequence[EdgeType]) -> Tuple[Dict[str, List[EdgeTy
     return groups, [et for et in edge_types if et not in fused]
 
 
+def present_relations(
+    edge_types: Sequence[EdgeType], edge_index_dict: Mapping[EdgeType, torch.Tensor], node_types
+) -> List[EdgeType]:
+    """The relations of ``edge_types`` that the graph holds, with both node types."""
+    return [et for et in edge_types if et in edge_index_dict and et[0] in node_types and et[2] in node_types]
+
+
 def plan_hetero(
     edge_index_dict: Mapping[EdgeType, torch.Tensor],
     edge_types: Sequence[EdgeType],
@@ -41,14 +57,24 @@ def plan_hetero(
     """Every plan one hetero layer needs, keyed by node type (fused groups:
     a K1 edge order for ``conv_impl="node"``, the stacked ``[T, E_max]``
     edges otherwise) or edge type (single relations: a K1 edge order).  The
-    same for every layer, so it is built once per graph."""
+    same for every layer, so it is built once per graph.  Relations the
+    graph lacks get no plan, so the layers skip them."""
+    present = set(present_relations(edge_types, edge_index_dict, capacities))
     groups, singles = fusion_groups(edge_types)
     make = fused_plan if conv_impl == "node" else edge_plan
-    plans: Dict[object, Union[SegmentPlan, EdgePlan]] = {
-        t: make([edge_index_dict[et] for et in rels], capacities[t]) for t, rels in groups.items()
-    }
+    plans: Dict[object, Union[SegmentPlan, EdgePlan]] = {}
+    for t, rels in groups.items():
+        missing = [et for et in rels if et not in present]
+        if missing and len(missing) < len(rels):
+            raise ValueError(
+                f"the graph lacks {missing} of node type {t!r}'s fused relations {rels}: the model was built "
+                "for all of them (a JAX model initialised on this graph has other parameters)"
+            )
+        if not missing:
+            plans[t] = make([edge_index_dict[et] for et in rels], capacities[t])
     for et in singles:
-        plans[et] = sage_plan(edge_index_dict[et], capacities[et[0]], capacities[et[2]])
+        if et in present:
+            plans[et] = sage_plan(edge_index_dict[et], capacities[et[0]], capacities[et[2]])
     return plans
 
 
@@ -70,10 +96,12 @@ class HeteroConv(nn.Module):
     def forward(self, x_dict: Dict[str, torch.Tensor], plans: Mapping[object, object]) -> Dict[str, torch.Tensor]:
         contributions: Dict[str, list] = {t: [] for t in x_dict}
         for t, rels in self.groups.items():
-            contributions[t].append((self.fused[t](x_dict[t], plans[t]), len(rels)))
+            if t in plans:
+                contributions[t].append((self.fused[t](x_dict[t], plans[t]), len(rels)))
         for et in self.singles:
-            conv = self.convs[edge_type_key(et)]
-            contributions[et[0]].append((conv(x_dict[et[0]], x_dict[et[2]], plans[et]), 1))
+            if et in plans:
+                conv = self.convs[edge_type_key(et)]
+                contributions[et[0]].append((conv(x_dict[et[0]], x_dict[et[2]], plans[et]), 1))
         result: Dict[str, torch.Tensor] = {}
         for t, outs in contributions.items():
             if outs:
@@ -81,6 +109,11 @@ class HeteroConv(nn.Module):
                 for arr, _w in outs[1:]:
                     total = total + arr
                 result[t] = total / sum(w for _arr, w in outs)
-            else:
+            elif t in self.selfs:
                 result[t] = self.selfs[t](x_dict[t])
+            else:
+                raise ValueError(
+                    f"node type {t!r} gets no contribution: the graph lacks every relation the model was built "
+                    "to aggregate into it (a JAX model initialised on this graph has a self_ Dense there)"
+                )
         return result

@@ -7,9 +7,9 @@ Phases, each on its own line with elapsed seconds:
   1. environment: torch / CUDA versions, the card's name and power limit,
      TF32 off for matmuls and cuDNN;
   2. build: the CUDA sources of K1 (analysisgnn_tpu_torch/csrc/
-     segment_mean_base.cu) and K3 (csrc/relation_weighted_matmul.cu), one
-     nvcc each, started together, into the git-ignored
-     analysisgnn_tpu_torch/_build/;
+     segment_mean_base.cu), K3 (csrc/relation_weighted_matmul.cu) and K2
+     (csrc/segment_softmax_agg.cu), one nvcc each, started together, into
+     the git-ignored analysisgnn_tpu_torch/_build/;
   3. kernel check: K1 (segment_mean_base) against its plain PyTorch version on
      the card, at the shapes of the largest request (the fused 7-relation note
      layer and onset pooling, F=256) and at edge cases (padding ids, empty
@@ -41,7 +41,17 @@ Phases, each on its own line with elapsed seconds:
      then one step on the GPU against the same step on the CPU (plain
      versions, same weights and batch, dropout 0);
   9. train trace: one edge-zxp step under torch.profiler, with the device's
-     busy share of the step and its kernels by device time.
+     busy share of the step and its kernels by device time;
+ 10. K2 check: segment_softmax_agg's kernel against its plain version (value
+     and the autograd gradients of logits and msgs, padding gradients exactly
+     0) at the HGT train step's shape (the union softmax of one layer over a
+     train batch: 13 relation blocks, H = 4, D = 64) and at edge cases, with
+     median times of the kernel and the plain version beside the bytes bound;
+ 11. HGT train: the same train step with the "HGT-emax-pallas" model of
+     scripts/bench_encoders.py (HybridHGT 3 x 256 -> 128, 4 heads, K2):
+     ms per step, K2 and K1 launches per step against the code's
+     prediction, a loss that falls over 20 steps on one batch, one GPU step
+     against the CPU step, and one traced step.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -76,7 +86,19 @@ K3_RTOL = 1e-4
 TRAIN_CFG = {"model": "HybridGNN", "num_layers": 3, "hidden_channels": 256, "out_channels": 128, "in_channels": 25,
              "use_jk": True, "final_norm": True, "plain_proj": True, "dropout": 0.3,
              "add_beats": True, "add_measures": True}
-TIMED_STEPS = {"edge-zxp": 6, "node": 3}
+# K2 kernel vs plain, elementwise, relative to the sum of |terms| of each
+# result (the weighted sum of |msgs| for the output, w * |g| for d msgs,
+# w * (<|msgs|, |g|> + <|out|, |g|>) for d logits): the same terms summed in
+# another order, over a node's few dozen edges, with expf within 2 ulp; a
+# random walk of K roundings is about sqrt(K) * 6e-8 = 6e-7 of it at K = 100,
+# a wrong index is O(1)
+K2_RTOL = 1e-5
+# the "HGT-emax-pallas" model of scripts/bench_encoders.py:98-114 on the same batches
+HGT_CFG = {**TRAIN_CFG, "model": "HGT", "use_pallas": True}
+# train arms: conv_impl of the HybridGNN, or the HGT model
+ARMS = {"edge-zxp": {**TRAIN_CFG, "conv_impl": "edge-zxp"}, "node": {**TRAIN_CFG, "conv_impl": "node"},
+        "hgt": HGT_CFG}
+TIMED_STEPS = {"edge-zxp": 6, "node": 3, "hgt": 4}
 FALL_STEPS = 20
 # GPU vs CPU after one train step at the constant rate PARITY_LR, with the
 # optimizer's eps raised to PARITY_EPS: Adam's first step moves every
@@ -133,13 +155,13 @@ def build_kernels() -> None:
     from analysisgnn_tpu_torch.kernels import build
 
     t = time.perf_counter()
-    built = build.build_all(["segment_mean_base", "relation_weighted_matmul"])
+    built = build.build_all(["segment_mean_base", "relation_weighted_matmul", "segment_softmax_agg"])
     for name, (seconds, log) in built.items():
         phase(f"build: {name} nvcc {seconds:.2f}s -> {build.library_path(name).name}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 phase(f"build:   {line.strip()}")
-    phase(f"build: both sources in {time.perf_counter() - t:.2f}s wall")
+    phase(f"build: {len(built)} sources in {time.perf_counter() - t:.2f}s wall")
 
 
 def k1_bound_ms(e_valid: int, f: int, m: int, s: int) -> tuple:
@@ -466,6 +488,117 @@ def check_k1_backward(batch) -> dict:
     return {"E": e, "E_padding": int(padding.sum()), "F": f, "S": plan.num_segments, "max_abs_err": worst}
 
 
+def k2_bound_ms(e_valid: int, h: int, f: int, n: int) -> tuple:
+    """Least time for K2's work on this data: each valid edge's logits,
+    message row and node id read once (padding edges are neither read nor
+    needed), each node's output row, max and den written once."""
+    bytes_moved = e_valid * (h + f + 1) * 4 + n * (f + 2 * h) * 4
+    ops = e_valid * (3 * f + 4 * h) + n * (f + h)  # exp, weight and add per element; max per logit; divide per output
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_k2(name: str, logits, msgs, plan, timed: bool) -> dict:
+    """K2's kernel against its plain version on the same inputs: the value and
+    the autograd gradients of logits and msgs (padding gradients exactly 0),
+    each within K2_RTOL of its sum of |terms|; with ``timed``, medians of the
+    kernel and the plain version (forward)."""
+    from analysisgnn_tpu_torch.kernels.softmax_agg import (
+        segment_softmax_agg, segment_softmax_agg_plain, softmax_agg_forward,
+    )
+
+    n, (e, h), f = plan.num_nodes, logits.shape, msgs.shape[1]
+    d = f // h
+    gen = torch.Generator(device="cpu").manual_seed(e + n)
+    g = torch.randn(n, f, generator=gen).to(logits.device)
+    results = {}
+    for kind, fn in (("kernel", segment_softmax_agg), ("plain", segment_softmax_agg_plain)):
+        lo, ms = logits.clone().requires_grad_(True), msgs.clone().requires_grad_(True)
+        out = fn(lo, ms, plan)
+        results[kind] = (out.detach(), *torch.autograd.grad(out, (lo, ms), g))
+    # the sums of |terms| of each result, the scale of its rounding; the plain
+    # version is linear in msgs, so its gradient for a cotangent of ones is
+    # the attention weight w [E, H] repeated over D
+    ms = msgs.clone().requires_grad_(True)
+    w = torch.autograd.grad(segment_softmax_agg_plain(logits, ms, plan), ms, torch.ones_like(g))[0]
+    w = w.view(e, h, d)[..., 0]
+    node_g = torch.cat([g.abs(), g.new_zeros((1, f))]).index_select(0, plan.node).view(e, h, d)
+    out_abs = segment_softmax_agg_plain(logits, msgs.abs(), plan)
+    scales = (
+        out_abs,
+        w * ((msgs.abs().view(e, h, d) * node_g).sum(-1)
+             + torch.cat([(results["plain"][0].abs() * g.abs()).view(n, h, d).sum(-1), g.new_zeros((1, h))])
+             .index_select(0, plan.node)),
+        (node_g * w[..., None]).view(e, f),
+    )
+    torch.cuda.synchronize()
+    padding = plan.node >= n
+    errs = {}
+    for part, a, b, sc in zip(("forward", "d logits", "d msgs"), results["kernel"], results["plain"], scales):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"K2 {name} {part}: shape {tuple(a.shape)} vs {tuple(b.shape)} or non-finite values")
+        err = (a - b).abs()
+        if not bool((err <= K2_RTOL * sc + 1e-30).all()):
+            worst = float((err / sc.clamp_min(1e-30)).max())
+            raise AssertionError(f"K2 {name} {part}: |kernel - plain| reaches {worst:.3e} of the sum of |terms| "
+                                 f"(tol {K2_RTOL})")
+        errs[part] = float(err.max()) if err.numel() else 0.0
+    d_logits, d_msgs = results["kernel"][1:]
+    if bool(d_logits[padding].any()) or bool(d_msgs[padding].any()):
+        raise AssertionError(f"K2 {name}: padding edges got a nonzero gradient")
+    e_valid = int((~padding).sum())
+    row = {"case": name, "E": e, "E_valid": e_valid, "H": h, "F": f, "n": n, "blocks": plan.num_blocks,
+           "max_abs_err": max(errs.values())}
+    line = (f"kernel check: K2 {name}: E={e} (valid {e_valid}) H={h} F={f} n={n} blocks={plan.num_blocks} max|d| "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (tol {K2_RTOL} of the sum of |terms|), padding gradients exactly 0")
+    if timed:
+        row["ms"] = cuda_ms(lambda: softmax_agg_forward(logits, msgs, plan))
+        row["plain_ms"] = cuda_ms(lambda: segment_softmax_agg_plain(logits, msgs, plan))
+        row["library_ms"] = None  # no single PyTorch call computes this function
+        row["bound_ms"], row["bound_by"] = k2_bound_ms(e_valid, h, f, n)
+        line += (f" | kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (no single PyTorch call computes "
+                 f"it), bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                 f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time)")
+    phase(line)
+    return row
+
+
+def k2_checks(batch) -> list:
+    """K2 at the HGT train step's shape (the union softmax of one layer over
+    ``batch``), at tests/test_pallas.py's case, and at edge cases: an empty
+    node, a node with edges in every block, a block that is all padding."""
+    from analysisgnn_tpu_torch.core.graph import metadata
+    from analysisgnn_tpu_torch.kernels.softmax_agg import plan_softmax_agg
+    from analysisgnn_tpu_torch.models.encoders import plan_hgt
+
+    dev = torch.device("cuda")
+    _, model_edges = metadata(HGT_CFG["add_beats"], HGT_CFG["add_measures"])
+    caps = {t: v.shape[0] for t, v in batch.node_features.items()}
+    hgt = plan_hgt(batch.edge_index, model_edges, caps, "emax")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    h, f = 4, TRAIN_CFG["hidden_channels"]
+    e = hgt.k2.node.shape[0]
+    rows = [check_k2("HGT train shape", (torch.randn(e, h, generator=gen) * 2).to(dev),
+                     torch.randn(e, f, generator=gen).to(dev), hgt.k2, timed=True)]
+    cases = (("test_pallas.py case", 300, 4, 8, [257, 1100, 64], [0, 0, 0]),
+             ("edge cases", 40, 2, 4, [30, 0, 12, 25], [3, 9, 0, 5]),
+             ("D=6 scalar path", 50, 3, 6, [70, 20], [4, 1]))
+    for name, n, h, d, per_block, pads in cases:
+        nodes, blocks = [], []
+        for r, (ne, p) in enumerate(zip(per_block, pads)):
+            ids = torch.randint(0, n, (ne,), generator=gen)
+            if ne and name == "edge cases":  # node 5 empty, node 0 in every block with edges
+                ids = torch.cat([torch.where(ids == 5, 6, ids)[1:], torch.zeros(1, dtype=ids.dtype)])
+            nodes.append(torch.cat([ids.sort().values, torch.full((p,), n)]))
+            blocks.append(torch.full((ne + p,), r))
+        plan = plan_softmax_agg(torch.cat(nodes).to(dev), torch.cat(blocks).to(dev), n, len(per_block))
+        ne = plan.node.shape[0]
+        rows.append(check_k2(name, (torch.randn(ne, h, generator=gen) * 2).to(dev),
+                             torch.randn(ne, h * d, generator=gen).to(dev), plan, timed=False))
+    return rows
+
+
 def train_corpus():
     """bench.py's corpus and sampler, built by the port."""
     from analysisgnn_tpu_torch.core.graph import NOTE
@@ -500,11 +633,11 @@ def train_corpus():
     return SubgraphSampler(samples, cfg)
 
 
-def _train_model(conv_impl: str, dropout: float, device: str):
+def _train_model(arm: str, dropout: float, device: str):
     from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
     from analysisgnn_tpu_torch.train.state import torch_style_reinit
 
-    model = model_from_config({**TRAIN_CFG, "conv_impl": conv_impl, "dropout": dropout}, device=device)
+    model = model_from_config({**ARMS[arm], "dropout": dropout}, device=device)
     init_parameters(model, torch.Generator(device="cpu").manual_seed(0))
     torch_style_reinit(model, seed=0)
     return model
@@ -523,53 +656,59 @@ def _trainer(model, opt):
 def _launch_counters():
     from analysisgnn_tpu_torch.kernels.relmm import relation_weighted_matmul as k3
     from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base as k1
+    from analysisgnn_tpu_torch.kernels.softmax_agg import segment_softmax_agg as k2
 
-    return k1, k3
+    return k1, k2, k3
 
 
 def _reset_counts() -> None:
-    k1, k3 = _launch_counters()
-    k1.launches = 0
+    k1, k2, k3 = _launch_counters()
+    k1.launches = k2.launches = 0
     k3.launches = k3.dx_launches = k3.dw_launches = k3.dalpha_launches = 0
 
 
 def _counts() -> dict:
-    k1, k3 = _launch_counters()
-    return {"segment_mean_base": k1.launches, "relation_weighted_matmul": k3.launches,
-            "relation_weighted_matmul.dx": k3.dx_launches, "relation_weighted_matmul.dw": k3.dw_launches,
-            "relation_weighted_matmul.dalpha": k3.dalpha_launches}
+    k1, k2, k3 = _launch_counters()
+    return {"segment_mean_base": k1.launches, "segment_softmax_agg": k2.launches,
+            "relation_weighted_matmul": k3.launches, "relation_weighted_matmul.dx": k3.dx_launches,
+            "relation_weighted_matmul.dw": k3.dw_launches, "relation_weighted_matmul.dalpha": k3.dalpha_launches}
 
 
 def predicted_launches(model) -> dict:
-    """Launches per train step the code predicts: every hetero conv (the
-    layers and the final one) runs one K1 per single relation, plus one per
-    fused group under "node" or one K3 forward, dx and dw per fused group
-    under "edge-zxp"; onset pooling runs one K1.  No d alpha: the edge
-    layout's alpha = 1 / max(count, 1) carries no gradient."""
+    """Launches per train step the code predicts.  HybridGNN: every hetero
+    conv (the layers and the final one) runs one K1 per single relation, plus
+    one per fused group under "node" or one K3 forward, dx and dw per fused
+    group under "edge-zxp"; no d alpha (the edge layout's alpha = 1 /
+    max(count, 1) carries no gradient).  HybridHGT with K2: one K2 per layer
+    (its backward is plain PyTorch).  Both: onset pooling runs one K1."""
     from analysisgnn_tpu_torch.models.hetero import fusion_groups
 
-    groups, singles = fusion_groups(model.edge_types)
-    convs = len(model.encoder.layers) + 1
-    zxp = model.conv_impl == "edge-zxp"
-    k1 = convs * (len(singles) + (len(groups) if model.conv_impl == "node" else 0)) + 1
-    k3 = convs * len(groups) if zxp else 0
-    return {"segment_mean_base": k1, "relation_weighted_matmul": k3, "relation_weighted_matmul.dx": k3,
-            "relation_weighted_matmul.dw": k3, "relation_weighted_matmul.dalpha": 0}
+    k1, k2, k3 = 1, 0, 0
+    if model.encoder_type == "hgt":
+        k2 = len(model.encoder.layers) if model.encoder.layers[0].use_pallas else 0
+    else:
+        groups, singles = fusion_groups(model.edge_types)
+        convs = len(model.encoder.layers) + 1
+        k1 += convs * (len(singles) + (len(groups) if model.conv_impl == "node" else 0))
+        k3 = convs * len(groups) if model.conv_impl == "edge-zxp" else 0
+    return {"segment_mean_base": k1, "segment_softmax_agg": k2, "relation_weighted_matmul": k3,
+            "relation_weighted_matmul.dx": k3, "relation_weighted_matmul.dw": k3,
+            "relation_weighted_matmul.dalpha": 0}
 
 
-def train(conv_impl: str, batches: list) -> dict:
+def train(arm: str, batches: list) -> dict:
     """One warm-up step, then the timed steps on fresh batches (the main
-    path's run, with the launch counts read around it); for edge-zxp also
-    FALL_STEPS steps on one fixed batch, whose loss must fall."""
+    path's run, with the launch counts read around it); for edge-zxp and hgt
+    also FALL_STEPS steps on one fixed batch, whose loss must fall."""
     from analysisgnn_tpu_torch.core.graph import NOTE
     from analysisgnn_tpu_torch.train.schedules import warmup_cosine_schedule
     from analysisgnn_tpu_torch.train.state import make_optimizer
 
-    model = _train_model(conv_impl, TRAIN_CFG["dropout"], "cuda")
+    model = _train_model(arm, TRAIN_CFG["dropout"], "cuda")
     state, step = _trainer(model, make_optimizer(warmup_cosine_schedule(5e-3, total_steps=1000)))
     state, aux = step(state, batches[0])
     torch.cuda.synchronize()
-    k = TIMED_STEPS[conv_impl]
+    k = TIMED_STEPS[arm]
     timed = batches[1:1 + k]
     _reset_counts()  # the main path's run starts here
     times, losses, skipped = [], [], 0.0
@@ -584,21 +723,21 @@ def train(conv_impl: str, batches: list) -> dict:
     expected = predicted_launches(model)
     per_step = {name: c / k for name, c in counts.items()}
     if per_step != expected:
-        raise AssertionError(f"{conv_impl}: launches per step {per_step}, the code predicts {expected}")
+        raise AssertionError(f"{arm}: launches per step {per_step}, the code predicts {expected}")
     if not all(np.isfinite(losses)) or skipped:
-        raise AssertionError(f"{conv_impl}: non-finite loss {losses}")
+        raise AssertionError(f"{arm}: non-finite loss {losses}")
     # bench.py:191-194: valid message edges per step, every edge type once
     edges = statistics.mean(sum(b.num_edges.values()) for b in timed)
     ms = statistics.median(times) * 1e3
-    row = {"conv_impl": conv_impl, "steps": k, "median_ms": ms, "step_ms": [t * 1e3 for t in times],
+    row = {"arm": arm, "steps": k, "median_ms": ms, "step_ms": [t * 1e3 for t in times],
            "edges_per_step": edges, "edges_per_s": edges / (ms / 1e3), "launches": counts,
            "launches_per_step": per_step, "losses": losses, "notes": batches[0].capacity(NOTE)}
-    phase(f"train {conv_impl}: {k} steps after one warm-up: median {ms:.2f} ms/step "
+    phase(f"train {arm}: {k} steps after one warm-up: median {ms:.2f} ms/step "
           f"(each {', '.join(f'{t * 1e3:.1f}' for t in times)}), {edges:.0f} valid message edges per step, "
           f"{row['edges_per_s']:.4g} edges/s; losses {', '.join(f'{v:.4f}' for v in losses)}")
-    phase(f"train {conv_impl}: launches per step {per_step} (the code predicts the same); "
+    phase(f"train {arm}: launches per step {per_step} (the code predicts the same); "
           f"max memory allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if conv_impl == "edge-zxp":
+    if arm in ("edge-zxp", "hgt"):
         fixed = batches[0]
         fall = []
         for _ in range(FALL_STEPS):
@@ -606,9 +745,9 @@ def train(conv_impl: str, batches: list) -> dict:
             fall.append(float(aux["total_loss"]))
         first, last = statistics.mean(fall[:3]), statistics.mean(fall[-3:])
         if not (all(np.isfinite(fall)) and last < first):
-            raise AssertionError(f"{conv_impl}: loss on one fixed batch did not fall over {FALL_STEPS} steps: {fall}")
+            raise AssertionError(f"{arm}: loss on one fixed batch did not fall over {FALL_STEPS} steps: {fall}")
         row["fall"] = fall
-        phase(f"train {conv_impl}: {FALL_STEPS} steps on one batch: loss {fall[0]:.4f} -> {fall[-1]:.4f} "
+        phase(f"train {arm}: {FALL_STEPS} steps on one batch: loss {fall[0]:.4f} -> {fall[-1]:.4f} "
               f"(mean of the first 3 {first:.4f}, of the last 3 {last:.4f})")
         row["model"], row["state"], row["step"] = model, state, step
     return row
@@ -623,13 +762,13 @@ def _graph_to(batch, device: str):
     )
 
 
-def step_parity(batch) -> dict:
-    """One edge-zxp step on the GPU (kernels) against the same step on the
+def step_parity(arm: str, batch) -> dict:
+    """One step of the arm on the GPU (kernels) against the same step on the
     CPU (plain versions): same weights, same batch, dropout 0, constant rate."""
     from analysisgnn_tpu_torch.train.state import ClippedAdamW
 
-    model = _train_model("edge-zxp", 0.0, "cpu")
-    gpu_model = _train_model("edge-zxp", 0.0, "cuda")
+    model = _train_model(arm, 0.0, "cpu")
+    gpu_model = _train_model(arm, 0.0, "cuda")
     gpu_model.load_state_dict(model.state_dict())
     out = {}
     for dev, m, b in (("cuda", gpu_model, batch), ("cpu", model, _graph_to(batch, "cpu"))):
@@ -647,7 +786,7 @@ def step_parity(batch) -> dict:
         raise AssertionError(f"GPU vs CPU train step: loss {loss_g} vs {loss_c} (rel {rel:.2e}, "
                              f"tol {PARITY_LOSS_RTOL}), "
                              f"parameters max|d| {worst:.3e} (tol {PARITY_PARAM_ATOL})")
-    phase(f"train: one edge-zxp step, GPU vs CPU (plain versions, same weights and batch, dropout 0, lr {PARITY_LR}, "
+    phase(f"train: one {arm} step, GPU vs CPU (plain versions, same weights and batch, dropout 0, lr {PARITY_LR}, "
           f"eps {PARITY_EPS}): "
           f"loss {loss_g:.6f} vs {loss_c:.6f} (rel {rel:.2e}, tol {PARITY_LOSS_RTOL}); every parameter and mt_params "
           f"max|d| {worst:.3e} (tol {PARITY_PARAM_ATOL} abs); CPU step {cpu_s:.1f} s")
@@ -655,7 +794,7 @@ def step_parity(batch) -> dict:
 
 
 def trace_train(row: dict, batch, top: int = 12) -> dict:
-    """One edge-zxp step under torch.profiler: the device's busy share of
+    """One step of the arm under torch.profiler: the device's busy share of
     the step and its kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -670,7 +809,7 @@ def trace_train(row: dict, batch, top: int = 12) -> dict:
     if busy_ms <= 0:
         raise AssertionError("the profiled train step shows no device time")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    phase(f"train trace: one edge-zxp step, wall {wall_ms:.2f} ms under the profiler, device busy {busy_ms:.2f} ms "
+    phase(f"train trace: one {row['arm']} step, wall {wall_ms:.2f} ms under the profiler, device busy {busy_ms:.2f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of the wall), {sum(e.count for e in kernels)} kernel launches")
     for e in kernels[:top]:
         phase(f"train trace:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
@@ -706,10 +845,11 @@ def main() -> None:
           f"({batches[0].num_target_nodes} targets) in {time.perf_counter() - t:.2f}s")
     k3_rows = k3_checks(n_train)
     k1_backward = check_k1_backward(batches[0])
-    phase("kernel check: K3 and K1 backward done")
-    trained = {impl: train(impl, batches) for impl in TIMED_STEPS}
-    parity = step_parity(batches[0])
-    traced = trace_train(trained["edge-zxp"], batches[1])
+    k2_rows = k2_checks(batches[0])
+    phase("kernel check: K3, K1 backward and K2 done")
+    trained = {arm: train(arm, batches) for arm in ARMS}
+    parity = {arm: step_parity(arm, batches[0]) for arm in ("edge-zxp", "hgt")}
+    traced = {arm: trace_train(trained[arm], batches[1]) for arm in ("edge-zxp", "hgt")}
 
     main_row = rows[0]
     zxp = trained["edge-zxp"]
@@ -755,9 +895,25 @@ def main() -> None:
         k3_entry("dx", "relation_weighted_matmul.dx"),
         dw_entry,
     ]
-    per_step = ", ".join(f"{impl} {r['median_ms']:.2f}" for impl, r in trained.items())
-    phase(f"train: done; ms per step {per_step}; trace busy {traced['busy_ms']:.2f} of {traced['wall_ms']:.2f} ms; "
-          f"parity {parity}")
+    k2_row = k2_rows[0]
+    kernels.append({
+        "name": "segment_softmax_agg",
+        "route": "cuda",
+        "source": "analysisgnn_tpu_torch/csrc/segment_softmax_agg.cu",
+        "replaces": "analysisgnn_tpu/kernels/pallas_segment.py:754",
+        "launches": trained["hgt"]["launches"]["segment_softmax_agg"],
+        "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
+        "ms": k2_row["ms"],
+        "plain_ms": k2_row["plain_ms"],
+        "bound_ms": k2_row["bound_ms"],
+        "bound_by": k2_row["bound_by"],
+        "library_ms": k2_row["library_ms"],
+        "shape": f"{k2_row['case']}: E={k2_row['E']} (valid {k2_row['E_valid']}) H={k2_row['H']} F={k2_row['F']} "
+                 f"n={k2_row['n']} blocks={k2_row['blocks']}",
+    })
+    per_step = ", ".join(f"{arm} {r['median_ms']:.2f}" for arm, r in trained.items())
+    busy = ", ".join(f"{arm} {r['busy_ms']:.2f} of {r['wall_ms']:.2f} ms" for arm, r in traced.items())
+    phase(f"train: done; ms per step {per_step}; traced steps busy {busy}; parity {parity}")
     phase(f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -183,3 +183,37 @@ def test_layer_attention_jk_matches_flax(num_layers):
     with torch.no_grad():
         got = tmod([torch.from_numpy(s) for s in states]).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_hybrid_gnn_over_a_graph_lacking_relations_matches_jax():
+    """A graph without two of the model's single relations: the JAX model
+    initialised on it has no parameters for them and skips them; the port,
+    built for every relation, skips them too (it used to raise KeyError).
+    Its unused parameters are the only keys the JAX tree lacks."""
+    g, x = _graph(80, True, seed=6)
+    nodes, edge_types = metadata(True, True)
+    lacking = (("beat", "next", "beat"), ("note", "connects", "measure"))
+    ei = {et: v for et, v in _src_sorted(g.edge_index_dict()).items() if et not in lacking}
+    jx = {t: jnp.asarray(v) for t, v in x.items()}
+    jmod = JHybridGNN(HIDDEN, num_layers=2, use_jk=True, edge_types=edge_types, final_norm=True)
+    params = jmod.init(jax.random.PRNGKey(8), jx, ei)
+    want = np.asarray(jmod.apply(params, jx, ei))
+
+    tmod = HybridGNN(HIDDEN, 2, nodes, edge_types, use_jk=True, final_norm=True)
+    state = _sub_state(params, "encoder.", lambda p: {"encoder": p}, 2)
+    missing, unexpected = tmod.load_state_dict(state, strict=False)
+    assert not unexpected
+    assert {k.split(".convs.")[1].split(".")[0] for k in missing} == {"__".join(et) for et in lacking}
+    caps = {t: v.shape[0] for t, v in x.items()}
+    with torch.no_grad():
+        got = tmod(_torch_dict(x), plan_hetero(_torch_dict(ei), edge_types, caps)).numpy()
+    np.testing.assert_allclose(got, want, atol=3e-5)
+
+    # a fused group that loses a member, or a node type left without any relation,
+    # would need other modules (the JAX model initialised there has them): refused
+    no_rest = {et: v for et, v in ei.items() if et != ("note", "rest", "note")}
+    with pytest.raises(ValueError, match="fused relations"):
+        plan_hetero(_torch_dict(no_rest), edge_types, caps)
+    no_measure = {et: v for et, v in ei.items() if et[0] != "measure"}
+    with pytest.raises(ValueError, match="no contribution"), torch.no_grad():
+        tmod(_torch_dict(x), plan_hetero(_torch_dict(no_measure), edge_types, caps))
