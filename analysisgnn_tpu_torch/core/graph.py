@@ -91,7 +91,9 @@ class HeteroGraph:
 
     ``edge_index[et]`` is ``[2, E_cap]`` int64 (row 0 source, row 1
     destination); ``num_nodes`` / ``num_edges`` count the valid entries;
-    ``num_target_nodes`` counts the target notes, which come first.
+    ``num_target_nodes`` counts the target notes, which come first;
+    ``batch[t]`` is ``[N_cap]`` int64, the graph id of each node of a packed
+    batch (0 for a single graph, -1 on padding rows).
     """
 
     node_features: Dict[str, torch.Tensor]
@@ -100,6 +102,7 @@ class HeteroGraph:
     num_edges: Dict[EdgeType, int]
     node_attrs: Dict[str, Dict[str, torch.Tensor]]
     num_target_nodes: int
+    batch: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     def capacity(self, node_type: str) -> int:
         return self.node_features[node_type].shape[0]
@@ -121,13 +124,16 @@ class HeteroGraph:
         node_capacity: Optional[Mapping[str, int]] = None,
         edge_capacity: Optional[Mapping[EdgeType, int]] = None,
         device: "str | torch.device" = "cpu",
+        batch: Optional[Mapping[str, np.ndarray]] = None,
     ) -> "HeteroGraph":
         """Pad ragged host arrays to the given capacities (exact sizes when
-        omitted) and move them to ``device``."""
+        omitted) and move them to ``device``; ``batch`` gives the graph id of
+        each node (all 0 when omitted)."""
         node_attrs = node_attrs or {}
         nf: Dict[str, np.ndarray] = {}
         nn: Dict[str, int] = {}
         na: Dict[str, Dict[str, np.ndarray]] = {}
+        bt: Dict[str, np.ndarray] = {}
         for t, x in node_features.items():
             x = np.asarray(x)
             n = x.shape[0]
@@ -137,6 +143,8 @@ class HeteroGraph:
             nf[t] = _padded(x, cap)
             nn[t] = n
             na[t] = {name: _padded(np.asarray(v), cap) for name, v in (node_attrs.get(t) or {}).items()}
+            bt[t] = np.full(cap, -1, np.int64)
+            bt[t][:n] = batch[t] if batch is not None and t in batch else 0
         ei: Dict[EdgeType, np.ndarray] = {}
         ne: Dict[EdgeType, int] = {}
         for et, idx in edge_index.items():
@@ -165,4 +173,5 @@ class HeteroGraph:
             num_edges=ne,
             node_attrs={t: {k: put(v) for k, v in d.items()} for t, d in na.items()},
             num_target_nodes=int(ntn),
+            batch={t: put(v) for t, v in bt.items()},
         )

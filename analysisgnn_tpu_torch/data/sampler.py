@@ -1,7 +1,9 @@
 """Static-shape bounded subgraph sampler (counterpart of
 ``analysisgnn_tpu/data/sampler.py``: the same numpy code, so the same seed
 gives the same arrays; each batch becomes a port :class:`HeteroGraph` on the
-requested device).
+requested device).  Iterating a sampler yields one epoch of batches: under a
+``subgraph_sample_ratio`` other than 1, that many random batches; otherwise
+one pass over the graphs, shuffled if asked.
 
 Per batch: pick ``batch_size`` score graphs; per graph sample a contiguous
 window of at most ``subgraph_size`` *target* notes (notes are onset-sorted, so
@@ -18,8 +20,9 @@ shape.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +38,11 @@ class ScoreSample:
     edges: Dict[EdgeType, np.ndarray]  # edge type → [2, E]
     note_attrs: Dict[str, np.ndarray]  # name → [N_note] (labels, encodings...)
     name: str = ""
+    transposition: str = "P1"
+    test: bool = False
+    # explicit collection membership ("training"/"validation"/"test") for
+    # corpora with directory-defined splits; "" = no explicit split
+    split: str = ""
 
     @property
     def num_notes(self) -> int:
@@ -114,16 +122,30 @@ class SamplerConfig:
     # overflow deterministically impossible: Σ per-graph ≤
     # n_graphs·(cap//n_graphs) ≤ cap.
     node_capacity_headroom: float = 1.25
+    # The reference train loaders' ``subgraph_sample_ratio`` (0.5 there): an
+    # epoch yields ``ceil(ratio * num_graphs / batch_size)`` batches of
+    # randomly chosen graphs instead of one pass over the graph list.  With
+    # ratio 1.0 an epoch is one pass, shuffled if the sampler shuffles.
+    subgraph_sample_ratio: float = 1.0
 
 
 class SubgraphSampler:
-    """Sampler producing fixed-shape :class:`HeteroGraph` batches."""
+    """Iterable sampler producing fixed-shape :class:`HeteroGraph` batches on
+    ``device`` (the GPU unless the caller asks for the CPU)."""
 
-    def __init__(self, samples: Sequence[ScoreSample], config: SamplerConfig) -> None:
+    def __init__(
+        self,
+        samples: Sequence[ScoreSample],
+        config: SamplerConfig,
+        shuffle: bool = True,
+        device: "str | torch.device" = "cuda",
+    ) -> None:
         if not samples:
             raise ValueError("no samples")
         self.samples = list(samples)
         self.cfg = config
+        self.shuffle = shuffle
+        self.device = device
         self.rng = np.random.default_rng(config.seed)
         self._csr_cache: List[Dict[EdgeType, Tuple[np.ndarray, np.ndarray, np.ndarray]]] = [
             None
@@ -331,14 +353,45 @@ class SubgraphSampler:
 
     # ------------------------------------------------------------------ #
 
+    def spawn(self, n: int) -> List["SubgraphSampler"]:
+        """``n`` independently seeded shallow clones sharing the (read-only)
+        corpus and CSR caches, one per prefetch worker thread.  The parent's
+        RNG stream is untouched; the clones draw from spawned child streams."""
+        # fill every CSR cache entry, so that the shared list is read-only after
+        for gi in range(len(self.samples)):
+            self._csr(gi)
+        clones = []
+        for child in self.rng.spawn(n):
+            c = copy.copy(self)
+            c.rng = child
+            clones.append(c)
+        return clones
+
+    def num_epoch_batches(self) -> int:
+        """Batches one epoch yields under ``subgraph_sample_ratio``."""
+        r = self.cfg.subgraph_sample_ratio
+        return max(int(np.ceil(r * len(self.samples) / self.cfg.batch_size)), 1)
+
+    def __iter__(self) -> Iterator[HeteroGraph]:
+        if self.cfg.subgraph_sample_ratio != 1.0:
+            # the reference train loaders: ratio * n random subgraphs, not one pass
+            for _ in range(self.num_epoch_batches()):
+                yield self.sample_batch()
+            return
+        idx = np.arange(len(self.samples))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        for i in range(0, len(idx), self.cfg.batch_size):
+            yield self.sample_batch(idx[i : i + self.cfg.batch_size])
+
     def sample_batch(
         self,
         graph_indices: Optional[Sequence[int]] = None,
-        device: "str | torch.device" = "cuda",
+        device: "str | torch.device | None" = None,
     ) -> HeteroGraph:
-        """One padded batch on ``device`` (the GPU unless the caller asks for
-        the CPU); graphs drawn from the sampler's RNG unless given."""
-        dev = resolve_device(device)
+        """One padded batch on ``device`` (the sampler's device unless given);
+        graphs drawn from the sampler's RNG unless given."""
+        dev = resolve_device(self.device if device is None else device)
         cfg = self.cfg
         if graph_indices is None:
             graph_indices = self.rng.choice(
@@ -390,6 +443,7 @@ class SubgraphSampler:
 
         # assemble node features/attrs in GLOBAL order
         note_feat_arr = np.zeros((total_notes, self.feature_dims[NOTE]), np.float32)
+        note_batch = np.zeros(total_notes, np.int64)
         attr_arrays = {
             a: np.zeros(
                 total_notes,
@@ -401,17 +455,22 @@ class SubgraphSampler:
             s = self.samples[int(gi)]
             gmap = note_global[i]
             note_feat_arr[gmap] = s.features[NOTE][order[NOTE]]
+            note_batch[gmap] = i
             for a in self.attr_names:
                 attr_arrays[a][gmap] = s.note_attrs[a][order[NOTE]]
 
         feats = {NOTE: note_feat_arr}
+        batches = {NOTE: note_batch}
         for t in other_types:
             arr = np.zeros((max(other_counts[t], 1), self.feature_dims[t]), np.float32)
+            bvec = np.zeros(max(other_counts[t], 1), np.int64)
             for i, (order, _, _) in enumerate(parts):
                 ids = order.get(t, np.zeros(0, np.int64))
                 if len(ids):
                     arr[other_global[t][i]] = self.samples[int(graph_indices[i])].features[t][ids]
+                    bvec[other_global[t][i]] = i
             feats[t] = arr
+            batches[t] = bvec
 
         # edges: remap local ids to global, concatenate
         all_edges: Dict[EdgeType, List[np.ndarray]] = {}
@@ -471,4 +530,5 @@ class SubgraphSampler:
             node_capacity=node_caps,
             edge_capacity=self.edge_caps,
             device=dev,
+            batch=batches,
         )

@@ -1,0 +1,101 @@
+"""K4: sorted-segment sum, as a hand-written CUDA kernel.
+
+Replaces the Pallas TPU kernel
+``analysisgnn_tpu/kernels/pallas_segment.py::segment_sum_sorted``.  The CUDA
+kernel is the sum mode of K1's kernel in ``csrc/segment_mean_base.cu``
+(``segment_sum_launch``), built with ``nvcc`` for ``sm_90a`` and loaded with
+ctypes (``kernels/build.py``).
+
+For destination ids sorted ascending, ``out[n] = sum of msgs[e] over
+dst[e] == n``, ``[E, F] -> [num_nodes, F]`` float32; an empty node gets 0, and
+ids outside ``[0, num_nodes)`` drop, as in both JAX functions.
+
+The TPU function takes ``tile_offsets`` (``tile_edge_offsets``: edge offsets
+of 256-node tiles, a device of the TPU layout).  This wrapper accepts that
+argument and ignores it: it builds its own CSR row pointers, one per node,
+with ``torch.searchsorted`` on the sorted ids, as K1 does.
+
+Bound on the H100: bytes (``E*F*4 + E*4`` in, ``N*F*4`` out, one add per
+message element).  One warp per node walks its contiguous edge range once
+with 16-byte loads and writes its row once, with no atomics.
+
+The JAX function is forward-only (no ``custom_vjp``), and so is this one:
+inputs that require a gradient are refused.  On a CPU tensor the wrapper
+computes the plain version; on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels.segment_ops import segment_sum
+
+
+def segment_sum_sorted_plain(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """The plain PyTorch version: ``index_add_`` into ``[N + 1, F]`` with
+    out-of-range ids sent to the dummy row."""
+    return segment_sum(msgs, dst_sorted, num_nodes)
+
+
+def _check(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> None:
+    if msgs.requires_grad:
+        raise ValueError("segment_sum_sorted is forward-only, as the JAX function is: msgs must not require grad")
+    if msgs.dtype != torch.float32:
+        raise TypeError(f"msgs must be float32, got {msgs.dtype}")
+    if dst_sorted.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"dst_sorted must be int32 or int64, got {dst_sorted.dtype}")
+    if msgs.dim() != 2 or dst_sorted.dim() != 1 or msgs.shape[0] != dst_sorted.shape[0]:
+        raise ValueError(f"expected msgs [E, F] and dst_sorted [E], got {tuple(msgs.shape)} and {tuple(dst_sorted.shape)}")
+    if num_nodes < 0:
+        raise ValueError(f"num_nodes must be >= 0, got {num_nodes}")
+    if msgs.device != dst_sorted.device or msgs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"msgs and dst_sorted must be on one cpu or cuda device, got {msgs.device}, {dst_sorted.device}")
+
+
+def _launch(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    lib = _launcher()
+    msgs = msgs.contiguous()
+    f = msgs.shape[1]
+    with torch.cuda.device(msgs.device):
+        ids = dst_sorted.to(torch.int32).contiguous()
+        bounds = torch.arange(num_nodes + 1, dtype=torch.int32, device=msgs.device)
+        row_ptr = torch.searchsorted(ids, bounds, out_int32=True)
+        out = torch.empty((num_nodes, f), dtype=torch.float32, device=msgs.device)
+        vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, out))
+        stream = torch.cuda.current_stream(msgs.device).cuda_stream
+        rc = lib.segment_sum_launch(msgs.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), num_nodes, f, int(vec), stream)
+    if rc != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: cudaError {rc}")
+    segment_sum_sorted.launches += 1
+    return out
+
+
+def segment_sum_sorted(
+    msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int, tile_offsets: Optional[object] = None
+) -> torch.Tensor:
+    """``[num_nodes, F]`` sums of ``msgs`` per ascending destination id; see
+    the module docstring.  ``tile_offsets`` is accepted for the TPU
+    function's signature and ignored.  ``segment_sum_sorted.launches`` counts
+    kernel launches."""
+    del tile_offsets
+    _check(msgs, dst_sorted, num_nodes)
+    if msgs.device.type == "cpu":
+        return segment_sum_sorted_plain(msgs, dst_sorted, num_nodes)
+    return _launch(msgs, dst_sorted, num_nodes)
+
+
+segment_sum_sorted.launches = 0
+
+
+def _launcher():
+    lib = build.load("segment_mean_base")
+    fn = lib.segment_sum_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    return lib

@@ -21,7 +21,7 @@ from analysisgnn_tpu_torch.convert import flax_tree_from_state_dict, state_dict_
 from analysisgnn_tpu_torch.train.losses import init_mt_params
 
 
-# optax.adamw's defaults, the JAX package's weight decay and clipping norm
+# optax.adamw's defaults, the JAX package's default weight decay and clipping norm
 B1, B2, WEIGHT_DECAY, CLIP_NORM = 0.9, 0.999, 5e-3, 1.0
 
 
@@ -33,20 +33,28 @@ class AdamWState:
 
 
 class ClippedAdamW:
-    """``optax.chain(clip_by_global_norm(1.0), adamw(lr_schedule, 5e-3))``
-    (b1 0.9, b2 0.999, ``eps`` added after the square root) over every
-    trainable, ``mt_params`` included:
+    """``optax.chain(clip_by_global_norm(clip_norm), adamw(lr_schedule,
+    weight_decay))`` (b1 0.9, b2 0.999, ``eps`` added after the square root)
+    over every trainable, ``mt_params`` included:
 
-    * clip: ``g * 1.0 / norm`` when the global norm is at least 1.0 (not
-      ``clip_grad_norm_``'s ``norm + 1e-6``);
+    * clip: ``g * clip_norm / norm`` when the global norm is at least
+      ``clip_norm`` (not ``clip_grad_norm_``'s ``norm + 1e-6``);
     * Adam moments with bias correction at ``count + 1``;
     * decoupled weight decay on every leaf, added to the Adam direction, and
       both scaled by the scheduled rate at ``count``.
     """
 
-    def __init__(self, lr_schedule: Callable[[int], float], eps: float = 1e-8):
+    def __init__(
+        self,
+        lr_schedule: Callable[[int], float],
+        eps: float = 1e-8,
+        weight_decay: float = WEIGHT_DECAY,
+        clip_norm: float = CLIP_NORM,
+    ):
         self.lr_schedule = lr_schedule
         self.eps = eps
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
         return AdamWState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
@@ -56,7 +64,7 @@ class ClippedAdamW:
         """One update of ``params`` and ``state``, in place."""
         params, grads = list(params), list(grads)
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < CLIP_NORM, 1.0, CLIP_NORM / norm)
+        scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
         grads = torch._foreach_mul(grads, scale)
         count = state.count + 1
         torch._foreach_mul_(state.mu, B1)
@@ -67,14 +75,17 @@ class ClippedAdamW:
         denom = torch._foreach_sqrt(torch._foreach_div(state.nu, 1.0 - B2**count))
         torch._foreach_add_(denom, self.eps)
         direction = torch._foreach_div(mu_hat, denom)
-        torch._foreach_add_(direction, params, alpha=WEIGHT_DECAY)
+        torch._foreach_add_(direction, params, alpha=self.weight_decay)
         torch._foreach_add_(params, direction, alpha=-self.lr_schedule(state.count))
         state.count = count
 
 
-def make_optimizer(lr_schedule: Callable[[int], float]) -> ClippedAdamW:
-    """AdamW with global-norm clipping at 1.0, as the JAX package trains."""
-    return ClippedAdamW(lr_schedule)
+def make_optimizer(
+    lr_schedule: Callable[[int], float], weight_decay: float = WEIGHT_DECAY, clip_norm: float = CLIP_NORM
+) -> ClippedAdamW:
+    """AdamW with global-norm clipping, as the JAX package trains (weight
+    decay 5e-3 and clipping at 1.0 unless the caller says otherwise)."""
+    return ClippedAdamW(lr_schedule, weight_decay=weight_decay, clip_norm=clip_norm)
 
 
 @dataclasses.dataclass

@@ -1,23 +1,33 @@
-"""The multi-task train step (counterpart of ``analysisgnn_tpu/train/step.py``:
-``StepConfig``, ``compute_losses`` with the wloss combiner and the feature-norm
-loss, the step body with its NaN/Inf skip, ``make_train_step`` and the K-step
-``make_train_step_multi`` as a plain loop).
+"""The multi-task train, eval and test steps (counterpart of
+``analysisgnn_tpu/train/step.py``: ``StepConfig``, ``compute_losses`` with the
+wloss combiner and the feature-norm loss, the step body with its NaN/Inf
+skip, ``make_train_step``, the K-step ``make_train_step_multi`` as a plain
+loop over a list of batches (``stack_batches``), ``make_eval_step`` and
+``make_test_step`` with their ``__w`` weight keys).
 
-Distillation, EWC, the edge-consistency loss, SMOTE, FAMO and bf16 compute
-come with the Trainer (ROADMAP queue 1 item 7); a config asking for one of
-them is refused.
+Distillation, EWC (and its fisher step), the edge-consistency loss, SMOTE,
+FAMO and bf16 compute come with the continual-learning part of the Trainer
+(ROADMAP queue 1 item 7); a config asking for one of them is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph
 from analysisgnn_tpu_torch.train.losses import masked_cross_entropy, multi_task_loss
+from analysisgnn_tpu_torch.train.metrics import (
+    NCT_RNA_KEYS,
+    RNA_KEYS,
+    f1_stats,
+    masked_accuracy,
+    nct_rna_accuracy,
+    onsetwise_rna_accuracy,
+)
 from analysisgnn_tpu_torch.train.state import ClippedAdamW, TrainState
 
 # task -> its extra validity-mask attribute
@@ -28,7 +38,7 @@ TASK_MASK_ATTRS: Dict[str, str] = {
     "section": "valid_section_start_label",
 }
 
-_LATER = "is not ported yet: it comes with the Trainer slice (ROADMAP queue 1 item 7)"
+_LATER = "is not ported yet: it comes with the continual-learning part of the Trainer slice (ROADMAP queue 1 item 7)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,11 +66,6 @@ class StepConfig:
         for name, on in refused.items():
             if on:
                 raise NotImplementedError(f"StepConfig {name} {_LATER}")
-
-
-def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    correct = (logits.argmax(-1) == labels).float() * weight.float()
-    return correct.sum() / weight.float().sum().clamp_min(1.0)
 
 
 def _task_weights(batch: HeteroGraph, cfg: StepConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -160,3 +165,65 @@ def make_train_step_multi(
         return state, {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
 
     return train_step_multi
+
+
+def stack_batches(batches: Sequence[HeteroGraph]) -> List[HeteroGraph]:
+    """The batches of one :func:`make_train_step_multi` call, as a list: the
+    port's K-step loop takes them one by one, so nothing is stacked."""
+    return list(batches)
+
+
+def make_eval_step(model: nn.Module, cfg: StepConfig) -> Callable[[TrainState, HeteroGraph], Dict[str, torch.Tensor]]:
+    """``eval(state, batch) -> metrics``: the task total and task losses with
+    their weights (``X__w``: the notes each is averaged over) and the
+    accuracies, without dropout or gradients."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: HeteroGraph) -> Dict[str, torch.Tensor]:
+        total, _, task_losses, metrics = compute_losses(model, state.mt_params, batch, cfg, True)
+        base_w, task_w = _task_weights(batch, cfg)
+        return {
+            "total_loss": total,
+            "total_loss__w": base_w.sum().float(),
+            **{f"{k}_loss": v for k, v in task_losses.items()},
+            **{f"{k}_loss__w": task_w[k].sum().float() for k in task_losses},
+            **metrics,
+        }
+
+    return eval_step
+
+
+def make_test_step(model: nn.Module, cfg: StepConfig) -> Callable[[TrainState, HeteroGraph], Dict[str, torch.Tensor]]:
+    """``test(state, batch) -> metrics``: per-task accuracy and macro-F1
+    statistics, plus the onset-wise RNA accuracy and its NCT-masked variant
+    when their tasks are active."""
+    task_sizes = dict(cfg.task_dict)
+
+    @torch.no_grad()
+    def test_step(state: TrainState, batch: HeteroGraph) -> Dict[str, torch.Tensor]:
+        attrs = batch.node_attrs[NOTE]
+        base_w, task_w = _task_weights(batch, cfg)
+        logits = model(
+            batch.node_features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
+            batch.num_target_nodes, True,
+        )
+        out: Dict[str, torch.Tensor] = {}
+        labels_dict = {}
+        for task in cfg.active_tasks:
+            labels = torch.where(attrs[task] < task_sizes[task], attrs[task], 0)
+            labels_dict[task] = labels
+            out[f"{task}_acc"] = masked_accuracy(logits[task], labels, task_w[task])
+            out[f"{task}_acc__w"] = task_w[task].sum().float()
+            out[f"{task}_f1_stats"] = f1_stats(logits[task], labels, task_w[task], task_sizes[task])
+        if all(k in cfg.active_tasks for k in RNA_KEYS):
+            acc, wsum = onsetwise_rna_accuracy(
+                logits, labels_dict, batch.edges((NOTE, "onset", NOTE)), attrs["onset_div"], batch.batch[NOTE],
+                base_w, with_weight=True,
+            )
+            out["rna_onset_acc"], out["rna_onset_acc__w"] = acc, wsum
+        if "tpc_in_label" in cfg.active_tasks and all(k in cfg.active_tasks for k in NCT_RNA_KEYS):
+            acc, wsum = nct_rna_accuracy(logits, labels_dict, base_w, with_weight=True)
+            out["rna_nct_acc"], out["rna_nct_acc__w"] = acc, wsum
+        return out
+
+    return test_step

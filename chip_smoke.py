@@ -51,18 +51,40 @@ Phases, each on its own line with elapsed seconds:
      scripts/bench_encoders.py (HybridHGT 3 x 256 -> 128, 4 heads, K2):
      ms per step, K2 and K1 launches per step against the code's
      prediction, a loss that falls over 20 steps on one batch, one GPU step
-     against the CPU step, and one traced step.
+     against the CPU step, and one traced step;
+ 12. K4 and K5 check: segment_sum_sorted (K4, the sum mode of K1's kernel)
+     and segment_softmax_sorted (K5, csrc/segment_softmax.cu) against their
+     plain versions at tests/test_pallas.py's cases, at a train batch's
+     shape (K4 over the fused note layer's sorted valid edges, F = 256; K5
+     over the HGT layer's valid union edges, H = 4) and at edge cases (empty
+     nodes, F = 25, H = 1, ids past num_nodes, no edges), with median times
+     of each kernel, its plain version and, for K4, an index_add_ yardstick,
+     beside the bytes bound; only tests call them, so no path launches them;
+ 13. trainer: the training entry point, analysisgnn_tpu_torch.cli.train.main,
+     at full width (HybridGNN 3 x 256 -> 128, JK, final norm) on the demo
+     corpus with --use_metrical --use_pallas --conv_impl edge-zxp, three
+     epochs of 12 steps, validation after each and the test split at the
+     end: seconds per epoch, median ms per train step, K1 and K3 launches
+     against the code's prediction, the log.jsonl keys, finite losses; then
+     last.pt served once through cli/predict.py's load_model (a 2,000-note
+     request), one epoch of --model HGT --use_pallas (K2), and one fit epoch
+     of 2 steps on the GPU against the same on the CPU (dropout 0, the same
+     initial state dict).
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -112,6 +134,22 @@ FALL_STEPS = 20
 # 4.8e-7, so the tolerance allows two roundings of the updated value.
 PARITY_LR, PARITY_EPS = 5e-3, 1.0
 PARITY_LOSS_RTOL, PARITY_PARAM_ATOL = 1e-5, 1e-6
+# K4 kernel vs plain, elementwise, relative to the sum of |terms| of each
+# output row (the segment's messages summed in another order)
+K4_RTOL = 1e-5
+# K5 kernel vs plain: weights in [0, 1], absolute; the weights of each run of
+# equal ids sum to 1 within K5_SUM_ATOL
+K5_ATOL, K5_SUM_ATOL = 1e-6, 1e-5
+# the training entry point at full width: three main tasks (the CLI's
+# default), --num_epochs 9 = 3 epochs of combined mode, 4 steps per task each
+TRAINER_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--do_train", "--do_eval",
+                 "--num_epochs", "9", "--max_steps_per_epoch", "4", "--main_tasks", "all,cadence,rna"]
+HGT_TRAINER_FLAGS = ["--demo", "--use_metrical", "--model", "HGT", "--use_pallas", "--do_train",
+                     "--num_epochs", "3", "--max_steps_per_epoch", "4", "--main_tasks", "all,cadence,rna"]
+# one fit epoch on the GPU against the CPU: losses of the same f32 model in another summation order
+TRAINER_PARITY_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--dropout", "0",
+                        "--num_epochs", "1", "--main_tasks", "all"]
+TRAINER_PARITY_RTOL = 1e-5
 
 
 def phase(msg: str) -> None:
@@ -132,6 +170,26 @@ def cuda_ms(fn, iters: int = 20, trials: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, iters: int = 20) -> float:
+    """Device time of one launch of the kernel whose name contains ``kernel``,
+    from torch.profiler over ``iters`` calls of ``fn``: the kernel alone,
+    without the host time of its wrapper."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in hits)
+    if count != iters:
+        raise AssertionError(f"the profiler saw {count} launches of {kernel} in {iters} calls")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
 def environment() -> str:
@@ -155,7 +213,7 @@ def build_kernels() -> None:
     from analysisgnn_tpu_torch.kernels import build
 
     t = time.perf_counter()
-    built = build.build_all(["segment_mean_base", "relation_weighted_matmul", "segment_softmax_agg"])
+    built = build.build_all(["segment_mean_base", "relation_weighted_matmul", "segment_softmax_agg", "segment_softmax"])
     for name, (seconds, log) in built.items():
         phase(f"build: {name} nvcc {seconds:.2f}s -> {build.library_path(name).name}")
         for line in log.splitlines():
@@ -656,22 +714,25 @@ def _trainer(model, opt):
 def _launch_counters():
     from analysisgnn_tpu_torch.kernels.relmm import relation_weighted_matmul as k3
     from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base as k1
+    from analysisgnn_tpu_torch.kernels.segment_softmax import segment_softmax_sorted as k5
+    from analysisgnn_tpu_torch.kernels.segment_sum import segment_sum_sorted as k4
     from analysisgnn_tpu_torch.kernels.softmax_agg import segment_softmax_agg as k2
 
-    return k1, k2, k3
+    return k1, k2, k3, k4, k5
 
 
 def _reset_counts() -> None:
-    k1, k2, k3 = _launch_counters()
-    k1.launches = k2.launches = 0
+    k1, k2, k3, k4, k5 = _launch_counters()
+    k1.launches = k2.launches = k4.launches = k5.launches = 0
     k3.launches = k3.dx_launches = k3.dw_launches = k3.dalpha_launches = 0
 
 
 def _counts() -> dict:
-    k1, k2, k3 = _launch_counters()
+    k1, k2, k3, k4, k5 = _launch_counters()
     return {"segment_mean_base": k1.launches, "segment_softmax_agg": k2.launches,
             "relation_weighted_matmul": k3.launches, "relation_weighted_matmul.dx": k3.dx_launches,
-            "relation_weighted_matmul.dw": k3.dw_launches, "relation_weighted_matmul.dalpha": k3.dalpha_launches}
+            "relation_weighted_matmul.dw": k3.dw_launches, "relation_weighted_matmul.dalpha": k3.dalpha_launches,
+            "segment_sum_sorted": k4.launches, "segment_softmax_sorted": k5.launches}
 
 
 def predicted_launches(model) -> dict:
@@ -693,7 +754,7 @@ def predicted_launches(model) -> dict:
         k3 = convs * len(groups) if model.conv_impl == "edge-zxp" else 0
     return {"segment_mean_base": k1, "segment_softmax_agg": k2, "relation_weighted_matmul": k3,
             "relation_weighted_matmul.dx": k3, "relation_weighted_matmul.dw": k3,
-            "relation_weighted_matmul.dalpha": 0}
+            "relation_weighted_matmul.dalpha": 0, "segment_sum_sorted": 0, "segment_softmax_sorted": 0}
 
 
 def train(arm: str, batches: list) -> dict:
@@ -759,6 +820,7 @@ def _graph_to(batch, device: str):
         node_features={k: v.to(device) for k, v in batch.node_features.items()},
         edge_index={k: v.to(device) for k, v in batch.edge_index.items()},
         node_attrs={t: {k: v.to(device) for k, v in d.items()} for t, d in batch.node_attrs.items()},
+        batch={k: v.to(device) for k, v in batch.batch.items()},
     )
 
 
@@ -816,6 +878,314 @@ def trace_train(row: dict, batch, top: int = 12) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
 
+# ------------------------------------------------------------- K4 and K5
+
+
+def k4_bound_ms(e_valid: int, f: int, n: int) -> tuple:
+    """Least time for K4's work on this data: the in-range edges' messages and
+    ids read once (out-of-range ids are neither read nor needed), each
+    node's row written once."""
+    bytes_moved = e_valid * (f + 1) * 4 + n * f * 4
+    ops = e_valid * f  # one add per message element
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_k4(name: str, msgs, dst, n: int, timed: bool) -> dict:
+    """K4's kernel against its plain version on the same inputs, within
+    K4_RTOL of each output element's sum of |terms|; with ``timed``, medians
+    of the kernel, the plain version and an index_add_ yardstick."""
+    from analysisgnn_tpu_torch.kernels.segment_sum import segment_sum_sorted, segment_sum_sorted_plain
+
+    out = segment_sum_sorted(msgs, dst, n)
+    ref = segment_sum_sorted_plain(msgs, dst, n)
+    scale = segment_sum_sorted_plain(msgs.abs(), dst, n)
+    torch.cuda.synchronize()
+    e, f = msgs.shape
+    if out.shape != (n, f) or not torch.isfinite(out).all():
+        raise AssertionError(f"K4 {name}: shape {tuple(out.shape)} or non-finite values")
+    err = (out - ref).abs()
+    if not bool((err <= K4_RTOL * scale).all()):
+        worst = float((err / scale.clamp_min(1e-30)).max())
+        raise AssertionError(f"K4 {name}: |kernel - plain| reaches {worst:.3e} of the sum of |terms| (tol {K4_RTOL})")
+    valid = (dst >= 0) & (dst < n)
+    e_valid = int(valid.sum())
+    row = {"case": name, "E": e, "E_valid": e_valid, "F": f, "n": n, "max_abs_err": float(err.max()) if err.numel() else 0.0}
+    line = (f"kernel check: K4 {name}: E={e} (in range {e_valid}) F={f} n={n} max|d|={row['max_abs_err']:.3e} "
+            f"(tol {K4_RTOL} of the sum of |terms|)")
+    if timed:
+        ids, mv = dst[valid].long(), msgs[valid]
+        row["ms"] = cuda_ms(lambda: segment_sum_sorted(msgs, dst, n))
+        row["plain_ms"] = cuda_ms(lambda: segment_sum_sorted_plain(msgs, dst, n))
+        # yardstick only, never called by the port: index_add_ into a zeroed output
+        row["library_ms"] = cuda_ms(lambda: torch.zeros((n, f), device=msgs.device).index_add_(0, ids, mv))
+        row["device_ms"] = device_ms(lambda: segment_sum_sorted(msgs, dst, n), "segment_mean_base_kernel")
+        row["bound_ms"], row["bound_by"] = k4_bound_ms(e_valid, f, n)
+        line += (f" | kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms of it on the device), plain "
+                 f"{row['plain_ms']:.4f} ms, index_add_ yardstick {row['library_ms']:.4f} ms, bound "
+                 f"{row['bound_ms']:.4f} ms ({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of the "
+                 f"kernel's time, {100 * row['bound_ms'] / row['device_ms']:.1f}% of its device time)")
+    phase(line)
+    return row
+
+
+def k4_checks(batch) -> list:
+    """K4 over the fused note layer's sorted valid edges of a train batch
+    (F = 256), at tests/test_pallas.py's two cases, and at edge cases."""
+    from analysisgnn_tpu_torch.core.graph import NOTE, NOTE_EDGE_TYPES
+    from analysisgnn_tpu_torch.models.fused import fused_plan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(4)
+    plan = fused_plan([batch.edges(et) for et in NOTE_EDGE_TYPES], batch.capacity(NOTE))
+    dst = plan.seg[plan.seg.long() < plan.num_segments]
+    rows = [check_k4("fused note layer", torch.randn(dst.shape[0], TRAIN_CFG["hidden_channels"], generator=gen).to(dev),
+                     dst, plan.num_segments, timed=True)]
+    cases = [
+        ("test_pallas.py case", torch.randint(0, 300, (2000,), generator=gen).sort().values, 300, 64),
+        ("empty nodes", torch.tensor([0] * 5 + [100] * 5), 128, 32),
+        ("F=25", torch.randint(0, 500, (3000,), generator=gen).sort().values, 500, 25),
+        ("ids past num_nodes and negative", torch.tensor([-3, -1, 0, 0, 5, 299, 300, 300, 400]), 300, 16),
+        ("no edges", torch.zeros(0, dtype=torch.long), 40, 16),
+    ]
+    for name, ids, n, f in cases:
+        msgs = torch.ones(len(ids), f) if name == "empty nodes" else torch.randn(len(ids), f, generator=gen)
+        rows.append(check_k4(name, msgs.to(dev), ids.to(torch.int32).to(dev), n, timed=False))
+    return rows
+
+
+def k5_bound_ms(e: int, h: int) -> tuple:
+    """Least time for K5's work: each logit and id read once, each weight
+    written once; about seven operations per logit (max, two subtracts, two
+    exps, an add, a divide)."""
+    bytes_moved = e * (2 * h + 1) * 4
+    ops = 7 * e * h
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_k5(name: str, logits, dst, n: int, timed: bool) -> dict:
+    """K5's kernel against its plain version within K5_ATOL, and the weights
+    of every run of equal ids summing to 1; with ``timed``, medians of the
+    kernel and the plain version."""
+    from analysisgnn_tpu_torch.kernels.segment_softmax import (
+        run_ids, segment_softmax_sorted, segment_softmax_sorted_plain,
+    )
+
+    out = segment_softmax_sorted(logits, dst, n)
+    ref = segment_softmax_sorted_plain(logits, dst, n)
+    torch.cuda.synchronize()
+    e, h = logits.shape
+    if out.shape != (e, h) or not torch.isfinite(out).all():
+        raise AssertionError(f"K5 {name}: shape {tuple(out.shape)} or non-finite values")
+    err = float((out - ref).abs().max()) if e else 0.0
+    if err > K5_ATOL:
+        raise AssertionError(f"K5 {name}: max |kernel - plain| = {err:.3e} > {K5_ATOL}")
+    runs = run_ids(dst)
+    sums = torch.zeros_like(out).index_add_(0, runs, out)[: int(runs[-1]) + 1] if e else out
+    sum_err = float((sums - 1).abs().max()) if e else 0.0
+    if sum_err > K5_SUM_ATOL:
+        raise AssertionError(f"K5 {name}: the weights of a destination sum to 1 within {sum_err:.3e} > {K5_SUM_ATOL}")
+    row = {"case": name, "E": e, "H": h, "n": n, "max_abs_err": err, "sum_err": sum_err}
+    line = (f"kernel check: K5 {name}: E={e} H={h} n={n} max|d|={err:.3e} (tol {K5_ATOL} abs), weights of each "
+            f"destination sum to 1 within {sum_err:.1e} (tol {K5_SUM_ATOL})")
+    if timed:
+        row["ms"] = cuda_ms(lambda: segment_softmax_sorted(logits, dst, n))
+        row["plain_ms"] = cuda_ms(lambda: segment_softmax_sorted_plain(logits, dst, n))
+        row["library_ms"] = None  # no single PyTorch call computes a segment softmax
+        row["device_ms"] = device_ms(lambda: segment_softmax_sorted(logits, dst, n), "segment_softmax_kernel")
+        row["bound_ms"], row["bound_by"] = k5_bound_ms(e, h)
+        line += (f" | kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms of it on the device), plain "
+                 f"{row['plain_ms']:.4f} ms (no single PyTorch call computes it), bound {row['bound_ms']:.5f} ms "
+                 f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time, "
+                 f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of its device time)")
+    phase(line)
+    return row
+
+
+def k5_checks(batch) -> list:
+    """K5 over the HGT layer's valid union edges of a train batch (H = 4),
+    at tests/test_pallas.py's two cases, and at edge cases."""
+    from analysisgnn_tpu_torch.core.graph import metadata
+    from analysisgnn_tpu_torch.models.encoders import plan_hgt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    _, model_edges = metadata(HGT_CFG["add_beats"], HGT_CFG["add_measures"])
+    k2 = plan_hgt(batch.edge_index, model_edges, {t: v.shape[0] for t, v in batch.node_features.items()}, "emax").k2
+    dst = k2.node[k2.node < k2.num_nodes].sort().values
+    rows = [check_k5("HGT union edges", (torch.randn(dst.shape[0], 4, generator=gen) * 2).to(dev), dst,
+                     k2.num_nodes, timed=True)]
+    stability = torch.tensor([[1e4], [1e4 + 1], [-1e4], [0.0]])
+    cases = [
+        ("test_pallas.py case", torch.randint(0, 300, (2000,), generator=gen).sort().values, 300, 4, 3.0),
+        ("stability at 1e4", torch.tensor([0, 0, 1, 1]), 128, 1, None),
+        ("H=1", torch.randint(0, 300, (2000,), generator=gen).sort().values, 300, 1, 3.0),
+        ("H=6 head-per-lane path", torch.randint(0, 100, (700,), generator=gen).sort().values, 100, 6, 3.0),
+        ("ids past num_nodes", torch.tensor([0, 0, 5, 299, 300, 300, 400]), 300, 1, 2.0),
+        ("ids below 0 and past the tiles", torch.tensor([-2, -2, -1, 3, 3, 300, 300, 300, 1000]), 10, 2, 2.0),
+        ("no edges", torch.zeros(0, dtype=torch.long), 50, 4, 1.0),
+    ]
+    for name, ids, n, h, scale in cases:
+        logits = stability if scale is None else torch.randn(len(ids), h, generator=gen) * scale
+        rows.append(check_k5(name, logits.to(dev), ids.to(torch.int32).to(dev), n, timed=False))
+    return rows
+
+
+# ------------------------------------------------------------- the Trainer
+
+
+def _forward_passes(dm, epochs: int, evaluated: bool) -> int:
+    """Forward-only passes of a Trainer run: the validation batches after each
+    epoch and, if it evaluated the test split once, its batches (batch size
+    1)."""
+    per_task_bs = max(dm.cfg.batch_size // max(len(dm.main_tasks), 1), 1)
+    val = sum(math.ceil(len(va) / per_task_bs) for _, va, _ in dm.splits.values())
+    test = sum(len(te) for _, _, te in dm.splits.values())
+    return epochs * val + (test if evaluated else 0)
+
+
+def _check_trainer_launches(label: str, trainer, counts: dict, epochs: int, evaluated: bool) -> dict:
+    """The run's launches against the code's prediction: every train step and
+    every forward-only pass launches the forward kernels; only train steps
+    launch K3's dx and dw."""
+    per = predicted_launches(trainer.model)
+    steps = len(trainer.step_seconds)
+    fwd = _forward_passes(trainer.dm, epochs, evaluated)
+    expected = {name: (steps + fwd) * v for name, v in per.items()}
+    for name in ("relation_weighted_matmul.dx", "relation_weighted_matmul.dw"):
+        expected[name] = steps * per[name]
+    if counts != expected:
+        raise AssertionError(f"{label}: launches {counts}, the code predicts {expected} "
+                             f"({steps} train steps, {fwd} forward-only passes)")
+    phase(f"{label}: {steps} train steps and {fwd} forward-only passes launched "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+          + f" (per train step {', '.join(f'{k} {v}' for k, v in per.items() if v)}; the code predicts the same)")
+    return {"steps": steps, "forward_passes": fwd, "launches": counts, "per_step": per}
+
+
+def trainer_phase(ckpt_dir: str) -> dict:
+    """The training entry point at full width on the card, then its last.pt
+    served once."""
+    from analysisgnn_tpu_torch.cli.predict import load_model
+    from analysisgnn_tpu_torch.cli.train import main as train_main
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.inference.predict import predict_score_ids
+
+    printed = io.StringIO()
+    t = time.perf_counter()
+    _reset_counts()  # the Trainer path's run starts here
+    with contextlib.redirect_stdout(printed):  # --do_eval prints the test metrics as JSON
+        trainer = train_main([*TRAINER_FLAGS, "--checkpoint_dir", ckpt_dir])
+    torch.cuda.synchronize()
+    counts = _counts()
+    wall = time.perf_counter() - t
+    text = printed.getvalue()
+    test_metrics = json.loads(text[text.index("{"):])
+    if not test_metrics or not all(np.isfinite(v) for v in test_metrics.values()):
+        raise AssertionError("trainer: --do_eval printed no or non-finite test metrics")
+    hist = trainer.history
+    epochs = len(hist)
+    launches = _check_trainer_launches("trainer", trainer, counts, epochs, evaluated=True)
+    with open(f"{ckpt_dir}/log.jsonl") as f:
+        logged = [json.loads(line) for line in f]
+    keys = sorted(logged[0])
+    losses = [r["train_loss"] for r in hist] + [r["val/total_loss"] for r in hist]
+    if logged != hist or not all(np.isfinite(losses)) or any(set(r) != set(keys) for r in logged):
+        raise AssertionError(f"trainer: log.jsonl differs from the history or holds a non-finite loss: {losses}")
+    steps_ms = [x * 1e3 for x in trainer.step_seconds]
+    per_epoch = len(steps_ms) // epochs
+    median_ms = statistics.median(steps_ms[per_epoch:] or steps_ms)  # after the first epoch's warm-up
+    phase(f"trainer: cli.train.main {' '.join(TRAINER_FLAGS)}: {epochs} epochs of {per_epoch} train steps in "
+          f"{wall:.2f} s (build of the demo corpus included); seconds per epoch "
+          + ", ".join(f"{r['secs']}" for r in hist)
+          + f"; median {median_ms:.2f} ms per train step after the first epoch "
+          f"(first step {steps_ms[0]:.1f} ms); train_loss " + ", ".join(f"{r['train_loss']:.4f}" for r in hist)
+          + "; val/total_loss " + ", ".join(f"{r['val/total_loss']:.4f}" for r in hist))
+    phase(f"trainer: log.jsonl keys ({len(keys)}): {', '.join(keys[:6])}, ... {', '.join(keys[-3:])}")
+    phase(f"trainer: --do_eval test metrics ({len(test_metrics)} keys): "
+          + ", ".join(f"{k} {test_metrics[k]:.4f}" for k in ("all/cadence_acc", "all/localkey_f1", "all/rna_onset_acc",
+                                                           "all/rna_nct_acc") if k in test_metrics))
+
+    _reset_counts()  # the serve path's run starts here
+    model, cfg = load_model(ckpt_dir, "last", "cuda")
+    na = synthetic_score(2000, seed=7)
+    t = time.perf_counter()
+    ids = predict_score_ids(model, na, add_beats=cfg["add_beats"], add_measures=cfg["add_measures"], device="cuda")
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t) * 1e3
+    served = _counts()
+    per = predicted_launches(model)
+    expected = {k: v if k in ("segment_mean_base", "relation_weighted_matmul") else 0 for k, v in per.items()}
+    if served != expected:
+        raise AssertionError(f"serving last.pt launched {served}, the code predicts {expected}")
+    if any(v.shape != (2000,) or (v < 0).any() for v in ids.values()):
+        raise AssertionError("serving last.pt: bad ids")
+    phase(f"trainer: last.pt through cli/predict.py's load_model served a 2000-note request in {serve_ms:.1f} ms "
+          f"(first call), {len(ids)} id columns, launches {', '.join(f'{k} {v}' for k, v in served.items() if v)}")
+    return {"epochs": epochs, "secs": [r["secs"] for r in hist], "median_step_ms": median_ms,
+            "train_loss": [r["train_loss"] for r in hist], "val_total_loss": [r["val/total_loss"] for r in hist],
+            "launches": launches, "serve_ms": serve_ms, "wall_s": wall}
+
+
+def hgt_trainer_phase(ckpt_dir: str) -> dict:
+    """One epoch of the training entry point with the HybridHGT and K2."""
+    from analysisgnn_tpu_torch.cli.train import main as train_main
+
+    t = time.perf_counter()
+    _reset_counts()  # the HGT Trainer path's run starts here
+    trainer = train_main([*HGT_TRAINER_FLAGS, "--checkpoint_dir", ckpt_dir])
+    torch.cuda.synchronize()
+    counts = _counts()
+    wall = time.perf_counter() - t
+    launches = _check_trainer_launches("trainer HGT", trainer, counts, len(trainer.history), evaluated=False)
+    rec = trainer.history[-1]
+    if not (np.isfinite(rec["train_loss"]) and np.isfinite(rec["val/total_loss"])):
+        raise AssertionError(f"trainer HGT: non-finite loss {rec['train_loss']}, {rec['val/total_loss']}")
+    steps_ms = [x * 1e3 for x in trainer.step_seconds]
+    median_ms = statistics.median(steps_ms[1:] or steps_ms)
+    phase(f"trainer HGT: cli.train.main {' '.join(HGT_TRAINER_FLAGS)}: {len(trainer.history)} epoch of "
+          f"{len(steps_ms)} train steps in {wall:.2f} s, {rec['secs']} s for the epoch; median {median_ms:.2f} ms "
+          f"per train step after the first; train_loss {rec['train_loss']:.4f}, val/total_loss "
+          f"{rec['val/total_loss']:.4f}")
+    return {"secs": rec["secs"], "median_step_ms": median_ms, "launches": launches, "wall_s": wall}
+
+
+def trainer_parity(ckpt_dir: str) -> dict:
+    """One fit epoch of 2 steps on the GPU (kernels) against the same on the
+    CPU (plain versions): dropout 0, the same initial state dict."""
+    from analysisgnn_tpu_torch.cli.train import build_datamodule, resolve_config, train_config
+    from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
+    from analysisgnn_tpu_torch.train.loop import Trainer
+    from analysisgnn_tpu_torch.train.state import torch_style_reinit
+
+    init = None
+    out = {}
+    for label, dev in (("gpu", "cuda"), ("cpu", "cpu")):
+        config = resolve_config([*TRAINER_PARITY_FLAGS, "--device", dev, "--checkpoint_dir", f"{ckpt_dir}/{label}"])
+        trainer = Trainer(train_config(config), build_datamodule(config))
+        if init is None:
+            model = model_from_config(trainer.model_config, device="cpu")
+            init_parameters(model, torch.Generator(device="cpu").manual_seed(0))
+            torch_style_reinit(model, seed=0)
+            init = model.state_dict()
+        t = time.perf_counter()
+        trainer.fit(max_steps_per_epoch=2, initial_state_dict=init)
+        out[label] = (trainer.history[0], time.perf_counter() - t)
+    rels = {}
+    for key in ("train_loss", "val/total_loss"):
+        g, c = out["gpu"][0][key], out["cpu"][0][key]
+        rels[key] = abs(g - c) / abs(c)
+        if not (np.isfinite(g) and rels[key] <= TRAINER_PARITY_RTOL):
+            raise AssertionError(f"trainer GPU vs CPU: {key} {g} vs {c} (rel {rels[key]:.2e}, tol {TRAINER_PARITY_RTOL})")
+    phase(f"trainer: one fit epoch of 2 steps, GPU vs CPU (plain versions, dropout 0, the same initial state dict, "
+          f"{' '.join(TRAINER_PARITY_FLAGS)}): train_loss {out['gpu'][0]['train_loss']:.6f} vs "
+          f"{out['cpu'][0]['train_loss']:.6f} (rel {rels['train_loss']:.2e}), val/total_loss "
+          f"{out['gpu'][0]['val/total_loss']:.6f} vs {out['cpu'][0]['val/total_loss']:.6f} "
+          f"(rel {rels['val/total_loss']:.2e}; tol {TRAINER_PARITY_RTOL}); the CPU fit took {out['cpu'][1]:.1f} s")
+    return rels
+
+
 
 def main() -> None:
     smi = environment()
@@ -850,6 +1220,15 @@ def main() -> None:
     trained = {arm: train(arm, batches) for arm in ARMS}
     parity = {arm: step_parity(arm, batches[0]) for arm in ("edge-zxp", "hgt")}
     traced = {arm: trace_train(trained[arm], batches[1]) for arm in ("edge-zxp", "hgt")}
+    k4_rows = k4_checks(batches[0])
+    k5_rows = k5_checks(batches[0])
+    phase("kernel check: K4 and K5 done")
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = trainer_phase(f"{tmp}/trainer")
+        hgt_trainer = hgt_trainer_phase(f"{tmp}/trainer_hgt")
+        trainer_rels = trainer_parity(f"{tmp}/parity")
+    phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step, "
+          f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step; GPU vs CPU {trainer_rels}")
 
     main_row = rows[0]
     zxp = trained["edge-zxp"]
@@ -910,7 +1289,27 @@ def main() -> None:
         "library_ms": k2_row["library_ms"],
         "shape": f"{k2_row['case']}: E={k2_row['E']} (valid {k2_row['E_valid']}) H={k2_row['H']} F={k2_row['F']} "
                  f"n={k2_row['n']} blocks={k2_row['blocks']}",
+        "trainer_launches": hgt_trainer["launches"]["launches"]["segment_softmax_agg"],
     })
+    kernels[0]["trainer_launches"] = trainer["launches"]["launches"]["segment_mean_base"]
+    kernels[1]["trainer_launches"] = trainer["launches"]["launches"]["relation_weighted_matmul"]
+    # K4 and K5: held against their plain versions above; no path of the JAX
+    # package runs them (their only callers are tests), so none here does
+    for name, rows_, source, replaces in (
+        ("segment_sum_sorted", k4_rows, "analysisgnn_tpu_torch/csrc/segment_mean_base.cu",
+         "analysisgnn_tpu/kernels/pallas_segment.py:302"),
+        ("segment_softmax_sorted", k5_rows, "analysisgnn_tpu_torch/csrc/segment_softmax.cu",
+         "analysisgnn_tpu/kernels/pallas_segment.py:486"),
+    ):
+        r = rows_[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
+            "max_abs_err": max(x["max_abs_err"] for x in rows_), "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"],
+            "shape": f"{r['case']}: E={r['E']} " + (f"F={r['F']} n={r['n']}" if "F" in r else f"H={r['H']} n={r['n']}"),
+            "note": "only tests call it (tests/test_pallas.py in the JAX package), so no path launches it",
+        })
     per_step = ", ".join(f"{arm} {r['median_ms']:.2f}" for arm, r in trained.items())
     busy = ", ".join(f"{arm} {r['busy_ms']:.2f} of {r['wall_ms']:.2f} ms" for arm, r in traced.items())
     phase(f"train: done; ms per step {per_step}; traced steps busy {busy}; parity {parity}")

@@ -36,11 +36,13 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
-    assert len(names) >= 40  # every module of the port and chip_smoke, the HGT slice's included
+    assert len(names) >= 48  # every module of the port and chip_smoke, the Trainer slice's included
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
         "kernels.softmax_agg", "models.encoders",
+        "kernels.segment_sum", "kernels.segment_softmax", "data.corpus", "data.prefetch", "data.datamodule",
+        "train.metrics", "train.loop", "cli.train",
     )} <= names
 
 
@@ -51,7 +53,10 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 41 and {"softmax_agg.py", "encoders.py", "chip_smoke.py"} <= {f.name for f in files}
+    assert len(files) >= 49 and {
+        "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
+        "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
+    } <= {f.name for f in files}
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
     assert not offenders, offenders
 
@@ -107,3 +112,12 @@ def test_sampler_without_device_cpu_raises():
     with pytest.raises(RuntimeError, match="cuda"):
         sampler.sample_batch()
     assert sampler.sample_batch(device="cpu").num_target_nodes == 4
+
+
+def test_train_cli_without_device_cpu_raises(tmp_path):
+    _no_cuda()
+    from analysisgnn_tpu_torch.cli.train import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--demo", "--do_train", "--checkpoint_dir", str(tmp_path)])
+    assert not (tmp_path / "model_config.json").exists()  # it raised before any work
