@@ -6,6 +6,10 @@ Counterpart of ``analysisgnn_tpu/cli/predict.py::main`` for ``--score`` and
 ``torch.save``d state dict of the analysis model.
 
     python -m analysisgnn_tpu_torch.cli.predict --checkpoint_dir CKPT --score piece.musicxml
+
+``--partition_devices N`` serves a long score through N graph partitions on
+a line, all on the one device (the overlap-region regime of
+``distributed/partition_encoder.py``; note-node model configs only).
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--bucket_factor", type=float, default=1.25,
                    help="batch mode: pad graphs to a geometric capacity ladder with this "
                         "growth factor (0 disables bucketing)")
+    p.add_argument("--partition_devices", type=int, default=0,
+                   help="encode the full graph as this many partitions on a line (overlap-region graph "
+                        "partition, all on --device; for long scores; note-node model configs only)")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints",
                    help="directory with model_config.json and <checkpoint>.pt")
     p.add_argument("--checkpoint", type=str, default="best", help="state-dict tag inside checkpoint_dir")
@@ -59,6 +66,7 @@ def main(argv=None) -> None:
         decode_predictions,
         export_predictions_csv,
         predict_score_ids,
+        predict_score_partitioned,
     )
 
     device = resolve_device(args.device)
@@ -83,19 +91,30 @@ def main(argv=None) -> None:
     if args.output_dir:
         os.makedirs(args.output_dir, exist_ok=True)
     feature_type = cfg.get("feature_type", "simple").replace("simple", "voice")
+    if args.partition_devices and (cfg.get("add_beats") or cfg.get("add_measures")):
+        raise SystemExit(
+            "--partition_devices covers note-node model configs only "
+            "(this checkpoint was trained with beat/measure nodes)"
+        )
     for path in paths:
         parsed = load_score(path)
-        ids = predict_score_ids(
-            model,
-            parsed.note_array,
-            measures=parsed.measures,
-            tasks=tasks,
-            feature_type=feature_type,
-            add_beats=cfg.get("add_beats", False),
-            add_measures=cfg.get("add_measures", False),
-            bucket_factor=bucket,
-            device=device,
-        )
+        if args.partition_devices:
+            ids = predict_score_partitioned(
+                model, parsed.note_array, tasks=tasks, feature_type=feature_type,
+                num_devices=args.partition_devices, ids_only=True, device=device,
+            )
+        else:
+            ids = predict_score_ids(
+                model,
+                parsed.note_array,
+                measures=parsed.measures,
+                tasks=tasks,
+                feature_type=feature_type,
+                add_beats=cfg.get("add_beats", False),
+                add_measures=cfg.get("add_measures", False),
+                bucket_factor=bucket,
+                device=device,
+            )
         decoded = decode_predictions(ids)
         if args.score_dir and args.output_dir:
             # flatten into output_dir without basename collisions across subdirectories

@@ -1,10 +1,12 @@
 """Score-level serving: full-graph forward, device-side decode, exports.
 
-Counterpart of the ids-only serving path of
-``analysisgnn_tpu/inference/predict.py``: note array -> voice features ->
-score graph (padded to a capacity rung) -> model forward -> softmax and
-onset-edge aggregation of the RNA heads -> argmax on the device -> host
-change-point smoothing on the ids -> decoded labels -> CSV.
+Counterpart of the serving paths of ``analysisgnn_tpu/inference/predict.py``:
+note array -> voice features -> score graph (padded to a capacity rung) ->
+model forward -> softmax and onset-edge aggregation of the RNA heads ->
+argmax on the device -> host change-point smoothing on the ids -> decoded
+labels -> CSV (``predict_score_ids``); the same with per-note probabilities
+on the host (``predict_score``); and long-score serving over a line of graph
+partitions (``predict_score_partitioned``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ from torch.profiler import record_function
 from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph, resolve_device
 from analysisgnn_tpu_torch.data.features import select_features
 from analysisgnn_tpu_torch.data.graph_build import build_score_graph
+from analysisgnn_tpu_torch.distributed.partition_encoder import (
+    make_partitioned_encode,
+    partition_full_graph,
+    unpartition,
+)
 from analysisgnn_tpu_torch.theory.encoders import KeySignatureEncoder, PitchEncoder
 from analysisgnn_tpu_torch.theory.vocab import available_representations
 
@@ -102,9 +109,10 @@ def _ids_from_logits(
     return torch.stack([ids[k] for k in keys])
 
 
-def _rep_rows_and_grid(note_array: np.ndarray):
-    """Host-side onset grid: representative note per unique onset."""
-    onsets = note_array["onset_div"] - note_array["onset_div"].min()
+def _rep_rows_and_grid(onset_div: np.ndarray):
+    """Host-side onset grid of the notes' ``onset_div``: representative note
+    per unique onset."""
+    onsets = onset_div - onset_div.min()
     order = np.argsort(onsets, kind="stable")
     uniq, first_idx = np.unique(onsets[order], return_index=True)
     return onsets, uniq, order[first_idx].astype(np.int32)
@@ -136,6 +144,15 @@ def _smooth_ids_host(
     return out
 
 
+def _model_device(model, device: "str | torch.device", caller: str) -> torch.device:
+    """The device of the model's parameters, which must be ``device``."""
+    dev = resolve_device(device)
+    param_dev = next(model.parameters()).device
+    if param_dev.type != dev.type or (dev.index is not None and param_dev.index != dev.index):
+        raise ValueError(f"model is on {param_dev}, {caller} was asked to run on {dev}")
+    return param_dev
+
+
 @torch.no_grad()
 def predict_score_ids(
     model,
@@ -151,10 +168,7 @@ def predict_score_ids(
     """Per-note predicted class ids of one score.  Runs on ``device`` (the
     GPU unless the caller passes ``device="cpu"``); the model must already be
     there.  Only the ``[T, N]`` int32 ids come back to the host."""
-    dev = resolve_device(device)
-    param_dev = next(model.parameters()).device
-    if param_dev.type != dev.type or (dev.index is not None and param_dev.index != dev.index):
-        raise ValueError(f"model is on {param_dev}, predict_score_ids was asked to run on {dev}")
+    param_dev = _model_device(model, device, "predict_score_ids")
     # the spans name the request's stages in a torch.profiler trace
     with record_function("predict.graph"):
         graph = graph_from_note_array(
@@ -162,7 +176,7 @@ def predict_score_ids(
         )
         n = len(note_array)
         cap = graph.capacity(NOTE)
-        onsets, uniq, rep_rows = _rep_rows_and_grid(note_array)
+        onsets, uniq, rep_rows = _rep_rows_and_grid(note_array["onset_div"])
         u = len(uniq)
         rep_padded = np.zeros(cap, np.int64)
         rep_padded[:u] = rep_rows
@@ -181,6 +195,152 @@ def predict_score_ids(
         )
         keys = sorted(t for t, _ in model.task_dict)
         return _smooth_ids_host(stacked.cpu().numpy(), keys, uniq, onsets, u, n, tasks)
+
+
+def onsetwise_smooth(
+    probs: Dict[str, np.ndarray],
+    onset_edges: np.ndarray,
+    onset_div: np.ndarray,
+    rna_keys: Sequence[str] = RNA_KEYS,
+    tpc_in_label_mask: Optional[np.ndarray] = None,
+) -> Dict[str, np.ndarray]:
+    """Onset-wise aggregation + change-point smoothing of RNA probabilities
+    (reference onsetwise_logit_aggregation, models/analysis.py:44-101)."""
+    out = dict(probs)
+    if not all(k in probs for k in rna_keys):
+        return out
+    n = len(onset_div)
+    src, dst = onset_edges[0], onset_edges[1]
+    keep = (src != dst) & (src < n) & (dst < n)
+    src, dst = src[keep], dst[keep]
+    if tpc_in_label_mask is not None:
+        m = tpc_in_label_mask.astype(bool)
+        e = m[src] & m[dst]
+        src, dst = src[e], dst[e]
+
+    for k in rna_keys:
+        v = probs[k]
+        # (self + sum of neighbours) / count: torch_scatter mean-with-out semantics
+        acc = v.copy()
+        np.add.at(acc, dst, v[src])
+        counts = np.ones(n)
+        np.add.at(counts, dst, np.ones(len(dst)))
+        out[k] = _np_softmax(acc / counts[:, None])
+
+    # change-point smoothing on the onset grid
+    onsets, uniq, rep_rows = _rep_rows_and_grid(onset_div)
+    note_onset_idx = np.searchsorted(uniq, onsets)
+    for k in rna_keys:
+        preds = out[k][rep_rows].argmax(-1)
+        change = np.r_[0, np.flatnonzero(preds[1:] != preds[:-1]) + 1]
+        seg_of_onset = np.searchsorted(uniq[change], uniq, side="right") - 1
+        out[k] = out[k][rep_rows[change][seg_of_onset]][note_onset_idx]
+    return out
+
+
+def _np_softmax(x) -> np.ndarray:
+    x = np.asarray(x, np.float64)
+    x = x - x.max(-1, keepdims=True)
+    e = np.exp(x)
+    return e / e.sum(-1, keepdims=True)
+
+
+def _logits_to_probs(
+    logits: Dict[str, np.ndarray],
+    note_array: np.ndarray,
+    onset_edges: np.ndarray,
+    tasks: Optional[Sequence[str]],
+) -> Dict[str, np.ndarray]:
+    """Host softmax of each head and the onset-wise smoothing of the RNA keys;
+    the smoothing takes the ``tpc_in_label`` mask even when that task is not
+    requested."""
+    tpc_mask = np.asarray(logits["tpc_in_label"]).argmax(-1) if "tpc_in_label" in logits else None
+    if tasks:
+        logits = {k: v for k, v in logits.items() if k in tasks}
+    probs = {k: _np_softmax(v) for k, v in logits.items()}
+    return onsetwise_smooth(probs, onset_edges, note_array["onset_div"], tpc_in_label_mask=tpc_mask)
+
+
+@torch.no_grad()
+def predict_score(
+    model,
+    note_array: np.ndarray,
+    measures: Optional[np.ndarray] = None,
+    tasks: Optional[Sequence[str]] = None,
+    feature_type: str = "voice",
+    add_beats: bool = True,
+    add_measures: bool = True,
+    bucket_factor: Optional[float] = None,
+    device: "str | torch.device" = "cuda",
+) -> Dict[str, np.ndarray]:
+    """Per-note class probabilities ``[N, C]`` (float64) of one score from the
+    full-graph forward on ``device`` (the GPU unless the caller passes
+    ``device="cpu"``; the model must already be there)."""
+    param_dev = _model_device(model, device, "predict_score")
+    graph = graph_from_note_array(
+        note_array, measures, feature_type, add_beats, add_measures, bucket_factor=bucket_factor, device=param_dev
+    )
+    n = len(note_array)
+    attrs = graph.node_attrs[NOTE]
+    logits = model(
+        graph.node_features, graph.edge_index, attrs["pitch_spelling"], attrs["key_signature"], graph.num_target_nodes
+    )
+    logits = {k: v[:n].float().cpu().numpy() for k, v in logits.items()}
+    onset = graph.edges((NOTE, "onset", NOTE))[:, : graph.num_edges[(NOTE, "onset", NOTE)]]
+    return _logits_to_probs(logits, note_array, onset.cpu().numpy(), tasks)
+
+
+@torch.no_grad()
+def predict_score_partitioned(
+    model,
+    note_array: np.ndarray,
+    num_devices: Optional[int] = None,
+    tasks: Optional[Sequence[str]] = None,
+    feature_type: str = "voice",
+    ids_only: bool = False,
+    device: "str | torch.device" = "cuda",
+) -> Dict[str, np.ndarray]:
+    """Long-score serving: the full-graph encode over ``num_devices``
+    partitions on a line (the overlap-region regime of
+    ``distributed/partition_encoder.py``, exact against the single-window
+    forward), then the task heads and the decode on the gathered owned
+    embeddings.  Per-note probabilities, or class ids with ``ids_only`` (the
+    CLI's decode, as ``predict_score_ids``).
+
+    ``num_devices`` is the number of partitions on the line (default 1); all
+    of them run on ``device`` (the GPU unless the caller passes
+    ``device="cpu"``; the model must already be there).  Covers note-node
+    models; configs with beat or measure nodes use ``predict_score``.
+    """
+    param_dev = _model_device(model, device, "predict_score_partitioned")
+    with record_function("predict.graph"):
+        feats = select_features(note_array, feature_type).astype(np.float32)
+        g = build_score_graph(note_array, add_beats=False, add_measures=False)
+        edges = {et: np.asarray(ei) for et, ei in g.edges.items()}
+        ps = PitchEncoder().encode(note_array).astype(np.int32)
+        ks = KeySignatureEncoder().encode(note_array).astype(np.int32)
+        # receptive field: GNN layers + final conv + onset pooling
+        part = partition_full_graph(
+            feats, ps, ks, edges, num_devices=num_devices or 1,
+            num_message_hops=len(model.encoder.layers) + 2,
+        )
+    with record_function("predict.forward"):
+        emb = unpartition(make_partitioned_encode(model)(part), part)
+        logits = model.classify(emb)
+    onset_key = (NOTE, "onset", NOTE)
+    with record_function("predict.decode"):
+        if ids_only:
+            n = len(note_array)
+            onsets, uniq, rep_rows = _rep_rows_and_grid(note_array["onset_div"])
+            u = len(uniq)
+            rep_padded = np.zeros(n, np.int64)
+            rep_padded[:u] = rep_rows
+            onset = torch.from_numpy(edges[onset_key].astype(np.int64)).to(param_dev)
+            stacked = _ids_from_logits(logits, onset, torch.from_numpy(rep_padded).to(param_dev), n)
+            keys = sorted(t for t, _ in model.task_dict)
+            return _smooth_ids_host(stacked.cpu().numpy(), keys, uniq, onsets, u, n, tasks)
+        logits = {k: v.float().cpu().numpy() for k, v in logits.items()}
+        return _logits_to_probs(logits, note_array, edges[onset_key], tasks)
 
 
 def decode_predictions(probs: Dict[str, np.ndarray]) -> Dict[str, list]:

@@ -69,7 +69,27 @@ Phases, each on its own line with elapsed seconds:
      last.pt served once through cli/predict.py's load_model (a 2,000-note
      request), one epoch of --model HGT --use_pallas (K2), and one fit epoch
      of 2 steps on the GPU against the same on the CPU (dropout 0, the same
-     initial state dict).
+     initial state dict);
+ 14. K6 check: halo_pull (csrc/halo_pull.cu) bit-equal to its plain version
+     at the regime-2 shape (D = 4 partitions of 5,000 rows, H = 24, F = 256),
+     at D = 1, 2, 8, H = 1, H = N_local, F = 25 (the scalar loop) and on
+     non-contiguous inputs, with the wrapper's median time, the profiler's
+     device time of the kernel, the plain version and an index_select
+     yardstick beside the bytes bound;
+ 15. partitioned serve: the serve model (phase 4's weights) on a 20,000-note
+     score through 4 partitions on a line.  Regime 1, the CLI's path:
+     predict_score_partitioned(ids_only=True), K1 launches per window, ms
+     per request, its embeddings within 2e-4 * max|full| + 2e-5 of the
+     single-window encode, the count of ids that differ from
+     predict_score_ids; then cli.predict.main --partition_devices 4 on a
+     generated MusicXML score of about 20,000 notes.  Regime 2:
+     make_partitioned_fused_sage at D = 1, 2, 4, 8 on the model's projected
+     note embeddings, within the same tolerance of model.encoder's output
+     after ReLU and L2 norm, K6 launched num_layers + 1 times per forward, ms
+     per forward;
+ 16. the dryrun_multichip twin (__graft_entry__.py:287-356): 1,200 notes
+     (seed 7) of the serve model's configuration (3 x 256 -> 128, JK, 21
+     tasks) through 8 partitions, within the same tolerance.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -81,6 +101,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -150,6 +171,13 @@ HGT_TRAINER_FLAGS = ["--demo", "--use_metrical", "--model", "HGT", "--use_pallas
 TRAINER_PARITY_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--dropout", "0",
                         "--num_epochs", "1", "--main_tasks", "all"]
 TRAINER_PARITY_RTOL = 1e-5
+# partitioned against full-graph embeddings: 2e-4 of the largest |full| plus
+# 2e-5 (__graft_entry__.py:341-344; the JAX partition tests' tolerance)
+PART_RTOL, PART_ATOL = 2e-4, 2e-5
+PART_NOTES = 20000
+PART_SEED = 0  # its largest edge span, 24 rows, is regime 2's halo and K6's timed shape
+PARTITIONS = 4  # regime 1's, the CLI's, regime 2's traced run's and K6's timed shape's
+REGIME2_PARTITIONS = (1, 2, 4, 8)
 
 
 def phase(msg: str) -> None:
@@ -180,7 +208,13 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
+    pad = torch.zeros(8, device="cuda")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # a window may lose its first kernel records (two of them, in a process
+        # profiled before): eight small launches of another kernel take them
+        for _ in range(8):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -213,7 +247,8 @@ def build_kernels() -> None:
     from analysisgnn_tpu_torch.kernels import build
 
     t = time.perf_counter()
-    built = build.build_all(["segment_mean_base", "relation_weighted_matmul", "segment_softmax_agg", "segment_softmax"])
+    built = build.build_all(["segment_mean_base", "relation_weighted_matmul", "segment_softmax_agg", "segment_softmax",
+                             "halo_pull"])
     for name, (seconds, log) in built.items():
         phase(f"build: {name} nvcc {seconds:.2f}s -> {build.library_path(name).name}")
         for line in log.splitlines():
@@ -712,27 +747,28 @@ def _trainer(model, opt):
 
 
 def _launch_counters():
+    from analysisgnn_tpu_torch.kernels.halo import halo_pull as k6
     from analysisgnn_tpu_torch.kernels.relmm import relation_weighted_matmul as k3
     from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base as k1
     from analysisgnn_tpu_torch.kernels.segment_softmax import segment_softmax_sorted as k5
     from analysisgnn_tpu_torch.kernels.segment_sum import segment_sum_sorted as k4
     from analysisgnn_tpu_torch.kernels.softmax_agg import segment_softmax_agg as k2
 
-    return k1, k2, k3, k4, k5
+    return k1, k2, k3, k4, k5, k6
 
 
 def _reset_counts() -> None:
-    k1, k2, k3, k4, k5 = _launch_counters()
-    k1.launches = k2.launches = k4.launches = k5.launches = 0
+    k1, k2, k3, k4, k5, k6 = _launch_counters()
+    k1.launches = k2.launches = k4.launches = k5.launches = k6.launches = 0
     k3.launches = k3.dx_launches = k3.dw_launches = k3.dalpha_launches = 0
 
 
 def _counts() -> dict:
-    k1, k2, k3, k4, k5 = _launch_counters()
+    k1, k2, k3, k4, k5, k6 = _launch_counters()
     return {"segment_mean_base": k1.launches, "segment_softmax_agg": k2.launches,
             "relation_weighted_matmul": k3.launches, "relation_weighted_matmul.dx": k3.dx_launches,
             "relation_weighted_matmul.dw": k3.dw_launches, "relation_weighted_matmul.dalpha": k3.dalpha_launches,
-            "segment_sum_sorted": k4.launches, "segment_softmax_sorted": k5.launches}
+            "segment_sum_sorted": k4.launches, "segment_softmax_sorted": k5.launches, "halo_pull": k6.launches}
 
 
 def predicted_launches(model) -> dict:
@@ -754,7 +790,8 @@ def predicted_launches(model) -> dict:
         k3 = convs * len(groups) if model.conv_impl == "edge-zxp" else 0
     return {"segment_mean_base": k1, "segment_softmax_agg": k2, "relation_weighted_matmul": k3,
             "relation_weighted_matmul.dx": k3, "relation_weighted_matmul.dw": k3,
-            "relation_weighted_matmul.dalpha": 0, "segment_sum_sorted": 0, "segment_softmax_sorted": 0}
+            "relation_weighted_matmul.dalpha": 0, "segment_sum_sorted": 0, "segment_softmax_sorted": 0,
+            "halo_pull": 0}
 
 
 def train(arm: str, batches: list) -> dict:
@@ -855,27 +892,34 @@ def step_parity(arm: str, batch) -> dict:
     return {"loss_rel": rel, "param_max_abs": worst}
 
 
-def trace_train(row: dict, batch, top: int = 12) -> dict:
-    """One step of the arm under torch.profiler: the device's busy share of
-    the step and its kernels by device time."""
+def trace_forward(fn, label: str, prefix: str, top: int) -> dict:
+    """One call of ``fn`` under torch.profiler: the device's busy share of its
+    wall time and its kernels by device time, printed after ``prefix``."""
     from torch.profiler import ProfilerActivity, profile
 
-    model, state, step = row["model"], row["state"], row["step"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step(state, batch)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
-        raise AssertionError("the profiled train step shows no device time")
+        raise AssertionError(f"the profiled {label} shows no device time")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    phase(f"train trace: one {row['arm']} step, wall {wall_ms:.2f} ms under the profiler, device busy {busy_ms:.2f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% of the wall), {sum(e.count for e in kernels)} kernel launches")
+    launches = sum(e.count for e in kernels)
+    phase(f"{prefix}: {label}, wall {wall_ms:.2f} ms under the profiler, device busy {busy_ms:.2f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% of the wall), {launches} kernel launches")
     for e in kernels[:top]:
-        phase(f"train trace:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+        phase(f"{prefix}:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
+
+
+def trace_train(row: dict, batch, top: int = 12) -> dict:
+    """One step of the arm under torch.profiler: the device's busy share of
+    the step and its kernels by device time."""
+    state, step = row["state"], row["step"]
+    return trace_forward(lambda: step(state, batch), f"one {row['arm']} step", "train trace", top)
 
 
 # ------------------------------------------------------------- K4 and K5
@@ -1186,6 +1230,269 @@ def trainer_parity(ckpt_dir: str) -> dict:
     return rels
 
 
+# ------------------------------------------------------- partitioned serving
+
+
+def k6_bound_ms(d: int, h: int, f: int) -> tuple:
+    """Least time for K6's work: the neighbours' rows read once ((D - 1) * 2H
+    rows: the end partitions have one neighbour each), every halo row written
+    once; no arithmetic."""
+    bytes_moved = ((d - 1) * 2 * h * f + d * 2 * h * f) * 4
+    return bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_k6(name: str, x, halo: int, timed: bool) -> dict:
+    """K6's kernel bit-equal to its plain version (it copies); with ``timed``,
+    medians of the wrapper, the plain version and an index_select yardstick,
+    and the profiler's device time of the kernel."""
+    from analysisgnn_tpu_torch.kernels.halo import halo_pull, halo_pull_plain
+
+    out = halo_pull(x, halo)
+    ref = halo_pull_plain(x, halo)
+    torch.cuda.synchronize()
+    d, n_local, f = x.shape
+    if out.shape != (d, 2 * halo, f) or not torch.equal(out, ref):
+        raise AssertionError(f"K6 {name}: the kernel's halos differ from the plain version's")
+    row = {"case": name, "D": d, "N_local": n_local, "H": halo, "F": f, "max_abs_err": 0.0}
+    line = (f"kernel check: K6 {name}: D={d} N_local={n_local} H={halo} F={f}"
+            + ("" if x.is_contiguous() else f" strides {x.stride()}") + ": bit-equal to the plain version")
+    if timed:
+        # yardstick only, never called by the port: one index_select over the
+        # flattened input with a zero row appended beforehand, by a precomputed index
+        flat = torch.cat([x.reshape(d * n_local, f), x.new_zeros((1, f))])
+        rows, part = torch.arange(halo, device=x.device), torch.arange(d, device=x.device)[:, None]
+        left = torch.where(part > 0, part * n_local - halo + rows, d * n_local)
+        right = torch.where(part < d - 1, (part + 1) * n_local + rows, d * n_local)
+        index = torch.cat([left, right], dim=1).reshape(-1)
+        if not torch.equal(flat.index_select(0, index).view(d, 2 * halo, f), ref):
+            raise AssertionError(f"K6 {name}: the index_select yardstick computes another function")
+        row["ms"] = cuda_ms(lambda: halo_pull(x, halo))
+        row["device_ms"] = device_ms(lambda: halo_pull(x, halo), "halo_pull_kernel")
+        row["plain_ms"] = cuda_ms(lambda: halo_pull_plain(x, halo))
+        row["library_ms"] = cuda_ms(lambda: flat.index_select(0, index))
+        row["bound_ms"], row["bound_by"] = k6_bound_ms(d, halo, f)
+        line += (f" | kernel {row['ms']:.4f} ms a call ({row['device_ms']:.4f} ms of it on the device), plain "
+                 f"{row['plain_ms']:.4f} ms, index_select yardstick {row['library_ms']:.4f} ms, bound "
+                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {100 * row['bound_ms'] / row['device_ms']:.1f}% of "
+                 f"the kernel's device time)")
+    phase(line)
+    return row
+
+
+def k6_checks() -> list:
+    """K6 at the regime-2 shape of a 20,000-note score on 4 partitions (H = its
+    largest edge span), and at edge cases: one partition (all zeros), 2 and 8
+    partitions, H = 1, H = N_local, F = 25 (the scalar loop), and strided
+    inputs with and without 16-byte rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)
+    rows = [check_k6("regime-2 shape", rnd(4, 5000, 256), 24, timed=True)]
+    wide = rnd(4, 4000, 300)
+    for name, x, h in (("D=1 (all zeros)", rnd(1, 5000, 256), 24), ("D=2", rnd(2, 5000, 256), 24),
+                       ("D=8", rnd(8, 2500, 256), 24), ("H=1", rnd(4, 5000, 256), 1),
+                       ("H=N_local", rnd(4, 300, 256), 300), ("F=25 scalar loop", rnd(4, 5000, 25), 24),
+                       ("non-contiguous, 16-byte rows", wide[:, ::2, 4:260], 24),
+                       ("non-contiguous, unaligned rows", wide[:, ::2, 7:263], 24)):
+        rows.append(check_k6(name, x, h, timed=False))
+    return rows
+
+
+def _full_encode(model, na):
+    """The single-window encode of a score on the card, with the host arrays
+    that partition it and the encoder's input (the projected note rows)."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.inference.predict import graph_from_note_array
+    from analysisgnn_tpu_torch.models.analysis import KEY_SIGNATURE_CLASSES, PITCH_SPELLING_CLASSES
+
+    g = graph_from_note_array(na, add_beats=False, add_measures=False, device="cuda")
+    a = g.node_attrs[NOTE]
+    x = g.node_features[NOTE]
+    full = model.encode(g.node_features, g.edge_index, a["pitch_spelling"], a["key_signature"], g.num_target_nodes)
+    ps = a["pitch_spelling"].clamp(0, PITCH_SPELLING_CLASSES - 1)
+    ks = a["key_signature"].clamp(0, KEY_SIGNATURE_CLASSES - 1)
+    h0 = model.project[NOTE](torch.cat([x, model.pitch_embedding(ps), model.key_embedding(ks)], -1))
+    host = {"x": x.cpu().numpy(), "ps": a["pitch_spelling"].cpu().numpy(), "ks": a["key_signature"].cpu().numpy(),
+            "edges": {et: ei.cpu().numpy() for et, ei in g.edge_index.items()}}
+    return g, full, h0, host
+
+
+def _within(got, want) -> tuple:
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    return err, scale, err <= PART_RTOL * scale + PART_ATOL
+
+
+def _regime1_check(model, full, host: dict, partitions: int, label: str) -> dict:
+    """The overlap-region encode over ``partitions`` windows against the
+    single-window encode ``full`` (``_full_encode``)."""
+    from analysisgnn_tpu_torch.distributed.partition_encoder import (
+        make_partitioned_encode, partition_full_graph, unpartition,
+    )
+
+    part = partition_full_graph(host["x"], host["ps"], host["ks"], host["edges"], partitions,
+                                len(model.encoder.layers) + 2)
+    emb = unpartition(make_partitioned_encode(model)(part), part)
+    err, scale, ok = _within(emb, full)
+    if emb.shape != full.shape or not torch.isfinite(emb).all() or not ok:
+        raise AssertionError(f"{label}: partitioned vs single-window embeddings max|d| {err:.3e} > "
+                             f"{PART_RTOL} * {scale:.4f} + {PART_ATOL}")
+    phase(f"{label}: {part.num_nodes} notes, {partitions} partitions of {part.num_local} owned rows with halos of "
+          f"{part.halo} (N_ext {part.n_ext}): embeddings max|d| {err:.3e} against the single-window encode "
+          f"(tol {PART_RTOL} * max|full| {scale:.4f} + {PART_ATOL})")
+    return {"notes": part.num_nodes, "partitions": partitions, "halo": part.halo, "max_abs_err": err, "scale": scale}
+
+
+def synthetic_score_xml(min_notes: int, seed: int) -> str:
+    """A 4/4 MusicXML part of at least ``min_notes`` notes: quarter and half
+    notes, some in chords of up to three, and rests."""
+    rng = np.random.default_rng(seed)
+    measures, count = [], 0
+    while count < min_notes:
+        notes, left = [], 4
+        while left:
+            dur = int(min(rng.choice([1, 2]), left))
+            left -= dur
+            if rng.random() < 0.1:
+                notes.append(f"<note><rest/><duration>{dur}</duration></note>")
+                continue
+            for c in range(int(rng.integers(1, 4))):
+                notes.append(f"<note>{'<chord/>' if c else ''}<pitch><step>{'CDEFGAB'[rng.integers(7)]}</step>"
+                             f"<octave>{rng.integers(3, 6)}</octave></pitch><duration>{dur}</duration></note>")
+                count += 1
+        attrs = ("<attributes><divisions>1</divisions><time><beats>4</beats><beat-type>4</beat-type></time>"
+                 "</attributes>") if not measures else ""
+        measures.append(f'<measure number="{len(measures) + 1}">{attrs}{"".join(notes)}</measure>')
+    return ('<?xml version="1.0"?><score-partwise version="3.1"><part-list><score-part id="P1"/></part-list>'
+            f'<part id="P1">{"".join(measures)}</part></score-partwise>')
+
+
+@torch.no_grad()
+def partitioned_serve(model, cfg: dict, tmp: str) -> dict:
+    """Long-score serving through partitions on a line: regime 1 (the CLI's
+    path, then the CLI itself on a checkpoint of ``model``, whose
+    configuration is ``cfg``) and regime 2 (K6 before every layer)."""
+    from analysisgnn_tpu_torch.cli.predict import main as predict_main
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.distributed.partition import partition_graph
+    from analysisgnn_tpu_torch.distributed.partition_encoder import make_partitioned_fused_sage
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.inference.predict import predict_score_ids, predict_score_partitioned
+    from analysisgnn_tpu_torch.kernels.halo import halo_pull
+    from analysisgnn_tpu_torch.models.encoders import l2_normalize
+
+    na = synthetic_score(PART_NOTES, seed=PART_SEED)
+    n, layers = len(na), len(model.encoder.layers)
+    per_window = predicted_launches(model)["segment_mean_base"]
+    serve = lambda: predict_score_partitioned(model, na, num_devices=PARTITIONS, ids_only=True, device="cuda")
+    _reset_counts()  # the partitioned serve path's run starts here
+    t = time.perf_counter()
+    ids = serve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    counts = _counts()
+    expected = {k: (PARTITIONS * per_window if k == "segment_mean_base" else 0) for k in counts}
+    if counts != expected:
+        raise AssertionError(f"regime 1 launched {counts}, the code predicts {expected}")
+    lat = []
+    for _ in range(REPEATS):
+        t = time.perf_counter()
+        again = serve()
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+    ref_ids = predict_score_ids(model, na, add_beats=False, add_measures=False, device="cuda")
+    if set(ids) != set(ref_ids) or any(v.shape != (n,) or (v < 0).any() or not np.array_equal(v, again[k])
+                                       for k, v in ids.items()):
+        raise AssertionError("regime 1: bad or unstable ids")
+    differ = sum(int((ids[k] != ref_ids[k]).sum()) for k in ref_ids)
+    regime1 = {"launches": counts["segment_mean_base"], "first_s": first_s, "median_s": statistics.median(lat),
+               "ids_differing": differ, "ids": n * len(ids)}
+    phase(f"partitioned serve: regime 1, predict_score_partitioned(ids_only=True) of {n} notes on "
+          f"{PARTITIONS} partitions: K1 launches {counts['segment_mean_base']} ({per_window} a window, as "
+          f"predicted), first call {first_s * 1e3:.1f} ms, median of {REPEATS} {statistics.median(lat) * 1e3:.1f} ms; "
+          f"{differ} of {n * len(ids)} ids differ from predict_score_ids")
+    g, full, h0, host = _full_encode(model, na)
+    regime1.update(_regime1_check(model, full, host, PARTITIONS, "partitioned serve: regime 1"))
+
+    # the CLI: a checkpoint of the serve model and a MusicXML score
+    ckpt = f"{tmp}/serve_ckpt"
+    os.makedirs(ckpt)
+    with open(f"{ckpt}/model_config.json", "w") as f:
+        json.dump(cfg, f)
+    torch.save(model.state_dict(), f"{ckpt}/best.pt")
+    with open(f"{tmp}/score.musicxml", "w") as f:
+        f.write(synthetic_score_xml(PART_NOTES, seed=8))
+    _reset_counts()  # the CLI's run starts here
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        predict_main(["--checkpoint_dir", ckpt, "--score", f"{tmp}/score.musicxml", "--output_csv", f"{tmp}/out.csv",
+                      "--partition_devices", str(PARTITIONS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    cli_counts = _counts()
+    with open(f"{tmp}/out.csv") as f:
+        lines = f.read().splitlines()
+    if cli_counts != expected or len(lines) < PART_NOTES + 1 or lines[0].count(",") != 2 + len(model.task_dict):
+        raise AssertionError(f"CLI --partition_devices: launches {cli_counts} (expected {expected}), "
+                             f"{len(lines)} CSV lines")
+    regime1.update({"cli_s": cli_s, "cli_notes": len(lines) - 1})
+    phase(f"partitioned serve: cli.predict.main --partition_devices {PARTITIONS} on a MusicXML score of "
+          f"{len(lines) - 1} notes: {cli_s:.2f} s (parse, model load and first call included), K1 launches "
+          f"{cli_counts['segment_mean_base']}, {len(lines) - 1} CSV rows of {len(model.task_dict)} tasks")
+
+    # regime 2: the halo exchange before every layer, on the projected note rows
+    ref = model.encoder({NOTE: h0}, model.encoder.plan(g.edge_index, {NOTE: n}))
+    rels = tuple(model.encoder.layers[0].groups[NOTE])
+    fn = make_partitioned_fused_sage(rels, layers, use_jk=model.encoder.jk is not None, hidden=h0.shape[1])
+    h0_host = h0.cpu().numpy()
+    plans = {}
+    for d in REGIME2_PARTITIONS:
+        pg = partition_graph(h0_host, {et: host["edges"][et] for et in rels}, d)
+        on_card = lambda arrays: {et: torch.from_numpy(v).cuda() for et, v in arrays.items()}
+        plans[d] = (pg, torch.from_numpy(pg.x).cuda(), on_card(pg.edge_src), on_card(pg.edge_dst))
+    _reset_counts()  # the regime-2 path's run starts here
+    regime2 = {}
+    for d, (pg, xs, es, ed) in plans.items():
+        before = halo_pull.launches
+        out = fn(model.encoder, xs, es, ed, pg.halo)
+        torch.cuda.synchronize()
+        launched = halo_pull.launches - before
+        got = l2_normalize(torch.relu(out)).reshape(-1, out.shape[-1])[:n]
+        err, scale, ok = _within(got, ref)
+        if launched != layers + 1 or not torch.isfinite(got).all() or not ok:
+            raise AssertionError(f"regime 2 on {d} partitions: K6 launched {launched} times (expected {layers + 1}), "
+                                 f"max|d| {err:.3e} against model.encoder "
+                                 f"(tol {PART_RTOL} * {scale:.4f} + {PART_ATOL})")
+        regime2[d] = {"halo": pg.halo, "num_local": pg.num_local, "k6_launches": launched, "max_abs_err": err}
+    k6_launches = halo_pull.launches
+    pg, xs, es, ed = plans[PARTITIONS]
+    regime2_trace = trace_forward(lambda: fn(model.encoder, xs, es, ed, pg.halo),
+                                  f"one regime-2 forward on {PARTITIONS} partitions", "partitioned serve", 8)
+    for d, (pg, xs, es, ed) in plans.items():
+        times = []
+        for _ in range(REPEATS):
+            t = time.perf_counter()
+            fn(model.encoder, xs, es, ed, pg.halo)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        regime2[d]["median_ms"] = statistics.median(times) * 1e3
+        r = regime2[d]
+        phase(f"partitioned serve: regime 2 on {d} partitions of {r['num_local']} rows, H={r['halo']}: K6 launches "
+              f"{r['k6_launches']} a forward (expected {layers + 1}), max|d| {r['max_abs_err']:.3e} against "
+              f"model.encoder after ReLU and L2 norm (tol {PART_RTOL} * {scale:.4f} + {PART_ATOL}), median of "
+              f"{REPEATS} {r['median_ms']:.2f} ms a forward")
+    return {"regime1": regime1, "regime2": regime2, "k6_launches": k6_launches, "regime2_trace": regime2_trace}
+
+
+@torch.no_grad()
+def partition_twin(model) -> dict:
+    """The partitioned-encode certification of dryrun_multichip
+    (__graft_entry__.py:287-356) on one card: 1,200 notes (seed 7) through 8
+    partitions."""
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+
+    _, full, _, host = _full_encode(model, synthetic_score(num_notes=1200, seed=7))
+    return _regime1_check(model, full, host, 8, "dryrun_multichip twin")
+
 
 def main() -> None:
     smi = environment()
@@ -1229,6 +1536,19 @@ def main() -> None:
         trainer_rels = trainer_parity(f"{tmp}/parity")
     phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step, "
           f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step; GPU vs CPU {trainer_rels}")
+
+    k6_rows = k6_checks()
+    phase("kernel check: K6 done")
+    model = model_from_config(CFG, device="cuda").eval()
+    init_parameters(model, torch.Generator(device="cpu").manual_seed(0))  # the serve phase's weights
+    with tempfile.TemporaryDirectory() as tmp:
+        partitioned = partitioned_serve(model, CFG, tmp)
+    twin = partition_twin(model)
+    del model
+    phase(f"partitioned serve: done; regime 1 {partitioned['regime1']['median_s'] * 1e3:.1f} ms a "
+          f"{PART_NOTES}-note request, regime 2 "
+          + ", ".join(f"{d} partitions {r['median_ms']:.2f} ms" for d, r in partitioned["regime2"].items())
+          + f" a forward; the 1,200-note twin max|d| {twin['max_abs_err']:.3e}")
 
     main_row = rows[0]
     zxp = trained["edge-zxp"]
@@ -1310,6 +1630,19 @@ def main() -> None:
             "shape": f"{r['case']}: E={r['E']} " + (f"F={r['F']} n={r['n']}" if "F" in r else f"H={r['H']} n={r['n']}"),
             "note": "only tests call it (tests/test_pallas.py in the JAX package), so no path launches it",
         })
+    kernels[0]["partitioned_serve_launches"] = partitioned["regime1"]["launches"]
+    k6 = k6_rows[0]
+    if (k6["D"], k6["H"]) != (PARTITIONS, partitioned["regime2"][PARTITIONS]["halo"]):
+        raise AssertionError(f"K6 was timed at D={k6['D']} H={k6['H']}, not at the shape of regime 2's run")
+    kernels.append({
+        "name": "halo_pull", "route": "cuda", "source": "analysisgnn_tpu_torch/csrc/halo_pull.cu",
+        "replaces": "analysisgnn_tpu/kernels/halo.py:97", "launches": partitioned["k6_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k6_rows), "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"], "library_ms": k6["library_ms"],
+        "device_ms": k6["device_ms"],
+        "shape": f"{k6['case']}: D={k6['D']} N_local={k6['N_local']} H={k6['H']} F={k6['F']}",
+        "per_forward": {d: r["k6_launches"] for d, r in partitioned["regime2"].items()},
+    })
     per_step = ", ".join(f"{arm} {r['median_ms']:.2f}" for arm, r in trained.items())
     busy = ", ".join(f"{arm} {r['busy_ms']:.2f} of {r['wall_ms']:.2f} ms" for arm, r in traced.items())
     phase(f"train: done; ms per step {per_step}; traced steps busy {busy}; parity {parity}")
