@@ -8,13 +8,20 @@ and the ``_dwa_kernel`` backward).  The CUDA source is
 loaded with ctypes (``kernels/build.py``).  It is the base term of the
 edge-layout fused SAGE (``models/fused.py``, ``conv_impl="edge-zxp"``).
 
-Backward: ``dx`` is the forward kernel with a contiguous ``[T, G, F]`` copy of
-``w^T``; ``dw[t] = (alpha_t * x)^T g`` and ``d alpha[t, n] = <x[n] @ w[t], g[n]>``
+Backward: ``dx`` is the forward kernel reading ``w`` as ``w^T`` (no copy);
+``dw[t] = (alpha_t * x)^T g`` and ``d alpha[t, n] = <x[n] @ w[t], g[n]>``
 have kernels of their own.  Each kernel launches only when autograd asks for
 its gradient.
 
-Bound on the H100: operations (``2*T*N*F*G`` f32 multiply-adds per kernel
-against a few tens of MB moved).
+The forward, dx and dw kernels run on Hopper's tensor cores in three TF32
+passes (each f32 operand split into a TF32 ``hi`` and ``lo``; ``hi*lo + lo*hi
++ hi*hi`` summed in f32), which keeps f32 accuracy; d alpha, off the model's
+path, stays f32 FMAs on the SIMT cores.  No global TF32 flag is read or set.
+dw cuts N into :func:`dw_splits` ranges and sums their partials in a fixed
+order, in a scratch buffer the wrapper allocates: the same bits on every run.
+
+Bound on the H100: operations (``2*T*N*F*G`` multiply-adds per kernel, three
+times over on the tensor cores, against a few tens of MB moved).
 
 On a CPU tensor the wrapper computes the plain version (``torch.einsum``,
 gradients by autograd); on a CUDA tensor it launches the kernels or raises.
@@ -52,20 +59,37 @@ def _check(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> None:
 def _launcher():
     lib = build.load(_NAME)
     if lib.rwm_forward_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.rwm_forward_launch, lib.rwm_dw_launch, lib.rwm_dalpha_launch):
-            fn.argtypes = [p, p, p, p, ctypes.c_int64, i, i, i, p]
+        p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        for fn in (lib.rwm_forward_launch, lib.rwm_dx_launch, lib.rwm_dalpha_launch):
+            fn.argtypes = [p, p, p, p, n, i, i, i, p]
             fn.restype = ctypes.c_int
+        lib.rwm_dw_launch.argtypes = [p, p, p, p, p, n, i, i, i, i, p]
+        lib.rwm_dw_launch.restype = ctypes.c_int
+        lib.rwm_dw_splits.argtypes = [n, i, i, i]
+        lib.rwm_dw_splits.restype = ctypes.c_int
     return lib
 
 
+def dw_splits(n: int, f: int, g: int, t: int) -> int:
+    """The number of row ranges the dw kernel cuts N into on the current
+    device (its partials are summed by a second kernel when it is over 1)."""
+    return _launcher().rwm_dw_splits(n, f, g, t)
+
+
 def _launch(fn_name: str, out_shape, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, n: int, f: int, g: int, t: int):
-    """Launch one of the three kernels on the current stream into a fresh output."""
+    """Launch one of the kernels on the current stream into a fresh output."""
     a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
     with torch.cuda.device(a.device):
         out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = getattr(_launcher(), fn_name)(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), n, f, g, t, stream)
+        lib = _launcher()
+        if fn_name == "rwm_dw_launch":  # N cut into ranges, their partials summed in a scratch buffer
+            splits = dw_splits(n, f, g, t)
+            scratch = torch.empty((splits, *out_shape) if splits > 1 else (0,), dtype=torch.float32, device=a.device)
+            rc = lib.rwm_dw_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                   n, f, g, t, splits, stream)
+        else:
+            rc = getattr(lib, fn_name)(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), n, f, g, t, stream)
     if rc != 0:
         raise RuntimeError(f"{_NAME} kernel {fn_name} failed to launch: cudaError {rc}")
     return out
@@ -81,10 +105,10 @@ def rwm_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.
 
 
 def rwm_dx(gout: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """``dx [N, F]``: the forward kernel on ``gout`` with a contiguous ``w^T``."""
+    """``dx [N, F]``: the forward kernel on ``gout``, reading ``w`` as ``w^T``."""
     n, g = gout.shape
     t, f, _ = w.shape
-    out = _launch("rwm_forward_launch", (n, f), gout, w.transpose(1, 2), alpha, n, g, f, t)
+    out = _launch("rwm_dx_launch", (n, f), gout, w, alpha, n, f, g, t)
     relation_weighted_matmul.dx_launches += 1
     return out
 

@@ -26,11 +26,14 @@ Phases, each on its own line with elapsed seconds:
   6. train corpus: the 8 synthetic 2,000-note scores of bench.py with beats,
      measures and random labels for the 21 tasks, sampled by the port's
      SubgraphSampler (500-note subgraphs x 8, neighbours (5, 5), src-sorted);
-  7. K3 check: relation_weighted_matmul's forward, dx, dw and d alpha kernels
-     against the plain version's value and autograd gradients, at the train
-     step's shape (N = the batch's note capacity, F = G = 256, T = 7) and at
-     edge cases, with median times of each kernel, the plain version and a
-     torch.einsum yardstick, beside the operations bound; K1's gradient
+  7. K3 check: relation_weighted_matmul's forward, dx, dw (tensor cores, three
+     TF32 passes) and d alpha kernels against the plain version's value and
+     autograd gradients, at the train step's shape (N = the batch's note
+     capacity, F = G = 256, T = 7) and at edge cases (N = 1, 63, 77, 300;
+     T = 1; F, G of 25/20, 40/24, 64/96; a strided x), two dw calls bit for
+     bit, with median times of each kernel's call, its device time, the plain
+     version and a torch.einsum yardstick, beside the three-pass TF32
+     operations bound and the f32 SIMT one; K1's gradient
      through the CUDA kernel against the plain version's at the fused-layer
      shape, padding edges included;
   8. train: the full-width HybridGNN train step of bench.py (dropout 0.3,
@@ -41,7 +44,7 @@ Phases, each on its own line with elapsed seconds:
      then one step on the GPU against the same step on the CPU (plain
      versions, same weights and batch, dropout 0);
   9. train trace: one edge-zxp step under torch.profiler, with the device's
-     busy share of the step and its kernels by device time;
+     busy share of the step, its kernels by device time and K3's sum;
  10. K2 check: segment_softmax_agg's kernel against its plain version (value
      and the autograd gradients of logits and msgs, padding gradients exactly
      0) at the HGT train step's shape (the union softmax of one layer over a
@@ -114,6 +117,7 @@ import torch
 T0 = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 K1_RTOL = 1e-5  # kernel vs plain: f32 sums of the same terms in another order
 LOGIT_ATOL = 1e-3  # GPU vs CPU logits of the whole model at full width
 REQUEST_NOTES = (2000, 8000, 20000)
@@ -200,10 +204,10 @@ def cuda_ms(fn, iters: int = 20, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float:
-    """Device time of one launch of the kernel whose name contains ``kernel``,
-    from torch.profiler over ``iters`` calls of ``fn``: the kernel alone,
-    without the host time of its wrapper."""
+def device_ms(fn, kernel: str, iters: int = 20, per_call: int = 1) -> float:
+    """Device time of one call of ``fn``'s kernels whose names contain
+    ``kernel`` (``per_call`` launches a call), from torch.profiler over
+    ``iters`` calls: the kernels alone, without the host time of the wrapper."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -221,9 +225,9 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float:
     hits = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
     count = sum(e.count for e in hits)
-    if count != iters:
+    if count != iters * per_call:
         raise AssertionError(f"the profiler saw {count} launches of {kernel} in {iters} calls")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    return sum(e.self_device_time_total for e in hits) / iters / 1e3
 
 
 def environment() -> str:
@@ -252,7 +256,7 @@ def build_kernels() -> None:
     for name, (seconds, log) in built.items():
         phase(f"build: {name} nvcc {seconds:.2f}s -> {build.library_path(name).name}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line or "C75" in line:
                 phase(f"build:   {line.strip()}")
     phase(f"build: {len(built)} sources in {time.perf_counter() - t:.2f}s wall")
 
@@ -462,27 +466,34 @@ def trace(model, notes: int, top: int = 10) -> None:
 
 
 def k3_bound_ms(n: int, f: int, g: int, t: int) -> tuple:
-    """Least time for one K3 kernel's work: 2*T*N*F*G f32 operations (each of
-    the forward, dx, dw and d alpha does as many), or its inputs read and
-    its output written once."""
+    """Least time for one K3 kernel's work at f32 accuracy: 2*T*N*F*G
+    operations (each of the forward, dx, dw and d alpha does as many) in three
+    TF32 passes on the tensor cores, or its inputs read and its output written
+    once; and beside it the bound of the same work in f32 on the SIMT cores
+    (d alpha's route)."""
     ops = 2 * t * n * f * g
     bytes_moved = 4 * (n * f + t * f * g + t * n + n * g)
-    t_ops, t_bytes = ops / FP32_OPS_PER_S * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_ops, t_bytes = 3 * ops / TF32_OPS_PER_S * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
+    f32_simt = max(ops / FP32_OPS_PER_S * 1e3, t_bytes)
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (f32_simt,)
 
 
-def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dict:
+def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool, strided: bool = False) -> dict:
     """K3's four kernels against the plain version (value and autograd
-    gradients) on the same inputs; with ``timed``, medians of each kernel,
-    the plain version and a torch.einsum yardstick."""
+    gradients) on the same inputs, and two dw calls bit for bit; with
+    ``strided``, x is a non-contiguous view.  With ``timed``, medians of each
+    kernel's wrapper call, its device time, the plain version and a
+    torch.einsum yardstick."""
     from analysisgnn_tpu_torch.kernels import relmm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(n * 7 + t)
-    x = torch.randn(n, f, generator=gen).to(dev)
+    x = (torch.randn(f, n, generator=gen).t() if strided else torch.randn(n, f, generator=gen)).to(dev)
     w = (torch.randn(t, f, g, generator=gen) / f**0.5).to(dev)
     alpha = torch.rand(t, n, generator=gen).to(dev)
     gout = torch.randn(n, g, generator=gen).to(dev)
+    if x.is_contiguous() == strided:
+        raise AssertionError(f"K3 {name}: x is {'' if strided else 'not '}contiguous")
     leaves = [v.clone().requires_grad_(True) for v in (x, w, alpha)]
     out = relmm.relation_weighted_matmul(*leaves)
     got = (out.detach(), *torch.autograd.grad(out, leaves, gout))
@@ -504,11 +515,15 @@ def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dict:
             raise AssertionError(f"K3 {name} {part}: |kernel - plain| reaches {worst:.3e} of the sum of |terms| "
                                  f"(tol {K3_RTOL})")
         errs[part] = float(err.max())
+    # dw sums its row ranges' partials in a fixed order: the same bits every call
+    if not torch.equal(relmm.rwm_dw(x, gout, alpha), relmm.rwm_dw(x, gout, alpha)):
+        raise AssertionError(f"K3 {name}: two dw calls on the same inputs differ")
     row = {"case": name, "N": n, "F": f, "G": g, "T": t, "max_abs_err": errs}
-    line = (f"kernel check: K3 {name}: N={n} F={f} G={g} T={t} max|d| "
-            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {K3_RTOL} of the sum of |terms|)")
+    line = (f"kernel check: K3 {name}: N={n} F={f} G={g} T={t}{' strided x' if strided else ''} max|d| "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {K3_RTOL} of the sum of |terms|); "
+            "dw bit-equal over two calls")
     if timed:
-        bound, bound_by = k3_bound_ms(n, f, g, t)
+        bound, bound_by, f32_simt = k3_bound_ms(n, f, g, t)
         xp, wp, ap = plain_leaves
         # the plain version's gradients, each one backward of its einsum graph
         plain_grad = lambda leaf: (lambda: torch.autograd.grad(ref_out, leaf, gout, retain_graph=True))
@@ -523,14 +538,19 @@ def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dict:
             "dalpha": (lambda: relmm.rwm_dalpha(x, w, gout), plain_grad(ap),
                        lambda: torch.einsum("nf,tfg,ng->tn", x, w, gout)),
         }
+        # launches a call: dw adds the sum of its partials when it cuts N
+        per_call = {"forward": 1, "dx": 1, "dw": 1 + (relmm.dw_splits(n, f, g, t) > 1), "dalpha": 1}
         row["timed"] = {}
+        line += (f"\nkernel check:   K3 bound {bound:.4f} ms ({bound_by}, three TF32 passes at "
+                 f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); f32 on the SIMT cores {f32_simt:.4f} ms")
         for part, (kernel, plain, library) in parts.items():
-            r = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
-                 "bound_ms": bound, "bound_by": bound_by, "max_abs_err": errs[part]}
+            r = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel, "rwm_", per_call=per_call[part]),
+                 "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+                 "bound_ms": bound, "bound_by": bound_by, "bound_f32_simt_ms": f32_simt, "max_abs_err": errs[part]}
             row["timed"][part] = r
-            line += (f"\nkernel check:   K3 {part}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, einsum "
-                     f"yardstick {r['library_ms']:.4f} ms, bound {bound:.4f} ms ({bound_by}, "
-                     f"{100 * bound / r['ms']:.1f}% of the kernel's time)")
+            line += (f"\nkernel check:   K3 {part}: kernel {r['ms']:.4f} ms a call, {r['device_ms']:.4f} ms on the "
+                     f"device, plain {r['plain_ms']:.4f} ms, einsum yardstick {r['library_ms']:.4f} ms; "
+                     f"{100 * bound / r['device_ms']:.1f}% of the bound on the device")
     for part in line.split("\n"):
         phase(part)
     return row
@@ -538,10 +558,14 @@ def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dict:
 
 def k3_checks(n_train: int) -> list:
     rows = [check_k3("train shape", n_train, 256, 256, 7, timed=True)]
-    # N not a multiple of the 64-row tile; T=1; F != G, G not a tile multiple; F not a multiple of the 16-deep chunk
+    # N not a multiple of the 128-row tile, below one tile, one row; T=1; F != G,
+    # G not a tile multiple; F not a multiple of the 32-deep chunk, and F, G not
+    # multiples of 4 (4-byte copies); x a non-contiguous view
     for name, n, f, g, t in (("N=300", 300, 256, 256, 7), ("T=1", 1000, 256, 256, 1),
-                             ("F=64 G=96", 300, 64, 96, 3), ("F=40 G=24", 77, 40, 24, 2)):
+                             ("F=64 G=96", 300, 64, 96, 3), ("F=40 G=24", 77, 40, 24, 2),
+                             ("N=1", 1, 256, 256, 7), ("N=63", 63, 256, 256, 7), ("F=25 G=20", 65, 25, 20, 3)):
         rows.append(check_k3(name, n, f, g, t, timed=False))
+    rows.append(check_k3("strided x", 300, 256, 256, 7, timed=False, strided=True))
     return rows
 
 
@@ -892,9 +916,10 @@ def step_parity(arm: str, batch) -> dict:
     return {"loss_rel": rel, "param_max_abs": worst}
 
 
-def trace_forward(fn, label: str, prefix: str, top: int) -> dict:
+def trace_forward(fn, label: str, prefix: str, top: int, group: str = "") -> dict:
     """One call of ``fn`` under torch.profiler: the device's busy share of its
-    wall time and its kernels by device time, printed after ``prefix``."""
+    wall time and its kernels by device time, printed after ``prefix``; with
+    ``group``, the summed device time of the kernels whose names contain it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -912,14 +937,21 @@ def trace_forward(fn, label: str, prefix: str, top: int) -> dict:
           f"({100 * busy_ms / wall_ms:.1f}% of the wall), {launches} kernel launches")
     for e in kernels[:top]:
         phase(f"{prefix}:   {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
+    row = {"wall_ms": wall_ms, "busy_ms": busy_ms, "launches": launches}
+    if group:
+        members = [e for e in kernels if group in e.key]
+        row["group_ms"] = sum(e.self_device_time_total for e in members) / 1e3
+        phase(f"{prefix}: {group}* kernels {row['group_ms']:.3f} ms of the {busy_ms:.2f} ms busy, "
+              f"{sum(e.count for e in members)} launches")
+    return row
 
 
 def trace_train(row: dict, batch, top: int = 12) -> dict:
     """One step of the arm under torch.profiler: the device's busy share of
-    the step and its kernels by device time."""
+    the step and its kernels by device time (and K3's summed, edge-zxp)."""
     state, step = row["state"], row["step"]
-    return trace_forward(lambda: step(state, batch), f"one {row['arm']} step", "train trace", top)
+    group = "rwm_" if row["arm"] == "edge-zxp" else ""
+    return trace_forward(lambda: step(state, batch), f"one {row['arm']} step", "train trace", top, group)
 
 
 # ------------------------------------------------------------- K4 and K5
@@ -1565,7 +1597,8 @@ def main() -> None:
                 "replaces": k3_replaces[part], "launches": zxp["launches"][name],
                 "max_abs_err": max(row["max_abs_err"][part] for row in k3_rows),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"], "shape": k3_shape}
+                "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+                "bound_f32_simt_ms": r["bound_f32_simt_ms"], "shape": k3_shape}
 
     dw_entry = k3_entry("dw", "relation_weighted_matmul.dw")
     # d alpha is held against the plain version here but is not on the main
@@ -1645,7 +1678,8 @@ def main() -> None:
     })
     per_step = ", ".join(f"{arm} {r['median_ms']:.2f}" for arm, r in trained.items())
     busy = ", ".join(f"{arm} {r['busy_ms']:.2f} of {r['wall_ms']:.2f} ms" for arm, r in traced.items())
-    phase(f"train: done; ms per step {per_step}; traced steps busy {busy}; parity {parity}")
+    phase(f"train: done; ms per step {per_step}; traced steps busy {busy}; K3 in the traced edge-zxp step "
+          f"{traced['edge-zxp']['group_ms']:.3f} ms of device time; parity {parity}")
     phase(f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
