@@ -16,8 +16,13 @@
 // Bound on the H100: bytes.  It reads (D - 1) * 2H * F * 4 bytes (the end
 // partitions have one neighbour each) and writes D * 2H * F * 4, with no
 // arithmetic.  At the shapes of the partitioned HybridGNN (H = one edge
-// span, a few dozen rows; F = 256) that is well under a megabyte, so one
-// launch sits at the launch floor.
+// span, a few dozen rows; F = 256) that is well under a megabyte (0.1 us at
+// 3.35 TB/s), so what bounds one launch is the launch floor on the device
+// (about 3 us) and, above all, the host's call around it.  Hence the
+// launcher's short signature: the layout arguments that do not change
+// between calls come packed in a HaloArgs made once per layout
+// (kernels/halo.py::HaloPlan), and a call passes two pointers, the plan and
+// the stream.
 //
 // Design.  One block per (partition, side): blockIdx.x the partition,
 // blockIdx.y the side (0 the left halo, 1 the right).  The block's threads
@@ -64,22 +69,27 @@ halo_pull_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// x is [D, n_local, F] float32 with element strides (sd, sn, sf); out is a
-// contiguous [D, 2H, F] float32.  vec != 0 asks for the float4 path: the
-// caller guarantees sf == 1, F % 4 == 0, sd and sn multiples of 4, and both
-// pointers 16-byte aligned.
-extern "C" int halo_pull_launch(const float* x, float* out, int D,
-                                long long n_local, long long H, long long F,
-                                long long sd, long long sn, long long sf,
-                                int vec, void* stream) {
-  if (D <= 0 || H <= 0 || F <= 0) return (int)cudaSuccess;
-  const dim3 grid((unsigned)D, 2);
+// The launch arguments of one [D, n_local, F] layout and halo H: element
+// strides (sd, sn, sf) of x, and vec != 0 when the layout allows 16-byte
+// copies (sf == 1, F % 4 == 0, sd and sn multiples of 4).  Field for field
+// the ctypes Structure kernels/halo.py::_HaloArgs.
+struct HaloArgs {
+  long long D, n_local, H, F, sd, sn, sf, vec;
+};
+
+// Launches on `stream` and returns cudaGetLastError() (0 on success).  x is
+// [D, n_local, F] float32 with the plan's strides; out is a contiguous
+// [D, 2H, F] float32.  The float4 path runs when the plan allows it and both
+// pointers are 16-byte aligned, else the scalar loop.
+extern "C" int halo_pull_launch(const float* x, float* out, const HaloArgs* a, void* stream) {
+  if (a->D <= 0 || a->H <= 0 || a->F <= 0) return (int)cudaSuccess;
+  const dim3 grid((unsigned)a->D, 2);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const bool vec = a->vec && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   if (vec) {
-    halo_pull_kernel<true><<<grid, THREADS, 0, s>>>(x, out, D, n_local, H, F, sd, sn, sf);
+    halo_pull_kernel<true><<<grid, THREADS, 0, s>>>(x, out, (int)a->D, a->n_local, a->H, a->F, a->sd, a->sn, a->sf);
   } else {
-    halo_pull_kernel<false><<<grid, THREADS, 0, s>>>(x, out, D, n_local, H, F, sd, sn, sf);
+    halo_pull_kernel<false><<<grid, THREADS, 0, s>>>(x, out, (int)a->D, a->n_local, a->H, a->F, a->sd, a->sn, a->sf);
   }
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,7 @@ import torch
 
 from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType
 from analysisgnn_tpu_torch.distributed.partition import gather_parts, segment_sum_parts
-from analysisgnn_tpu_torch.kernels.halo import halo_pull  # regime 2's exchange: K6
+from analysisgnn_tpu_torch.kernels.halo import HaloPlan, halo_pull  # regime 2's exchange: K6
 from analysisgnn_tpu_torch.models.encoders import l2_normalize
 
 # ---------------------------------------------------------------------------
@@ -227,10 +227,16 @@ def partitioned_hybridgnn_forward(
     optional LayerAttentionJK, then the final conv; like the JAX function it
     stops after the final conv (no ``final_norm``).
     """
-    h = x_parts
+    # every pull sees one layout, contiguous [D, N_local, hidden], so one K6
+    # plan and one halo buffer serve all num_layers + 1 of them.  Each pull's
+    # halos are consumed by the einsum of the layer that follows it before the
+    # next pull overwrites the buffer: all of it runs in order on one stream.
+    h = x_parts.contiguous()
+    plan = HaloPlan(h, halo)
+    buf = torch.empty(plan.out_shape, dtype=h.dtype, device=h.device)
     note_states = []
     for i in range(num_layers):
-        halos = halo_pull(h, halo)
+        halos = halo_pull(h, halo, out=buf, plan=plan)
         h = _fused_sage_from_params(
             dict(encoder.layers[i].fused[NOTE].named_parameters()), h, halos, edge_src, edge_dst, relations, halo
         )
@@ -239,7 +245,7 @@ def partitioned_hybridgnn_forward(
     if use_jk:
         d, n_local, f = h.shape
         h = encoder.jk([s.reshape(d * n_local, f) for s in note_states]).reshape(d, n_local, f)
-    halos = halo_pull(h, halo)
+    halos = halo_pull(h, halo, out=buf, plan=plan)
     return _fused_sage_from_params(
         dict(encoder.final.fused[NOTE].named_parameters()), h, halos, edge_src, edge_dst, relations, halo
     )

@@ -21,7 +21,16 @@ line; D = 1 gives zeros.  ``1 <= H <= N_local`` is required.
 
 Bound on the H100: bytes (``(D - 1) * 2H * F * 4`` read, ``D * 2H * F * 4``
 written, no arithmetic).  One block per (partition, side) writes each
-element of its slot once, with 16-byte copies when the rows allow them.
+element of its slot once, with 16-byte copies when the rows allow them.  At
+the partitioned HybridGNN's shapes that is far below a microsecond, so one
+launch sits at the device's launch floor and the call's cost is its host
+work.  A :class:`HaloPlan` therefore packs what does not change between
+calls (the layout, the strides, the float4 decision) once per layout, and
+``halo_pull(x, halo, out=buf, plan=plan)`` checks the input against the
+plan's stored tuples, passes two pointers, the plan and the stream to the
+launcher, and allocates nothing.  Regime 2 makes one plan and one buffer per
+forward (``distributed/partition_encoder.py``); ``halo_pull(x, halo)``
+makes both on every call.
 
 The TPU kernel has no ``custom_vjp``, and the partitioned forward only
 serves, so inputs that require a gradient are refused.  On a CPU tensor the
@@ -32,26 +41,33 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
-from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels import launch
 
 
-def halo_pull_plain(x_parts: torch.Tensor, halo: int) -> torch.Tensor:
-    """The plain PyTorch version: slices of the neighbours, zeros at the ends."""
+def halo_pull_plain(x_parts: torch.Tensor, halo: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version: slices of the neighbours, zeros at the ends;
+    written into ``out`` when it is given."""
     d, n_local, f = x_parts.shape
     zeros = x_parts.new_zeros((1, halo, f))
     left = torch.cat([zeros, x_parts[:-1, n_local - halo:]])
     right = torch.cat([x_parts[1:, :halo], zeros])
-    return torch.cat([left, right], dim=1)
+    halos = torch.cat([left, right], dim=1)
+    return halos if out is None else out.copy_(halos)
 
 
-def _check(x_parts: torch.Tensor, halo: int) -> None:
+def _check_input(x_parts: torch.Tensor) -> None:
     if x_parts.requires_grad:
         raise ValueError("halo_pull is forward-only, as the TPU kernel is: x_parts must not require grad")
     if x_parts.dtype != torch.float32:
         raise TypeError(f"x_parts must be float32, got {x_parts.dtype}")
+
+
+def _check(x_parts: torch.Tensor, halo: int) -> None:
+    _check_input(x_parts)
     if x_parts.dim() != 3:
         raise ValueError(f"expected x_parts [D, N_local, F], got {tuple(x_parts.shape)}")
     if not 1 <= halo <= x_parts.shape[1]:
@@ -60,40 +76,62 @@ def _check(x_parts: torch.Tensor, halo: int) -> None:
         raise ValueError(f"halo_pull runs on cpu or cuda tensors, got {x_parts.device}")
 
 
-def _launch(x_parts: torch.Tensor, halo: int) -> torch.Tensor:
-    lib = _launcher()
-    d, n_local, f = x_parts.shape
-    sd, sn, sf = x_parts.stride()
-    with torch.cuda.device(x_parts.device):
-        out = torch.empty((d, 2 * halo, f), dtype=torch.float32, device=x_parts.device)
-        vec = (sf == 1 and f % 4 == 0 and sd % 4 == 0 and sn % 4 == 0
-               and x_parts.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-        stream = torch.cuda.current_stream(x_parts.device).cuda_stream
-        rc = lib.halo_pull_launch(x_parts.data_ptr(), out.data_ptr(), d, n_local, halo, f, sd, sn, sf, int(vec), stream)
-    if rc != 0:
-        raise RuntimeError(f"halo_pull kernel launch failed: cudaError {rc}")
+class _HaloArgs(ctypes.Structure):
+    """``HaloArgs`` of ``csrc/halo_pull.cu``, field for field."""
+
+    _fields_ = [(name, ctypes.c_longlong) for name in ("D", "n_local", "H", "F", "sd", "sn", "sf", "vec")]
+
+
+class HaloPlan:
+    """K6's launch for one layout, made once: ``x_parts``' shape and strides,
+    the halo H, the device, the output's shape and the float4 decision, packed
+    for the launcher.  Any input with that shape and those strides on that
+    device may be pulled with it."""
+
+    def __init__(self, x_parts: torch.Tensor, halo: int):
+        _check(x_parts, halo)
+        d, n_local, f = x_parts.shape
+        sd, sn, sf = x_parts.stride()
+        self.shape, self.strides, self.halo, self.device = tuple(x_parts.shape), (sd, sn, sf), halo, x_parts.device
+        self.out_shape = (d, 2 * halo, f)
+        # 16-byte copies when the rows allow them; the launcher also checks
+        # both pointers of every call before it takes them
+        self.vec = sf == 1 and f % 4 == 0 and sd % 4 == 0 and sn % 4 == 0 and x_parts.data_ptr() % 16 == 0
+        self.args = _HaloArgs(d, n_local, halo, f, sd, sn, sf, int(self.vec))
+        self.args_ptr = ctypes.addressof(self.args)  # self.args keeps it alive
+
+    def check(self, x_parts: torch.Tensor, halo: int, out: Optional[torch.Tensor]) -> None:
+        """Raises unless ``x_parts``, ``halo`` and ``out`` fit this plan."""
+        _check_input(x_parts)
+        if (x_parts.shape != self.shape or x_parts.stride() != self.strides or halo != self.halo
+                or x_parts.device != self.device):
+            raise ValueError(f"the plan was made for x_parts {self.shape} with strides {self.strides} on "
+                             f"{self.device} and halo {self.halo}; got {tuple(x_parts.shape)} with strides "
+                             f"{x_parts.stride()} on {x_parts.device} and halo {halo}")
+        if out is not None and (out.shape != self.out_shape or out.dtype != torch.float32
+                                or out.device != self.device or not out.is_contiguous()):
+            raise ValueError(f"out must be a contiguous float32 {self.out_shape} on {self.device}; got "
+                             f"{out.dtype} {tuple(out.shape)} with strides {out.stride()} on {out.device}")
+
+
+def halo_pull(x_parts: torch.Tensor, halo: int, out: Optional[torch.Tensor] = None,
+              plan: Optional[HaloPlan] = None) -> torch.Tensor:
+    """``[D, 2H, F]`` halos of the D partitions ``x_parts [D, N_local, F]``
+    on a line; see the module docstring.  With ``out`` (a contiguous
+    ``[D, 2H, F]`` float32 that does not overlap ``x_parts``) the halos are
+    written there; with ``plan`` (a :class:`HaloPlan` of ``x_parts``' layout)
+    the call makes none.  ``halo_pull.launches`` counts kernel launches."""
+    if plan is None:
+        plan = HaloPlan(x_parts, halo)
+    plan.check(x_parts, halo, out)
+    if not x_parts.is_cuda:  # the plan holds a cpu or cuda device
+        return halo_pull_plain(x_parts, halo, out)
+    if out is None:
+        out = torch.empty(plan.out_shape, dtype=torch.float32, device=x_parts.device)
+    fn = launch.bind("halo_pull", "halo_pull_launch", [ctypes.c_void_p] * 4)
+    launch.launch(fn, x_parts.get_device(), x_parts.data_ptr(), out.data_ptr(), plan.args_ptr)
     halo_pull.launches += 1
     return out
 
 
-def halo_pull(x_parts: torch.Tensor, halo: int) -> torch.Tensor:
-    """``[D, 2H, F]`` halos of the D partitions ``x_parts [D, N_local, F]``
-    on a line; see the module docstring.  ``halo_pull.launches`` counts
-    kernel launches."""
-    _check(x_parts, halo)
-    if x_parts.device.type == "cpu":
-        return halo_pull_plain(x_parts, halo)
-    return _launch(x_parts, halo)
-
-
 halo_pull.launches = 0
-
-
-def _launcher():
-    lib = build.load("halo_pull")
-    fn = lib.halo_pull_launch
-    if fn.argtypes is None:
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [p, p, ctypes.c_int, i64, i64, i64, i64, i64, i64, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

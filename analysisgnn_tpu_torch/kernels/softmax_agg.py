@@ -21,7 +21,11 @@ once and writes ``[n, H*D]`` plus the per-node max and denominator
 ``[n, H]``.  A :class:`SoftmaxAggPlan` sorts the edges by ``block * (n + 1) +
 node`` once per graph (padding past each block's nodes) and holds CSR row
 pointers, so the kernel walks each node's edge ranges, reads no padding, and
-writes each output row once with no atomics.
+writes each output row once with no atomics.  One warp owns a node; it walks
+only the node's non-empty ranges, as one flat list of edges, takes the
+per-head max with lanes across (edge, head) pairs, and loads several edges'
+message rows before it adds the first, so the heaviest node of a train batch
+waits on a handful of dependent memory rounds (``csrc/segment_softmax_agg.cu``).
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.  Either way the result carries gradients
@@ -39,11 +43,13 @@ from typing import Tuple
 
 import torch
 
-from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels import launch
 from analysisgnn_tpu_torch.kernels.segment_ops import dummy_row_ids, segment_max, segment_sum
 
 DEN_MIN = 1e-16
-MAX_HEADS = 32  # the kernel keeps the per-head max of a node in shared memory
+MAX_HEADS = 32  # the kernel's lanes h < H hold the per-head max of a node
+# segment_softmax_agg_launch: logits, msgs, row_ptr, out, max, den, n, blocks, H, F, vec, stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,20 +122,14 @@ def _launch(logits, msgs, plan):
     h, f = logits.shape[1], msgs.shape[1]
     if h > MAX_HEADS:
         raise ValueError(f"the CUDA kernel takes at most {MAX_HEADS} heads, got {h}")
-    lib = _launcher()
     n = plan.num_nodes
-    with torch.cuda.device(msgs.device):
-        out = torch.empty((n, f), dtype=torch.float32, device=msgs.device)
-        mx = torch.empty((n, h), dtype=torch.float32, device=msgs.device)
-        den = torch.empty((n, h), dtype=torch.float32, device=msgs.device)
-        vec = (f // h) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, out))
-        stream = torch.cuda.current_stream(msgs.device).cuda_stream
-        rc = lib.segment_softmax_agg_launch(
-            logits.data_ptr(), msgs.data_ptr(), plan.row_ptr.data_ptr(), out.data_ptr(), mx.data_ptr(),
-            den.data_ptr(), n, plan.num_blocks, h, f, int(vec), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"segment_softmax_agg kernel launch failed: cudaError {rc}")
+    out = torch.empty((n, f), dtype=torch.float32, device=msgs.device)
+    mx = torch.empty((n, h), dtype=torch.float32, device=msgs.device)
+    den = torch.empty((n, h), dtype=torch.float32, device=msgs.device)
+    vec = (f // h) % 4 == 0 and msgs.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    fn = launch.bind("segment_softmax_agg", "segment_softmax_agg_launch", _ARGTYPES)
+    launch.launch(fn, msgs.get_device(), logits.data_ptr(), msgs.data_ptr(), plan.row_ptr.data_ptr(),
+                  out.data_ptr(), mx.data_ptr(), den.data_ptr(), n, plan.num_blocks, h, f, int(vec))
     segment_softmax_agg.launches += 1
     return out, mx, den
 
@@ -188,13 +188,3 @@ def segment_softmax_agg(logits: torch.Tensor, msgs: torch.Tensor, plan: SoftmaxA
 
 
 segment_softmax_agg.launches = 0
-
-
-def _launcher():
-    lib = build.load("segment_softmax_agg")
-    fn = lib.segment_softmax_agg_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

@@ -6,10 +6,11 @@ check them.
 Phases, each on its own line with elapsed seconds:
   1. environment: torch / CUDA versions, the card's name and power limit,
      TF32 off for matmuls and cuDNN;
-  2. build: the CUDA sources of K1 (analysisgnn_tpu_torch/csrc/
-     segment_mean_base.cu), K3 (csrc/relation_weighted_matmul.cu) and K2
-     (csrc/segment_softmax_agg.cu), one nvcc each, started together, into
-     the git-ignored analysisgnn_tpu_torch/_build/;
+  2. build: the CUDA sources of K1 and K4 (analysisgnn_tpu_torch/csrc/
+     segment_mean_base.cu), K3 (csrc/relation_weighted_matmul.cu), K2
+     (csrc/segment_softmax_agg.cu), K5 (csrc/segment_softmax.cu) and K6
+     (csrc/halo_pull.cu), one nvcc each, started together, into the
+     git-ignored analysisgnn_tpu_torch/_build/, with ptxas's registers;
   3. kernel check: K1 (segment_mean_base) against its plain PyTorch version on
      the card, at the shapes of the largest request (the fused 7-relation note
      layer and onset pooling, F=256) and at edge cases (padding ids, empty
@@ -48,8 +49,10 @@ Phases, each on its own line with elapsed seconds:
  10. K2 check: segment_softmax_agg's kernel against its plain version (value
      and the autograd gradients of logits and msgs, padding gradients exactly
      0) at the HGT train step's shape (the union softmax of one layer over a
-     train batch: 13 relation blocks, H = 4, D = 64) and at edge cases, with
-     median times of the kernel and the plain version beside the bytes bound;
+     train batch: 13 relation blocks, H = 4, D = 64; its degree statistics
+     printed) and at edge cases (an empty node, H = 3, a degree-77 node over
+     9 ranges, 40 blocks), with median times of the kernel's call, its
+     profiler device time and the plain version beside the bytes bound;
  11. HGT train: the same train step with the "HGT-emax-pallas" model of
      scripts/bench_encoders.py (HybridHGT 3 x 256 -> 128, 4 heads, K2):
      ms per step, K2 and K1 launches per step against the code's
@@ -73,12 +76,13 @@ Phases, each on its own line with elapsed seconds:
      request), one epoch of --model HGT --use_pallas (K2), and one fit epoch
      of 2 steps on the GPU against the same on the CPU (dropout 0, the same
      initial state dict);
- 14. K6 check: halo_pull (csrc/halo_pull.cu) bit-equal to its plain version
-     at the regime-2 shape (D = 4 partitions of 5,000 rows, H = 24, F = 256),
-     at D = 1, 2, 8, H = 1, H = N_local, F = 25 (the scalar loop) and on
-     non-contiguous inputs, with the wrapper's median time, the profiler's
-     device time of the kernel, the plain version and an index_select
-     yardstick beside the bytes bound;
+ 14. K6 check: halo_pull (csrc/halo_pull.cu), in the allocating form and in
+     the planned form with out= that regime 2 uses, bit-equal to its plain
+     version at the regime-2 shape (D = 4 partitions of 5,000 rows, H = 24,
+     F = 256), at D = 1, 2, 8, H = 1, H = N_local, F = 25 (the scalar loop)
+     and on non-contiguous inputs, with the median times of both forms, the
+     plain version and an index_select yardstick (timed in turns), and the
+     profiler's device time of the kernel, beside the bytes bound;
  15. partitioned serve: the serve model (phase 4's weights) on a 20,000-note
      score through 4 partitions on a line.  Regime 1, the CLI's path:
      predict_score_partitioned(ids_only=True), K1 launches per window, ms
@@ -671,20 +675,36 @@ def check_k2(name: str, logits, msgs, plan, timed: bool) -> dict:
             + f" (tol {K2_RTOL} of the sum of |terms|), padding gradients exactly 0")
     if timed:
         row["ms"] = cuda_ms(lambda: softmax_agg_forward(logits, msgs, plan))
+        row["device_ms"] = device_ms(lambda: softmax_agg_forward(logits, msgs, plan), "segment_softmax_agg_kernel")
         row["plain_ms"] = cuda_ms(lambda: segment_softmax_agg_plain(logits, msgs, plan))
         row["library_ms"] = None  # no single PyTorch call computes this function
         row["bound_ms"], row["bound_by"] = k2_bound_ms(e_valid, h, f, n)
-        line += (f" | kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms (no single PyTorch call computes "
-                 f"it), bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                 f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time)")
+        line += (f" | kernel {row['ms']:.4f} ms a call ({row['device_ms']:.4f} ms of it on the device), plain "
+                 f"{row['plain_ms']:.4f} ms (no single PyTorch call computes it), bound {row['bound_ms']:.4f} ms "
+                 f"({row['bound_by']}, {100 * row['bound_ms'] / row['device_ms']:.1f}% of the kernel's device time)")
     phase(line)
     return row
 
 
+def k2_degrees(plan) -> dict:
+    """What K2's work looks like on ``plan``'s data: each node's degree and its
+    non-empty (block, node) ranges, the counts that bound its warp's chain of
+    memory rounds."""
+    n, b = plan.num_nodes, plan.num_blocks
+    lengths = plan.row_ptr.long().view(b, n + 1).diff(dim=1)  # [B, n]: edges of node v in block b
+    deg, ranges = lengths.sum(0).double(), (lengths > 0).sum(0).double()
+    return {"mean_degree": float(deg.mean()), "max_degree": int(deg.max()), "p99_degree": float(deg.quantile(0.99)),
+            "nodes_without_edges": int((deg == 0).sum()), "mean_nonempty_ranges": float(ranges.mean()),
+            "max_nonempty_ranges": int(ranges.max())}
+
+
 def k2_checks(batch) -> list:
     """K2 at the HGT train step's shape (the union softmax of one layer over
-    ``batch``), at tests/test_pallas.py's case, and at edge cases: an empty
-    node, a node with edges in every block, a block that is all padding."""
+    ``batch``, with its degree statistics), at tests/test_pallas.py's case,
+    and at edge cases: an empty node, a node with edges in every block, a
+    block that is all padding; H = 3 (the scalar path); a node of degree 77
+    over 10 ranges (three chunks of the kernel's walk, more ranges and edges
+    than its prefetch depth); 40 blocks (the walk past 32 blocks) at H = 5."""
     from analysisgnn_tpu_torch.core.graph import metadata
     from analysisgnn_tpu_torch.kernels.softmax_agg import plan_softmax_agg
     from analysisgnn_tpu_torch.models.encoders import plan_hgt
@@ -696,17 +716,30 @@ def k2_checks(batch) -> list:
     gen = torch.Generator(device="cpu").manual_seed(3)
     h, f = 4, TRAIN_CFG["hidden_channels"]
     e = hgt.k2.node.shape[0]
+    degrees = k2_degrees(hgt.k2)
+    phase("kernel check: K2 HGT train shape data: mean degree {mean_degree:.2f}, p99 {p99_degree:.0f}, max "
+          "{max_degree}; {nodes_without_edges} nodes without edges; non-empty (block, node) ranges per node "
+          "{mean_nonempty_ranges:.2f} on average, {max_nonempty_ranges} at most".format(**degrees))
     rows = [check_k2("HGT train shape", (torch.randn(e, h, generator=gen) * 2).to(dev),
                      torch.randn(e, f, generator=gen).to(dev), hgt.k2, timed=True)]
+    rows[0]["degrees"] = degrees
+    heavy = [1, 9, 3, 17, 0, 12, 5, 20, 2, 8]  # node 7's edges in each of 10 blocks: 77 over 9 ranges
     cases = (("test_pallas.py case", 300, 4, 8, [257, 1100, 64], [0, 0, 0]),
              ("edge cases", 40, 2, 4, [30, 0, 12, 25], [3, 9, 0, 5]),
-             ("D=6 scalar path", 50, 3, 6, [70, 20], [4, 1]))
+             ("D=6 scalar path", 50, 3, 6, [70, 20], [4, 1]),
+             ("degree-77 node over 9 ranges", 50, 4, 64, [30 + k for k in heavy], [2] * 10),
+             ("40 blocks", 30, 5, 4, [6 + r % 7 for r in range(40)], [r % 3 for r in range(40)]))
     for name, n, h, d, per_block, pads in cases:
         nodes, blocks = [], []
         for r, (ne, p) in enumerate(zip(per_block, pads)):
             ids = torch.randint(0, n, (ne,), generator=gen)
             if ne and name == "edge cases":  # node 5 empty, node 0 in every block with edges
                 ids = torch.cat([torch.where(ids == 5, 6, ids)[1:], torch.zeros(1, dtype=ids.dtype)])
+            if name.startswith("degree-77"):  # 30 edges of other nodes, then node 7's share
+                ids = torch.cat([torch.where(ids[:30] == 7, 8, ids[:30]), torch.full((heavy[r],), 7)])
+            if name == "40 blocks":  # node 3 empty; node 4 only in blocks 32 and up, in each of them
+                ids = torch.where((ids == 3) | ((ids == 4) & (r < 32)), 2, ids)
+                ids = torch.cat([ids[1:], torch.full((1,), 4)]) if r >= 32 else ids
             nodes.append(torch.cat([ids.sort().values, torch.full((p,), n)]))
             blocks.append(torch.full((ne + p,), r))
         plan = plan_softmax_agg(torch.cat(nodes).to(dev), torch.cat(blocks).to(dev), n, len(per_block))
@@ -1273,21 +1306,49 @@ def k6_bound_ms(d: int, h: int, f: int) -> tuple:
     return bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def cuda_ms_turns(fns: dict, iters: int = 20, trials: int = 7) -> dict:
+    """``cuda_ms`` of several functions measured in turns (each trial times
+    every function once, in order), so that a drift of the host's speed
+    reaches them all alike; the median over trials of each."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(trials):
+        for k, fn in fns.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[k].append(start.elapsed_time(end) / iters)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def check_k6(name: str, x, halo: int, timed: bool) -> dict:
-    """K6's kernel bit-equal to its plain version (it copies); with ``timed``,
-    medians of the wrapper, the plain version and an index_select yardstick,
-    and the profiler's device time of the kernel."""
-    from analysisgnn_tpu_torch.kernels.halo import halo_pull, halo_pull_plain
+    """K6's kernel bit-equal to its plain version (it copies), in the
+    allocating form and in the planned form with ``out`` that regime 2 uses
+    (every element of a NaN-filled buffer written); with ``timed``, medians
+    of both forms, the plain version and an index_select yardstick, timed in
+    turns, and the profiler's device time of the kernel."""
+    from analysisgnn_tpu_torch.kernels.halo import HaloPlan, halo_pull, halo_pull_plain
 
     out = halo_pull(x, halo)
     ref = halo_pull_plain(x, halo)
+    plan = HaloPlan(x, halo)
+    buf = torch.full(plan.out_shape, float("nan"), device=x.device)
+    planned = halo_pull(x, halo, out=buf, plan=plan)
     torch.cuda.synchronize()
     d, n_local, f = x.shape
     if out.shape != (d, 2 * halo, f) or not torch.equal(out, ref):
         raise AssertionError(f"K6 {name}: the kernel's halos differ from the plain version's")
-    row = {"case": name, "D": d, "N_local": n_local, "H": halo, "F": f, "max_abs_err": 0.0}
+    if planned is not buf or not torch.equal(buf, ref):
+        raise AssertionError(f"K6 {name}: the planned call with out differs from the plain version")
+    row = {"case": name, "D": d, "N_local": n_local, "H": halo, "F": f, "max_abs_err": 0.0, "vec": plan.vec}
     line = (f"kernel check: K6 {name}: D={d} N_local={n_local} H={halo} F={f}"
-            + ("" if x.is_contiguous() else f" strides {x.stride()}") + ": bit-equal to the plain version")
+            + ("" if x.is_contiguous() else f" strides {x.stride()}")
+            + f" (plan: float4 {plan.vec}): both forms bit-equal to the plain version")
     if timed:
         # yardstick only, never called by the port: one index_select over the
         # flattened input with a zero row appended beforehand, by a precomputed index
@@ -1298,15 +1359,18 @@ def check_k6(name: str, x, halo: int, timed: bool) -> dict:
         index = torch.cat([left, right], dim=1).reshape(-1)
         if not torch.equal(flat.index_select(0, index).view(d, 2 * halo, f), ref):
             raise AssertionError(f"K6 {name}: the index_select yardstick computes another function")
-        row["ms"] = cuda_ms(lambda: halo_pull(x, halo))
-        row["device_ms"] = device_ms(lambda: halo_pull(x, halo), "halo_pull_kernel")
-        row["plain_ms"] = cuda_ms(lambda: halo_pull_plain(x, halo))
-        row["library_ms"] = cuda_ms(lambda: flat.index_select(0, index))
+        times = cuda_ms_turns({"ms": lambda: halo_pull(x, halo, out=buf, plan=plan),
+                               "library_ms": lambda: flat.index_select(0, index),
+                               "alloc_ms": lambda: halo_pull(x, halo),
+                               "plain_ms": lambda: halo_pull_plain(x, halo)})
+        row.update(times)
+        row["device_ms"] = device_ms(lambda: halo_pull(x, halo, out=buf, plan=plan), "halo_pull_kernel")
         row["bound_ms"], row["bound_by"] = k6_bound_ms(d, halo, f)
-        line += (f" | kernel {row['ms']:.4f} ms a call ({row['device_ms']:.4f} ms of it on the device), plain "
-                 f"{row['plain_ms']:.4f} ms, index_select yardstick {row['library_ms']:.4f} ms, bound "
-                 f"{row['bound_ms']:.5f} ms ({row['bound_by']}, {100 * row['bound_ms'] / row['device_ms']:.1f}% of "
-                 f"the kernel's device time)")
+        line += (f" | planned call with out {row['ms']:.4f} ms ({row['device_ms']:.4f} ms of it on the device), "
+                 f"index_select yardstick {row['library_ms']:.4f} ms (planned/yardstick "
+                 f"{row['ms'] / row['library_ms']:.3f}), allocating call {row['alloc_ms']:.4f} ms, plain "
+                 f"{row['plain_ms']:.4f} ms, timed in turns; bound {row['bound_ms']:.5f} ms ({row['bound_by']}, "
+                 f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of the kernel's device time)")
     phase(line)
     return row
 
@@ -1640,8 +1704,10 @@ def main() -> None:
         "bound_ms": k2_row["bound_ms"],
         "bound_by": k2_row["bound_by"],
         "library_ms": k2_row["library_ms"],
+        "device_ms": k2_row["device_ms"],
         "shape": f"{k2_row['case']}: E={k2_row['E']} (valid {k2_row['E_valid']}) H={k2_row['H']} F={k2_row['F']} "
                  f"n={k2_row['n']} blocks={k2_row['blocks']}",
+        "degrees": k2_row["degrees"],
         "trainer_launches": hgt_trainer["launches"]["launches"]["segment_softmax_agg"],
     })
     kernels[0]["trainer_launches"] = trainer["launches"]["launches"]["segment_mean_base"]
@@ -1672,8 +1738,9 @@ def main() -> None:
         "replaces": "analysisgnn_tpu/kernels/halo.py:97", "launches": partitioned["k6_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in k6_rows), "ms": k6["ms"], "plain_ms": k6["plain_ms"],
         "bound_ms": k6["bound_ms"], "bound_by": k6["bound_by"], "library_ms": k6["library_ms"],
-        "device_ms": k6["device_ms"],
-        "shape": f"{k6['case']}: D={k6['D']} N_local={k6['N_local']} H={k6['H']} F={k6['F']}",
+        "device_ms": k6["device_ms"], "alloc_ms": k6["alloc_ms"],
+        "shape": f"{k6['case']}: D={k6['D']} N_local={k6['N_local']} H={k6['H']} F={k6['F']}; ms is the planned "
+                 f"call with out, the form regime 2 uses",
         "per_forward": {d: r["k6_launches"] for d, r in partitioned["regime2"].items()},
     })
     per_step = ", ".join(f"{arm} {r['median_ms']:.2f}" for arm, r in trained.items())

@@ -36,7 +36,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
-    assert len(names) >= 52  # every module of the port and chip_smoke, the partition slice's included
+    assert len(names) >= 53  # every module of the port and chip_smoke, the launch helper's included
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
@@ -44,6 +44,7 @@ def test_every_port_module_imports_without_jax():
         "kernels.segment_sum", "kernels.segment_softmax", "data.corpus", "data.prefetch", "data.datamodule",
         "train.metrics", "train.loop", "cli.train",
         "kernels.halo", "distributed", "distributed.partition", "distributed.partition_encoder",
+        "kernels.launch",
     )} <= names
 
 
@@ -54,10 +55,10 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 53 and {
+    assert len(files) >= 54 and {
         "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
         "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
-        "halo.py", "partition.py", "partition_encoder.py",
+        "halo.py", "partition.py", "partition_encoder.py", "launch.py",
     } <= {f.name for f in files}
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
     assert not offenders, offenders
