@@ -14,7 +14,7 @@
 // F = G = 256, T = 7) each computes 2*T*N*F*G = 4.93 GFLOP and moves about
 // 13 MB (4 us at 3.35 TB/s).
 //
-// Forward, dx and dw run on the tensor cores in three TF32 passes at f32
+// All four run on the tensor cores in three TF32 passes at f32
 // accuracy: each f32 operand is split as v = hi + lo with hi = tf32(v) and
 // lo = tf32(v - hi), both rounded to nearest as cvt.rna does, and every
 // product is lo*hi + hi*lo + hi*hi accumulated in f32 (the two small terms
@@ -28,7 +28,7 @@
 // swizzle that the wgmma descriptors name.  Every tensor-core block is two
 // warpgroups that stage together and each run their own 64 rows.
 //
-//   * Forward / dx (rwm_tc_forward_kernel<B_KMAJOR, WIDTH>): a block owns a
+//   * Forward / dx (rwm_tc_forward_kernel<B_KMAJOR, false, WIDTH>): a block owns a
 //     128 x WIDTH tile of out.  Its 128 rows of x are split into shared memory
 //     once, a panel of 128 K at a time, and reused for every relation, as the
 //     TPU kernel keeps x in VMEM; the [T, N, G] intermediate never exists.
@@ -51,10 +51,16 @@
 //     block writes its partial [F, G] tile into a scratch [S, T, F, G], and
 //     rwm_sum_splits_kernel adds the S partials in a fixed order: no atomics,
 //     the same bits on every run.
-//   * d alpha (rwm_dalpha_kernel) has no launch on the model's path (alpha
-//     carries no gradient there) and stays plain f32 FMAs on the SIMT cores:
-//     each block owns 64 rows n of one relation t, recomputes (x @ w[t])
-//     tile by tile over G and dots it with gout in registers.
+//   * d alpha (rwm_tc_forward_kernel<false, true, WIDTH>) is the forward's
+//     mainloop with another epilogue: each thread holds the values of gout at
+//     its accumulator's positions in the registers where the forward keeps
+//     its output, and after a relation's K loop over a panel it dots its
+//     accumulator fragment with them, row by row; quad shuffles sum the 4
+//     lanes that share a row.  A block sees WIDTH of G's columns and one
+//     panel of F at a time, so each (column tile, panel) writes its partial
+//     [T, N] into a scratch [S, T, N], and rwm_sum_splits_kernel adds the S
+//     partials in a fixed order: no atomics, the same bits on every run.  It
+//     has no launch on the model's path (alpha carries no gradient there).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -388,10 +394,14 @@ struct FwdTile {
 // or, with B_KMAJOR, [NC, K] row-major (dx: w[t] with NC = F, K = G).  Both
 // warpgroups stage every chunk of B; warpgroup h multiplies rows 64h .. 64h+63
 // of the block's A panel with it.
-template <bool B_KMAJOR, int WIDTH>
+// With DALPHA, `side` is gout [M, NC] in place of alpha, and `out` is the
+// partials [S, T, M]: out[s, t, m] = sum over the block's columns of
+// (a @ B_t)[m, :] * gout[m, :] over panel p's K, s = blockIdx.y * panels + p.
+template <bool B_KMAJOR, bool DALPHA, int WIDTH>
 __global__ void __launch_bounds__(NT, 1)
-rwm_tc_forward_kernel(const float* __restrict__ a, const float* __restrict__ w, const float* __restrict__ alpha,
+rwm_tc_forward_kernel(const float* __restrict__ a, const float* __restrict__ w, const float* __restrict__ side,
                       float* __restrict__ out, int64_t M, int K, int NC, int T) {
+  static_assert(!(B_KMAJOR && DALPHA), "d alpha reads w[t] as stored, [F, G]");
   constexpr int CONV = FwdTile<WIDTH>::CONV, RAW = FwdTile<WIDTH>::RAW, FB_TILE = FwdTile<WIDTH>::B;
   extern __shared__ unsigned char smem_bytes[];
   const int nkb = (int)cdiv(K, TBK), panel = nkb < PANEL ? nkb : PANEL;
@@ -429,6 +439,7 @@ rwm_tc_forward_kernel(const float* __restrict__ a, const float* __restrict__ w, 
     else split_mn<WIDTH>(src, b_hi + s, b_lo + s, nullptr, tid);
   };
 
+  // res: the output tile (forward, dx), or gout at the accumulator's positions (d alpha)
   float acc[WIDTH / 2], res[WIDTH / 2];
   zero(res);
   zero(acc);
@@ -445,12 +456,23 @@ rwm_tc_forward_kernel(const float* __restrict__ a, const float* __restrict__ w, 
   }
   const int warp = wtid / 32, lane = wtid % 32;
   const int64_t r0 = m0 + half * TBM + warp * 16 + lane / 4, r1 = r0 + 8;
+  if (DALPHA) {
+#pragma unroll
+    for (int j = 0; j < WIDTH / 8; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      res[4 * j] = r0 < M && col < NC ? __ldg(side + r0 * NC + col) : 0.f;
+      res[4 * j + 1] = r0 < M && col + 1 < NC ? __ldg(side + r0 * NC + col + 1) : 0.f;
+      res[4 * j + 2] = r1 < M && col < NC ? __ldg(side + r1 * NC + col) : 0.f;
+      res[4 * j + 3] = r1 < M && col + 1 < NC ? __ldg(side + r1 * NC + col + 1) : 0.f;
+    }
+  }
+  const int panels = panel > 0 ? (int)cdiv(nkb, panel) : 0;
   int c = 0;
   for (int kb0 = 0; kb0 < nkb; kb0 += panel) {
     const int width = nkb - kb0 < panel ? nkb - kb0 : panel;
     for (int t = 0; t < T; ++t) {
-      const float a0 = r0 < M ? __ldg(alpha + (int64_t)t * M + r0) : 0.f;
-      const float a1 = r1 < M ? __ldg(alpha + (int64_t)t * M + r1) : 0.f;
+      const float a0 = !DALPHA && r0 < M ? __ldg(side + (int64_t)t * M + r0) : 0.f;
+      const float a1 = !DALPHA && r1 < M ? __ldg(side + (int64_t)t * M + r1) : 0.f;
       for (int kc = 0; kc < width; ++kc, ++c) {
         const int s = (c % CONV) * FB_TILE;
         wgmma_fence();
@@ -476,20 +498,42 @@ rwm_tc_forward_kernel(const float* __restrict__ a, const float* __restrict__ w, 
           copy_chunk(c + 1 + RAW);
         }
       }
-      // the relation's K loop over this panel is done: res += alpha[t] (.) acc
+      // the relation's K loop over this panel is done
       wgmma_wait<0>();
       pin(acc);
+      if (DALPHA) {
+        // out[s, t, row] = <acc[row, :], gout[row, :]>: this thread's columns in
+        // ascending j, then the quad's 4 lanes (xor 1, then xor 2)
+        float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < WIDTH / 8; ++j) {
-        res[4 * j] = fmaf(a0, acc[4 * j], res[4 * j]);
-        res[4 * j + 1] = fmaf(a0, acc[4 * j + 1], res[4 * j + 1]);
-        res[4 * j + 2] = fmaf(a1, acc[4 * j + 2], res[4 * j + 2]);
-        res[4 * j + 3] = fmaf(a1, acc[4 * j + 3], res[4 * j + 3]);
+        for (int j = 0; j < WIDTH / 8; ++j) {
+          d0 = fmaf(acc[4 * j], res[4 * j], d0);
+          d0 = fmaf(acc[4 * j + 1], res[4 * j + 1], d0);
+          d1 = fmaf(acc[4 * j + 2], res[4 * j + 2], d1);
+          d1 = fmaf(acc[4 * j + 3], res[4 * j + 3], d1);
+        }
+        d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+        d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+        d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+        d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+        float* part = out + ((int64_t)(blockIdx.y * panels + kb0 / panel) * T + t) * M;
+        if (lane % 4 == 0) {
+          if (r0 < M) part[r0] = d0;
+          if (r1 < M) part[r1] = d1;
+        }
+      } else {  // res += alpha[t] (.) acc
+#pragma unroll
+        for (int j = 0; j < WIDTH / 8; ++j) {
+          res[4 * j] = fmaf(a0, acc[4 * j], res[4 * j]);
+          res[4 * j + 1] = fmaf(a0, acc[4 * j + 1], res[4 * j + 1]);
+          res[4 * j + 2] = fmaf(a1, acc[4 * j + 2], res[4 * j + 2]);
+          res[4 * j + 3] = fmaf(a1, acc[4 * j + 3], res[4 * j + 3]);
+        }
       }
       pin(acc);
     }
   }
-  store_tile(out, res, M, NC, m0 + half * TBM, n0, wtid);
+  if (!DALPHA) store_tile(out, res, M, NC, m0 + half * TBM, n0, wtid);
 }
 
 constexpr size_t DW_SMEM_BYTES =
@@ -582,121 +626,16 @@ __global__ void rwm_sum_splits_kernel(const float* __restrict__ part, float* __r
   }
 }
 
-// ------------------------------------------------------------------ d alpha (SIMT)
-
-constexpr int BM = 64;   // rows of the output tile
-constexpr int BN = 64;   // columns of the output tile
-constexpr int BK = 16;   // depth of one shared-memory chunk
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int APAD = 4;  // keeps float4 alignment and spreads the A stores over banks
-
-struct Tiles {
-  float a[BK][BM + APAD];  // a[k][m]
-  float b[BK][BN];         // b[k][n]
-};
-
-// acc[i][j] += sum_k a[k][ty*TM + i] * b[k][tx*TN + j]
-__device__ __forceinline__ void fma_chunk(const Tiles& s, float (&acc)[TM][TN], int ty, int tx) {
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(&s.a[k][ty * TM]);
-    const float4 bv = *reinterpret_cast<const float4*>(&s.b[k][tx * TN]);
-    const float ar[TM] = {av.x, av.y, av.z, av.w};
-    const float br[TN] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
-
-// a[k][m] = src[(m0+m)*ld + k0+k], zero outside m < m_lim, k < k_lim.
-// Consecutive threads read consecutive k of one row (the contiguous axis).
-__device__ __forceinline__ void stage_a_rows(Tiles& s, const float* __restrict__ src, int64_t m0, int64_t m_lim,
-                                             int k0, int k_lim, int ld, int tid) {
-#pragma unroll
-  for (int idx = tid; idx < BM * BK; idx += THREADS) {
-    const int m = idx / BK, k = idx % BK;
-    const int64_t gm = m0 + m;
-    const int gk = k0 + k;
-    s.a[k][m] = (gm < m_lim && gk < k_lim) ? __ldg(src + gm * ld + gk) : 0.f;
-  }
-}
-
-// b[k][n] = src[(k0+k)*ld + n0+n], zero outside k < k_lim, n < n_lim.
-__device__ __forceinline__ void stage_b(Tiles& s, const float* __restrict__ src, int64_t k0,
-                                        int64_t k_lim, int n0, int n_lim, int ld, int tid) {
-#pragma unroll
-  for (int idx = tid; idx < BK * BN; idx += THREADS) {
-    const int k = idx / BN, n = idx % BN;
-    const int64_t gk = k0 + k;
-    const int gn = n0 + n;
-    s.b[k][n] = (gk < k_lim && gn < n_lim) ? __ldg(src + gk * ld + gn) : 0.f;
-  }
-}
-
-// da [T, N]: da[t, n] = <(x @ w[t])[n], gout[n]>; grid (ceil(N/BM), T).
-__global__ void __launch_bounds__(THREADS)
-rwm_dalpha_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ gout, float* __restrict__ da,
-                  int64_t N, int F, int G) {
-  __shared__ __align__(16) Tiles s;
-  const int tid = threadIdx.x, ty = tid / (BN / TN), tx = tid % (BN / TN);
-  const int64_t n0 = (int64_t)blockIdx.x * BM;
-  const int t = blockIdx.y;
-  const float* wt = w + (int64_t)t * F * G;
-  float dot[TM] = {0.f, 0.f, 0.f, 0.f};
-  for (int g0 = 0; g0 < G; g0 += BN) {
-    float acc[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-    for (int f0 = 0; f0 < F; f0 += BK) {
-      stage_a_rows(s, x, n0, N, f0, F, F, tid);
-      stage_b(s, wt, f0, F, g0, G, G, tid);
-      __syncthreads();
-      fma_chunk(s, acc, ty, tx);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int64_t n = n0 + ty * TM + i;
-      if (n >= N) continue;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int g = g0 + tx * TN + j;
-        if (g < G) dot[i] = fmaf(acc[i][j], __ldg(gout + n * G + g), dot[i]);
-      }
-    }
-  }
-  // the BN / TN = 16 threads sharing ty are 16 consecutive lanes of one warp
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int off = (BN / TN) / 2; off > 0; off >>= 1) dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
-  }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int64_t n = n0 + ty * TM + i;
-      if (n < N) da[(int64_t)t * N + n] = dot[i];
-    }
-  }
-}
-
-template <bool B_KMAJOR, int WIDTH>
-int forward_launch_bn(const float* a, const float* w, const float* alpha, float* out, long long M, int K, int NC,
+template <bool B_KMAJOR, bool DALPHA, int WIDTH>
+int forward_launch_bn(const float* a, const float* w, const float* side, float* out, long long M, int K, int NC,
                       int T, cudaStream_t stream) {
   const int nkb = (int)cdiv(K, TBK);
   const size_t smem = FwdTile<WIDTH>::smem_bytes(nkb < PANEL ? nkb : PANEL);
-  cudaError_t err = cudaFuncSetAttribute(rwm_tc_forward_kernel<B_KMAJOR, WIDTH>,
+  cudaError_t err = cudaFuncSetAttribute(rwm_tc_forward_kernel<B_KMAJOR, DALPHA, WIDTH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(cdiv(M, FWD_BM), cdiv(NC, WIDTH));
-  rwm_tc_forward_kernel<B_KMAJOR, WIDTH><<<grid, NT, smem, stream>>>(a, w, alpha, out, M, K, NC, T);
+  rwm_tc_forward_kernel<B_KMAJOR, DALPHA, WIDTH><<<grid, NT, smem, stream>>>(a, w, side, out, M, K, NC, T);
   return (int)cudaGetLastError();
 }
 
@@ -731,16 +670,21 @@ int pick_width(long long M, int NC) {
   return widths[best];
 }
 
-template <bool B_KMAJOR>
-int forward_launch(const float* a, const float* w, const float* alpha, float* out, long long M, int K, int NC, int T,
-                   void* stream) {
-  if (M <= 0 || NC <= 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+template <bool B_KMAJOR, bool DALPHA = false>
+int forward_launch(const float* a, const float* w, const float* side, float* out, long long M, int K, int NC, int T,
+                   cudaStream_t st) {
   switch (pick_width(M, NC)) {
-    case 128: return forward_launch_bn<B_KMAJOR, 128>(a, w, alpha, out, M, K, NC, T, st);
-    case 96: return forward_launch_bn<B_KMAJOR, 96>(a, w, alpha, out, M, K, NC, T, st);
-    default: return forward_launch_bn<B_KMAJOR, 64>(a, w, alpha, out, M, K, NC, T, st);
+    case 128: return forward_launch_bn<B_KMAJOR, DALPHA, 128>(a, w, side, out, M, K, NC, T, st);
+    case 96: return forward_launch_bn<B_KMAJOR, DALPHA, 96>(a, w, side, out, M, K, NC, T, st);
+    default: return forward_launch_bn<B_KMAJOR, DALPHA, 64>(a, w, side, out, M, K, NC, T, st);
   }
+}
+
+// out[i] = sum_s part[s, i] over `count` elements, s ascending
+int sum_splits(const float* part, float* out, long long count, int S, cudaStream_t st) {
+  const unsigned blocks = cdiv(count, 256) < 1024u ? cdiv(count, 256) : 1024u;
+  rwm_sum_splits_kernel<<<blocks, 256, 0, st>>>(part, out, count, S);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -750,13 +694,15 @@ int forward_launch(const float* a, const float* w, const float* alpha, float* ou
 
 extern "C" int rwm_forward_launch(const float* x, const float* w, const float* alpha, float* out,
                                   long long N, int F, int G, int T, void* stream) {
-  return forward_launch<false>(x, w, alpha, out, N, F, G, T, stream);
+  if (N <= 0 || G <= 0) return (int)cudaSuccess;
+  return forward_launch<false>(x, w, alpha, out, N, F, G, T, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // dx [N, F] from gout [N, G], w [T, F, G], alpha [T, N]
 extern "C" int rwm_dx_launch(const float* gout, const float* w, const float* alpha, float* dx,
                              long long N, int F, int G, int T, void* stream) {
-  return forward_launch<true>(gout, w, alpha, dx, N, G, F, T, stream);
+  if (N <= 0 || F <= 0) return (int)cudaSuccess;
+  return forward_launch<true>(gout, w, alpha, dx, N, G, F, T, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The number of N ranges S that rwm_dw_launch cuts the rows into: as many as
@@ -783,17 +729,26 @@ extern "C" int rwm_dw_launch(const float* x, const float* gout, const float* alp
   rwm_tc_dw_kernel<<<grid, NT, DW_SMEM_BYTES, st>>>(x, gout, alpha, S > 1 ? partial : dw, N, F, G, T, S);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return (int)err;
-  const long long count = (long long)T * F * G;
-  const unsigned blocks = cdiv(count, 256) < 1024u ? cdiv(count, 256) : 1024u;
-  rwm_sum_splits_kernel<<<blocks, 256, 0, st>>>(partial, dw, count, S);
-  return (int)cudaGetLastError();
+  return sum_splits(partial, dw, (long long)T * F * G, S, st);
 }
 
-extern "C" int rwm_dalpha_launch(const float* x, const float* w, const float* gout, float* da,
-                                 long long N, int F, int G, int T, void* stream) {
+// The number of partials S of d alpha: one per (column tile, panel of F)
+// of the forward's grid on the current device.
+extern "C" int rwm_dalpha_splits(long long N, int F, int G) {
+  if (N <= 0 || F <= 0 || G <= 0) return 1;
+  const int nkb = (int)cdiv(F, TBK);
+  return (int)(cdiv(G, pick_width(N, G)) * cdiv(nkb, nkb < PANEL ? nkb : PANEL));
+}
+
+// da [T, N] from x [N, F], w [T, F, G], gout [N, G]; `partial` is scratch of
+// S*T*N floats when S = rwm_dalpha_splits(N, F, G) > 1 (unused when S == 1)
+extern "C" int rwm_dalpha_launch(const float* x, const float* w, const float* gout, float* da, float* partial,
+                                 long long N, int F, int G, int T, int S, void* stream) {
   if (N <= 0 || T <= 0) return (int)cudaSuccess;
-  const dim3 grid(cdiv(N, BM), (unsigned)T);
-  rwm_dalpha_kernel<<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      x, w, gout, da, N, F, G);
-  return (int)cudaGetLastError();
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (G <= 0 || F <= 0) return (int)cudaMemsetAsync(da, 0, sizeof(float) * T * N, st);
+  if (S != rwm_dalpha_splits(N, F, G)) return (int)cudaErrorInvalidValue;
+  const int err = forward_launch<false, true>(x, w, gout, S > 1 ? partial : da, N, F, G, T, st);
+  if (err != (int)cudaSuccess || S == 1) return err;
+  return sum_splits(partial, da, (long long)T * N, S, st);
 }

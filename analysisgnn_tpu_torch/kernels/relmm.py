@@ -9,16 +9,18 @@ loaded with ctypes (``kernels/build.py``).  It is the base term of the
 edge-layout fused SAGE (``models/fused.py``, ``conv_impl="edge-zxp"``).
 
 Backward: ``dx`` is the forward kernel reading ``w`` as ``w^T`` (no copy);
-``dw[t] = (alpha_t * x)^T g`` and ``d alpha[t, n] = <x[n] @ w[t], g[n]>``
-have kernels of their own.  Each kernel launches only when autograd asks for
-its gradient.
+``d alpha[t, n] = <x[n] @ w[t], g[n]>`` is the forward kernel's mainloop with
+the dot against ``g`` in its epilogue; ``dw[t] = (alpha_t * x)^T g`` has a
+kernel of its own.  Each kernel launches only when autograd asks for its
+gradient.
 
-The forward, dx and dw kernels run on Hopper's tensor cores in three TF32
-passes (each f32 operand split into a TF32 ``hi`` and ``lo``; ``hi*lo + lo*hi
-+ hi*hi`` summed in f32), which keeps f32 accuracy; d alpha, off the model's
-path, stays f32 FMAs on the SIMT cores.  No global TF32 flag is read or set.
-dw cuts N into :func:`dw_splits` ranges and sums their partials in a fixed
-order, in a scratch buffer the wrapper allocates: the same bits on every run.
+All four run on Hopper's tensor cores in three TF32 passes (each f32 operand
+split into a TF32 ``hi`` and ``lo``; ``hi*lo + lo*hi + hi*hi`` summed in
+f32), which keeps f32 accuracy.  No global TF32 flag is read or set.  dw cuts
+N into :func:`dw_splits` ranges, and d alpha writes one partial per column
+tile and panel of F (:func:`dalpha_splits`); each sums its partials in a
+fixed order, in a scratch buffer the wrapper allocates: the same bits on
+every run.
 
 Bound on the H100: operations (``2*T*N*F*G`` multiply-adds per kernel, three
 times over on the tensor cores, against a few tens of MB moved).
@@ -33,9 +35,14 @@ import ctypes
 
 import torch
 
-from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels import launch
 
 _NAME = "relation_weighted_matmul"
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# rwm_forward_launch / rwm_dx_launch: a, w, alpha, out, N, F, G, T, stream
+_MM_ARGS = [_P] * 4 + [_I64, _I32, _I32, _I32, _P]
+# rwm_dw_launch / rwm_dalpha_launch: a, b, c, out, scratch, N, F, G, T, S, stream
+_SPLIT_ARGS = [_P] * 5 + [_I64, _I32, _I32, _I32, _I32, _P]
 
 
 def relation_weighted_matmul_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -56,42 +63,34 @@ def _check(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> None:
         raise ValueError("x, w and alpha must be on one device")
 
 
-def _launcher():
-    lib = build.load(_NAME)
-    if lib.rwm_forward_launch.argtypes is None:
-        p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        for fn in (lib.rwm_forward_launch, lib.rwm_dx_launch, lib.rwm_dalpha_launch):
-            fn.argtypes = [p, p, p, p, n, i, i, i, p]
-            fn.restype = ctypes.c_int
-        lib.rwm_dw_launch.argtypes = [p, p, p, p, p, n, i, i, i, i, p]
-        lib.rwm_dw_launch.restype = ctypes.c_int
-        lib.rwm_dw_splits.argtypes = [n, i, i, i]
-        lib.rwm_dw_splits.restype = ctypes.c_int
-    return lib
-
-
 def dw_splits(n: int, f: int, g: int, t: int) -> int:
     """The number of row ranges the dw kernel cuts N into on the current
     device (its partials are summed by a second kernel when it is over 1)."""
-    return _launcher().rwm_dw_splits(n, f, g, t)
+    return launch.bind(_NAME, "rwm_dw_splits", [_I64, _I32, _I32, _I32])(n, f, g, t)
 
 
-def _launch(fn_name: str, out_shape, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, n: int, f: int, g: int, t: int):
-    """Launch one of the kernels on the current stream into a fresh output."""
+def dalpha_splits(n: int, f: int, g: int) -> int:
+    """The number of partials of d alpha on the current device: one per
+    column tile and panel of F of the forward kernel's grid (summed by a
+    second kernel when it is over 1)."""
+    return launch.bind(_NAME, "rwm_dalpha_splits", [_I64, _I32, _I32])(n, f, g)
+
+
+def _launch(symbol: str, out_shape, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, n: int, f: int, g: int,
+            t: int, splits: int = 0):
+    """Launch one of the kernels on the current stream into a fresh output;
+    with ``splits``, into a scratch of that many partials summed in a fixed
+    order (none when it is 1)."""
     a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
-    with torch.cuda.device(a.device):
-        out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        lib = _launcher()
-        if fn_name == "rwm_dw_launch":  # N cut into ranges, their partials summed in a scratch buffer
-            splits = dw_splits(n, f, g, t)
-            scratch = torch.empty((splits, *out_shape) if splits > 1 else (0,), dtype=torch.float32, device=a.device)
-            rc = lib.rwm_dw_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                                   n, f, g, t, splits, stream)
-        else:
-            rc = getattr(lib, fn_name)(a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), n, f, g, t, stream)
-    if rc != 0:
-        raise RuntimeError(f"{_NAME} kernel {fn_name} failed to launch: cudaError {rc}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=a.device)
+    if splits:
+        fn = launch.bind(_NAME, symbol, _SPLIT_ARGS)
+        scratch = torch.empty((splits, *out_shape) if splits > 1 else (0,), dtype=torch.float32, device=a.device)
+        launch.launch(fn, a.get_device(), a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), n, f, g, t, splits)
+    else:
+        fn = launch.bind(_NAME, symbol, _MM_ARGS)
+        launch.launch(fn, a.get_device(), a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(), n, f, g, t)
     return out
 
 
@@ -117,7 +116,7 @@ def rwm_dw(x: torch.Tensor, gout: torch.Tensor, alpha: torch.Tensor) -> torch.Te
     """``dw [T, F, G]``."""
     n, f = x.shape
     t, g = alpha.shape[0], gout.shape[1]
-    out = _launch("rwm_dw_launch", (t, f, g), x, gout, alpha, n, f, g, t)
+    out = _launch("rwm_dw_launch", (t, f, g), x, gout, alpha, n, f, g, t, dw_splits(n, f, g, t))
     relation_weighted_matmul.dw_launches += 1
     return out
 
@@ -126,7 +125,7 @@ def rwm_dalpha(x: torch.Tensor, w: torch.Tensor, gout: torch.Tensor) -> torch.Te
     """``d alpha [T, N]``."""
     n, f = x.shape
     t, _, g = w.shape
-    out = _launch("rwm_dalpha_launch", (t, n), x, w, gout, n, f, g, t)
+    out = _launch("rwm_dalpha_launch", (t, n), x, w, gout, n, f, g, t, dalpha_splits(n, f, g))
     relation_weighted_matmul.dalpha_launches += 1
     return out
 

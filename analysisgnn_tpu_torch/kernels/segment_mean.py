@@ -13,7 +13,9 @@ padding and drop, as negative ids do.  The counts are returned too.
 Bound on the H100: bytes.  It reads ``E*F*4 + E*4 + m*F*4`` bytes and writes
 ``S*F*4 + S*4``, with about one add per message element.  The kernel reads
 each message once, walks contiguous edge ranges from CSR row pointers with
-16-byte loads, and writes each output row once, with no atomics.
+16-byte loads, and writes each output row once, with no atomics.  A
+:class:`SegmentPlan` carries the row pointers, built once per graph; a call
+without them builds them from the ids (``torch.searchsorted``).
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.  Either way the result carries gradients
@@ -26,12 +28,16 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels import launch
 from analysisgnn_tpu_torch.kernels.segment_ops import dummy_row_ids, segment_count, segment_sum
+
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# segment_mean_base_launch: msgs, row_ptr, x_base, out, counts, S, m, F, vec, stream
+_ARGTYPES = [_P] * 5 + [_I64, _I64, _I32, _I32, _P]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,15 +49,25 @@ class SegmentPlan:
     seg: torch.Tensor  # [E] int32: ascending segment ids, padding = num_segments
     num_segments: int
     base_rows: int  # m: segment s takes the base row s mod m
+    row_ptr: torch.Tensor  # [num_segments + 1] int32: the first sorted edge of each segment, then E's bound
+
+
+def row_pointers(seg_sorted: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``[num_segments + 1]`` int32 CSR row pointers of ascending ids: the
+    kernel's segment ``s`` is the edges ``row_ptr[s] .. row_ptr[s + 1]``."""
+    bounds = torch.arange(num_segments + 1, dtype=seg_sorted.dtype, device=seg_sorted.device)
+    return torch.searchsorted(seg_sorted, bounds, out_int32=True)
 
 
 def plan_segments(seg: torch.Tensor, gather: torch.Tensor, num_segments: int, base_rows: int) -> SegmentPlan:
     order = torch.argsort(seg, stable=True)
+    seg_sorted = seg[order].to(torch.int32).contiguous()
     return SegmentPlan(
         gather=gather[order].long().contiguous(),
-        seg=seg[order].to(torch.int32).contiguous(),
+        seg=seg_sorted,
         num_segments=num_segments,
         base_rows=base_rows,
+        row_ptr=row_pointers(seg_sorted, num_segments),
     )
 
 
@@ -66,7 +82,8 @@ def spread_rows(num_edges: int, num_rows: int, device) -> torch.Tensor:
 
 def aggregate(plan: SegmentPlan, rows: torch.Tensor, x_base: torch.Tensor) -> torch.Tensor:
     """Gather each sorted edge's message from ``rows`` and reduce it."""
-    out, _ = segment_mean_base(rows.index_select(0, plan.gather), plan.seg, x_base, plan.num_segments)
+    msgs = rows.index_select(0, plan.gather)
+    out, _ = segment_mean_base(msgs, plan.seg, x_base, plan.num_segments, plan.row_ptr)
     return out
 
 
@@ -80,7 +97,7 @@ def segment_mean_base_plain(
     return (base + sums) / counts.clamp_min(1.0)[:, None], counts
 
 
-def _check(msgs, seg_sorted, x_base, num_segments) -> None:
+def _check(msgs, seg_sorted, x_base, num_segments, row_ptr) -> None:
     if msgs.dtype != torch.float32 or x_base.dtype != torch.float32:
         raise TypeError(f"msgs and x_base must be float32, got {msgs.dtype} and {x_base.dtype}")
     if seg_sorted.dtype != torch.int32:
@@ -96,24 +113,22 @@ def _check(msgs, seg_sorted, x_base, num_segments) -> None:
         raise ValueError("msgs, seg_sorted and x_base must be on one device")
     if not (msgs.is_contiguous() and seg_sorted.is_contiguous() and x_base.is_contiguous()):
         raise ValueError("msgs, seg_sorted and x_base must be contiguous")
+    if row_ptr is not None and (row_ptr.dtype != torch.int32 or tuple(row_ptr.shape) != (num_segments + 1,)
+                                or row_ptr.device != seg_sorted.device or not row_ptr.is_contiguous()):
+        raise ValueError(f"row_ptr must be contiguous int32 [{num_segments + 1}] on {seg_sorted.device}, got "
+                         f"{row_ptr.dtype} {tuple(row_ptr.shape)} on {row_ptr.device}")
 
 
-def _launch(msgs, seg_sorted, x_base, num_segments):
-    lib = _launcher()
+def _launch(msgs, seg_sorted, x_base, num_segments, row_ptr):
     f = msgs.shape[1]
-    with torch.cuda.device(msgs.device):
-        bounds = torch.arange(num_segments + 1, dtype=torch.int32, device=msgs.device)
-        row_ptr = torch.searchsorted(seg_sorted, bounds, out_int32=True)
-        out = torch.empty((num_segments, f), dtype=torch.float32, device=msgs.device)
-        counts = torch.empty(num_segments, dtype=torch.float32, device=msgs.device)
-        vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, x_base, out))
-        stream = torch.cuda.current_stream(msgs.device).cuda_stream
-        rc = lib.segment_mean_base_launch(
-            msgs.data_ptr(), row_ptr.data_ptr(), x_base.data_ptr(), out.data_ptr(),
-            counts.data_ptr(), num_segments, x_base.shape[0], f, int(vec), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"segment_mean_base kernel launch failed: cudaError {rc}")
+    if row_ptr is None:
+        row_ptr = row_pointers(seg_sorted, num_segments)
+    out = torch.empty((num_segments, f), dtype=torch.float32, device=msgs.device)
+    counts = torch.empty(num_segments, dtype=torch.float32, device=msgs.device)
+    vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, x_base, out))
+    fn = launch.bind("segment_mean_base", "segment_mean_base_launch", _ARGTYPES)
+    launch.launch(fn, msgs.get_device(), msgs.data_ptr(), row_ptr.data_ptr(), x_base.data_ptr(), out.data_ptr(),
+                  counts.data_ptr(), num_segments, x_base.shape[0], f, int(vec))
     segment_mean_base.launches += 1
     return out, counts
 
@@ -126,11 +141,11 @@ class _SegmentMeanBase(torch.autograd.Function):
     get a zero gradient."""
 
     @staticmethod
-    def forward(ctx, msgs, seg_sorted, x_base, num_segments):
+    def forward(ctx, msgs, seg_sorted, x_base, num_segments, row_ptr):
         if msgs.device.type == "cpu":
             out, counts = segment_mean_base_plain(msgs, seg_sorted, x_base, num_segments)
         else:
-            out, counts = _launch(msgs, seg_sorted, x_base, num_segments)
+            out, counts = _launch(msgs, seg_sorted, x_base, num_segments, row_ptr)
         ctx.save_for_backward(seg_sorted, counts)
         ctx.num_segments, ctx.base_rows = num_segments, x_base.shape[0]
         ctx.mark_non_differentiable(counts)
@@ -147,29 +162,22 @@ class _SegmentMeanBase(torch.autograd.Function):
             d_msgs = padded[dummy_row_ids(seg, ctx.num_segments)]
         if ctx.needs_input_grad[2]:
             d_base = gd.view(-1, ctx.base_rows, gd.shape[1]).sum(0)
-        return d_msgs, None, d_base, None
+        return d_msgs, None, d_base, None, None
 
 
 def segment_mean_base(
-    msgs: torch.Tensor, seg_sorted: torch.Tensor, x_base: torch.Tensor, num_segments: int
+    msgs: torch.Tensor, seg_sorted: torch.Tensor, x_base: torch.Tensor, num_segments: int,
+    row_ptr: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [S, F], counts [S])`` for ascending ``seg_sorted``; see the module
-    docstring.  Differentiable in ``msgs`` and ``x_base`` on both devices.
+    docstring.  ``row_ptr``, ``row_pointers(seg_sorted, num_segments)`` when
+    given (a :class:`SegmentPlan`'s), spares the kernel's call building them.
+    Differentiable in ``msgs`` and ``x_base`` on both devices.
     ``segment_mean_base.launches`` counts kernel launches."""
-    _check(msgs, seg_sorted, x_base, num_segments)
+    _check(msgs, seg_sorted, x_base, num_segments, row_ptr)
     if msgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"segment_mean_base runs on cpu or cuda tensors, got {msgs.device}")
-    return _SegmentMeanBase.apply(msgs, seg_sorted, x_base, num_segments)
+    return _SegmentMeanBase.apply(msgs, seg_sorted, x_base, num_segments, row_ptr)
 
 
 segment_mean_base.launches = 0
-
-
-def _launcher():
-    lib = build.load("segment_mean_base")
-    fn = lib.segment_mean_base_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

@@ -20,14 +20,20 @@ beyond it.  (The XLA ``segment_softmax`` of the JAX package differs there:
 it drops such ids from the max and the sum.)
 
 The TPU function takes ``tile_offsets`` (edge offsets of 256-node tiles, a
-device of the TPU layout); this wrapper accepts and ignores it, and builds
-CSR row pointers, one per node, with ``torch.searchsorted``.
+device of the TPU layout); this wrapper accepts and ignores it.  The kernel
+finds the runs in ``dst_sorted`` itself, so ``num_nodes`` is checked and
+otherwise unused on the card, as by the plain version.
 
-Bound on the H100: bytes (``E*H*4 + E*4`` in, ``E*H*4`` out).  One warp per
-destination walks its contiguous range three times (max, exp-sum, write),
-its lanes across (edge, head) pairs, and writes only its own edges: the TPU
-kernel's pass 3 rewrote chunks that overlap neighbouring tiles, which only
-its sequential grid made safe.
+Bound on the H100: bytes (``E*H*4 + E*4`` in, ``E*H*4`` out).  One launch a
+call: each warp owns the runs that start in a slice of 32 edges and reads
+the logits of those runs once, into registers across a window of 64 edges
+(the last run's tail in the next slice), the lanes across (chunk, head);
+a run's max and sum are segmented reductions in registers and shuffles; a
+run longer than the window takes an online max and sum and one more read.
+Each output is written by one warp, with no atomics: the TPU kernel's pass
+3 rewrote chunks that overlap neighbouring tiles, which only its sequential
+grid made safe.  The wrapper converts the ids only when they are not int32
+and contiguous already (one more kernel).
 
 The JAX function is forward-only (no ``custom_vjp``), and so is this one:
 logits that require a gradient are refused.  On a CPU tensor the wrapper
@@ -42,10 +48,12 @@ from typing import Optional
 
 import torch
 
-from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels import launch
 from analysisgnn_tpu_torch.kernels.segment_ops import segment_max
 
 DEN_FLOOR = 1e-16  # the TPU kernel's floor of the denominator
+# segment_softmax_launch: logits, dst, out, E, H, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
 
 
 def run_ids(dst_sorted: torch.Tensor) -> torch.Tensor:
@@ -86,21 +94,17 @@ def _check(logits: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> No
                          f"{dst_sorted.device}")
 
 
-def _launch(logits: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    lib = _launcher()
+def _launch(logits: torch.Tensor, dst_sorted: torch.Tensor) -> torch.Tensor:
     logits = logits.contiguous()
+    out = torch.empty_like(logits)
     e, h = logits.shape
-    with torch.cuda.device(logits.device):
-        ids = dst_sorted.to(torch.int32).contiguous()
-        bounds = torch.arange(num_nodes + 1, dtype=torch.int32, device=logits.device)
-        row_ptr = torch.searchsorted(ids, bounds, out_int32=True)
-        out = torch.empty_like(logits)
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        rc = lib.segment_softmax_launch(
-            logits.data_ptr(), ids.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), e, num_nodes, h, stream
-        )
-    if rc != 0:
-        raise RuntimeError(f"segment_softmax kernel launch failed: cudaError {rc}")
+    if e == 0:
+        return out
+    ids = dst_sorted
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        ids = ids.to(torch.int32).contiguous()
+    fn = launch.bind("segment_softmax", "segment_softmax_launch", _ARGTYPES)
+    launch.launch(fn, logits.get_device(), logits.data_ptr(), ids.data_ptr(), out.data_ptr(), e, h)
     segment_softmax_sorted.launches += 1
     return out
 
@@ -116,17 +120,7 @@ def segment_softmax_sorted(
     _check(logits, dst_sorted, num_nodes)
     if logits.device.type == "cpu":
         return segment_softmax_sorted_plain(logits, dst_sorted, num_nodes)
-    return _launch(logits, dst_sorted, num_nodes)
+    return _launch(logits, dst_sorted)
 
 
 segment_softmax_sorted.launches = 0
-
-
-def _launcher():
-    lib = build.load("segment_softmax")
-    fn = lib.segment_softmax_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

@@ -13,7 +13,7 @@ ids outside ``[0, num_nodes)`` drop, as in both JAX functions.
 The TPU function takes ``tile_offsets`` (``tile_edge_offsets``: edge offsets
 of 256-node tiles, a device of the TPU layout).  This wrapper accepts that
 argument and ignores it: it builds its own CSR row pointers, one per node,
-with ``torch.searchsorted`` on the sorted ids, as K1 does.
+with ``torch.searchsorted`` on the sorted ids, as K1 does without a plan.
 
 Bound on the H100: bytes (``E*F*4 + E*4`` in, ``N*F*4`` out, one add per
 message element).  One warp per node walks its contiguous edge range once
@@ -31,8 +31,12 @@ from typing import Optional
 
 import torch
 
-from analysisgnn_tpu_torch.kernels import build
+from analysisgnn_tpu_torch.kernels import launch
+from analysisgnn_tpu_torch.kernels.segment_mean import row_pointers
 from analysisgnn_tpu_torch.kernels.segment_ops import segment_sum
+
+# segment_sum_launch: msgs, row_ptr, out, num_nodes, F, vec, stream
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def segment_sum_sorted_plain(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> torch.Tensor:
@@ -57,19 +61,16 @@ def _check(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> None
 
 
 def _launch(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    lib = _launcher()
     msgs = msgs.contiguous()
     f = msgs.shape[1]
-    with torch.cuda.device(msgs.device):
-        ids = dst_sorted.to(torch.int32).contiguous()
-        bounds = torch.arange(num_nodes + 1, dtype=torch.int32, device=msgs.device)
-        row_ptr = torch.searchsorted(ids, bounds, out_int32=True)
-        out = torch.empty((num_nodes, f), dtype=torch.float32, device=msgs.device)
-        vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, out))
-        stream = torch.cuda.current_stream(msgs.device).cuda_stream
-        rc = lib.segment_sum_launch(msgs.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), num_nodes, f, int(vec), stream)
-    if rc != 0:
-        raise RuntimeError(f"segment_sum kernel launch failed: cudaError {rc}")
+    ids = dst_sorted
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        ids = ids.to(torch.int32).contiguous()
+    row_ptr = row_pointers(ids, num_nodes)
+    out = torch.empty((num_nodes, f), dtype=torch.float32, device=msgs.device)
+    vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, out))
+    fn = launch.bind("segment_mean_base", "segment_sum_launch", _ARGTYPES)
+    launch.launch(fn, msgs.get_device(), msgs.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), num_nodes, f, int(vec))
     segment_sum_sorted.launches += 1
     return out
 
@@ -89,13 +90,3 @@ def segment_sum_sorted(
 
 
 segment_sum_sorted.launches = 0
-
-
-def _launcher():
-    lib = build.load("segment_mean_base")
-    fn = lib.segment_sum_launch
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, ctypes.c_int64, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return lib

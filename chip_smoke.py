@@ -14,8 +14,9 @@ Phases, each on its own line with elapsed seconds:
   3. kernel check: K1 (segment_mean_base) against its plain PyTorch version on
      the card, at the shapes of the largest request (the fused 7-relation note
      layer and onset pooling, F=256) and at edge cases (padding ids, empty
-     segments, F=25, no edges), with median times of the kernel, the plain
-     version and an index_add_ yardstick;
+     segments, F=25, no edges), with median times of the kernel's call with
+     its plan's row pointers (as the model calls it) and without them, the
+     plain version and an index_add_ yardstick;
   4. serve: the full-width HybridGNN score-analysis model (3 x 256 hidden,
      128 out, JK, 21 task heads; seeded random weights) answers 2,000-,
      8,000- and 20,000-note requests through predict_score_ids on the GPU,
@@ -31,10 +32,10 @@ Phases, each on its own line with elapsed seconds:
      TF32 passes) and d alpha kernels against the plain version's value and
      autograd gradients, at the train step's shape (N = the batch's note
      capacity, F = G = 256, T = 7) and at edge cases (N = 1, 63, 77, 300;
-     T = 1; F, G of 25/20, 40/24, 64/96; a strided x), two dw calls bit for
-     bit, with median times of each kernel's call, its device time, the plain
-     version and a torch.einsum yardstick, beside the three-pass TF32
-     operations bound and the f32 SIMT one; K1's gradient
+     T = 1; F, G of 25/20, 40/24, 64/96; a strided x), two dw and two d alpha
+     calls bit for bit, with median times of each kernel's call, its device
+     time, the plain version and a torch.einsum yardstick, beside the
+     three-pass TF32 operations bound and the f32 SIMT one; K1's gradient
      through the CUDA kernel against the plain version's at the fused-layer
      shape, padding edges included;
   8. train: the full-width HybridGNN train step of bench.py (dropout 0.3,
@@ -62,10 +63,15 @@ Phases, each on its own line with elapsed seconds:
      and segment_softmax_sorted (K5, csrc/segment_softmax.cu) against their
      plain versions at tests/test_pallas.py's cases, at a train batch's
      shape (K4 over the fused note layer's sorted valid edges, F = 256; K5
-     over the HGT layer's valid union edges, H = 4) and at edge cases (empty
-     nodes, F = 25, H = 1, ids past num_nodes, no edges), with median times
-     of each kernel, its plain version and, for K4, an index_add_ yardstick,
-     beside the bytes bound; only tests call them, so no path launches them;
+     over the HGT layer's valid union edges, H = 4, and over those of a
+     20,000-note score, whose bytes bound lies above one launch's floor) and
+     at edge cases (empty nodes, F = 25, H = 1, ids past num_nodes, no edges;
+     for K5 runs at the ends of its 32-edge slices and of its registers, one
+     run of every edge, H = 6 and 40, int64 ids, -inf logits), with median
+     times of each kernel, its plain version and, for K4, an index_add_
+     yardstick, and the profiler's device time (K5: one launch a call and no
+     other kernel), beside the bytes bound; only tests call them, so no path
+     launches them;
  13. trainer: the training entry point, analysisgnn_tpu_torch.cli.train.main,
      at full width (HybridGNN 3 x 256 -> 128, JK, final norm) on the demo
      corpus with --use_metrical --use_pallas --conv_impl edge-zxp, three
@@ -127,6 +133,7 @@ LOGIT_ATOL = 1e-3  # GPU vs CPU logits of the whole model at full width
 REQUEST_NOTES = (2000, 8000, 20000)
 BUCKET_FACTOR = 1.25
 REPEATS = 3
+PROFILER_ATTEMPTS = 5  # profiler windows taken before a short one fails (device_ms, trace_forward)
 # K3 kernel vs plain, elementwise, relative to the same contraction of the
 # absolute values (the sum of |terms|, which bounds f32 rounding): sums of
 # up to T*F = 1,792 (forward, dx), N = 5,376 (dw) or F*G = 65,536 (d alpha)
@@ -208,30 +215,67 @@ def cuda_ms(fn, iters: int = 20, trials: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, iters: int = 20, per_call: int = 1) -> float:
-    """Device time of one call of ``fn``'s kernels whose names contain
-    ``kernel`` (``per_call`` launches a call), from torch.profiler over
-    ``iters`` calls: the kernels alone, without the host time of the wrapper."""
+def _cuda_window(body) -> list:
+    """The CUDA kernel records (``key_averages``) of one torch.profiler window
+    around ``body``."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        body()
+    return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def device_ms(fn, kernel: str, iters: int = 20, per_call: int = 1, alone: bool = False) -> float:
+    """Device time of one call of ``fn``'s kernels whose names contain
+    ``kernel`` (``per_call`` launches a call), from torch.profiler over
+    ``iters`` calls: the kernels alone, without the host time of the wrapper.
+    With ``alone``, a call that launches any other kernel fails.
+
+    A window now and then comes back short of records, in a process profiled
+    before (seen on the H100 with none of the window's kernels, or 13 of 20
+    launches): a window with fewer launches of ``kernel`` than the calls
+    made is taken again, up to PROFILER_ATTEMPTS times, and every retake is
+    printed; more launches than expected, or another kernel with ``alone``,
+    fail at once."""
     fn()
     torch.cuda.synchronize()
     pad = torch.zeros(8, device="cuda")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def padding():
         # a window may lose its first kernel records (two of them, in a process
         # profiled before): eight small launches of another kernel take them
         for _ in range(8):
             pad.add_(1.0)
         torch.cuda.synchronize()
+
+    def calls():
+        padding()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in hits)
-    if count != iters * per_call:
-        raise AssertionError(f"the profiler saw {count} launches of {kernel} in {iters} calls")
-    return sum(e.self_device_time_total for e in hits) / iters / 1e3
+
+    # the names of the padding launches' kernels, to tell them from the call's
+    pad_keys = set()
+    for _ in range(PROFILER_ATTEMPTS if alone else 0):
+        pad_keys = {e.key for e in _cuda_window(padding)}
+        if pad_keys:
+            break
+    if alone and not pad_keys:
+        raise AssertionError(f"the profiler recorded no kernel in {PROFILER_ATTEMPTS} windows of padding launches")
+    for _ in range(PROFILER_ATTEMPTS):
+        cuda = _cuda_window(calls)
+        hits = [e for e in cuda if kernel in e.key]
+        count = sum(e.count for e in hits)
+        others = [f"{e.key} x{e.count}" for e in cuda if kernel not in e.key and e.key not in pad_keys]
+        if count > iters * per_call or (alone and others):
+            raise AssertionError(f"{iters} calls of {kernel}: the profiler saw {count} launches of it "
+                                 f"(expected {iters * per_call})" + (f" and other kernels {others}" if alone else ""))
+        if count == iters * per_call:
+            return sum(e.self_device_time_total for e in hits) / iters / 1e3
+        phase(f"device_ms: the profiler's window held {count} of the {iters * per_call} launches of {kernel}; "
+              f"taking it again")
+    raise AssertionError(f"the profiler saw fewer than {iters * per_call} launches of {kernel} in "
+                         f"{PROFILER_ATTEMPTS} windows of {iters} calls")
 
 
 def environment() -> str:
@@ -275,10 +319,14 @@ def k1_bound_ms(e_valid: int, f: int, m: int, s: int) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_k1(name: str, msgs, seg, x_base, num_segments, timed: bool) -> dict:
+def check_k1(name: str, msgs, seg, x_base, num_segments, timed: bool, row_ptr=None) -> dict:
+    """K1's kernel against its plain version; ``row_ptr``, a plan's, is passed
+    as ``aggregate`` passes it.  With ``timed``, medians of the call (with the
+    plan's row pointers, and without them: the call builds its own), the
+    plain version and an index_add_ yardstick."""
     from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base, segment_mean_base_plain
 
-    out, cnt = segment_mean_base(msgs, seg, x_base, num_segments)
+    out, cnt = segment_mean_base(msgs, seg, x_base, num_segments, row_ptr)
     ref, ref_cnt = segment_mean_base_plain(msgs, seg, x_base, num_segments)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
@@ -305,11 +353,13 @@ def check_k1(name: str, msgs, seg, x_base, num_segments, timed: bool) -> dict:
             counts = torch.bincount(seg_l, minlength=num_segments)
             return total / counts.clamp_min(1)[:, None]
 
-        row["ms"] = cuda_ms(lambda: segment_mean_base(msgs, seg, x_base, num_segments))
+        row["ms"] = cuda_ms(lambda: segment_mean_base(msgs, seg, x_base, num_segments, row_ptr))
+        row["unplanned_ms"] = cuda_ms(lambda: segment_mean_base(msgs, seg, x_base, num_segments))
         row["plain_ms"] = cuda_ms(lambda: segment_mean_base_plain(msgs, seg, x_base, num_segments))
         row["library_ms"] = cuda_ms(library)
         row["bound_ms"], row["bound_by"] = k1_bound_ms(e_valid, f, m, num_segments)
-        line += (f" | kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, index_add_ yardstick "
+        line += (f" | kernel {row['ms']:.4f} ms with the plan's row pointers ({row['unplanned_ms']:.4f} ms a "
+                 f"call without them), plain {row['plain_ms']:.4f} ms, index_add_ yardstick "
                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
                  f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time)")
     phase(line)
@@ -341,7 +391,7 @@ def kernel_checks(model, largest_notes: int) -> list:
         e = plan.seg.shape[0]
         msgs = torch.randn(e, f, generator=g).to(dev)
         x_base = torch.randn(plan.base_rows, f, generator=g).to(dev)
-        rows.append(check_k1(name, msgs, plan.seg, x_base, plan.num_segments, timed=True))
+        rows.append(check_k1(name, msgs, plan.seg, x_base, plan.num_segments, timed=True, row_ptr=plan.row_ptr))
     # edge cases: padding ids past the end, empty segments, the scalar path, no edges
     for name, e, f_, m, t in (("padding+empty F=256", 5000, 256, 1000, 3), ("F=25", 3000, 25, 500, 7),
                               ("F=6 scalar path", 700, 6, 64, 2), ("no edges", 0, 256, 128, 2)):
@@ -474,7 +524,7 @@ def k3_bound_ms(n: int, f: int, g: int, t: int) -> tuple:
     operations (each of the forward, dx, dw and d alpha does as many) in three
     TF32 passes on the tensor cores, or its inputs read and its output written
     once; and beside it the bound of the same work in f32 on the SIMT cores
-    (d alpha's route)."""
+    (what a plain f32 kernel could reach, beside the three-pass scheme)."""
     ops = 2 * t * n * f * g
     bytes_moved = 4 * (n * f + t * f * g + t * n + n * g)
     t_ops, t_bytes = 3 * ops / TF32_OPS_PER_S * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -519,13 +569,15 @@ def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool, strided: bo
             raise AssertionError(f"K3 {name} {part}: |kernel - plain| reaches {worst:.3e} of the sum of |terms| "
                                  f"(tol {K3_RTOL})")
         errs[part] = float(err.max())
-    # dw sums its row ranges' partials in a fixed order: the same bits every call
+    # dw and d alpha sum their partials in a fixed order: the same bits every call
     if not torch.equal(relmm.rwm_dw(x, gout, alpha), relmm.rwm_dw(x, gout, alpha)):
         raise AssertionError(f"K3 {name}: two dw calls on the same inputs differ")
+    if not torch.equal(relmm.rwm_dalpha(x, w, gout), relmm.rwm_dalpha(x, w, gout)):
+        raise AssertionError(f"K3 {name}: two d alpha calls on the same inputs differ")
     row = {"case": name, "N": n, "F": f, "G": g, "T": t, "max_abs_err": errs}
     line = (f"kernel check: K3 {name}: N={n} F={f} G={g} T={t}{' strided x' if strided else ''} max|d| "
             + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {K3_RTOL} of the sum of |terms|); "
-            "dw bit-equal over two calls")
+            "dw and d alpha bit-equal over two calls")
     if timed:
         bound, bound_by, f32_simt = k3_bound_ms(n, f, g, t)
         xp, wp, ap = plain_leaves
@@ -542,8 +594,9 @@ def check_k3(name: str, n: int, f: int, g: int, t: int, timed: bool, strided: bo
             "dalpha": (lambda: relmm.rwm_dalpha(x, w, gout), plain_grad(ap),
                        lambda: torch.einsum("nf,tfg,ng->tn", x, w, gout)),
         }
-        # launches a call: dw adds the sum of its partials when it cuts N
-        per_call = {"forward": 1, "dx": 1, "dw": 1 + (relmm.dw_splits(n, f, g, t) > 1), "dalpha": 1}
+        # launches a call: dw and d alpha add the sum of their partials when they have several
+        per_call = {"forward": 1, "dx": 1, "dw": 1 + (relmm.dw_splits(n, f, g, t) > 1),
+                    "dalpha": 1 + (relmm.dalpha_splits(n, f, g) > 1)}
         row["timed"] = {}
         line += (f"\nkernel check:   K3 bound {bound:.4f} ms ({bound_by}, three TF32 passes at "
                  f"{TF32_OPS_PER_S / 1e12:.0f} TFLOP/s); f32 on the SIMT cores {f32_simt:.4f} ms")
@@ -955,13 +1008,17 @@ def trace_forward(fn, label: str, prefix: str, top: int, group: str = "") -> dic
     ``group``, the summed device time of the kernels whose names contain it."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    for _ in range(PROFILER_ATTEMPTS):  # a window that holds no kernel record (see device_ms) is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        if busy_ms > 0:
+            break
+        phase(f"{prefix}: the profiler's window around {label} held no kernel record; taking it again")
     if busy_ms <= 0:
         raise AssertionError(f"the profiled {label} shows no device time")
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
@@ -1075,11 +1132,14 @@ def k5_bound_ms(e: int, h: int) -> tuple:
 
 def check_k5(name: str, logits, dst, n: int, timed: bool) -> dict:
     """K5's kernel against its plain version within K5_ATOL, and the weights
-    of every run of equal ids summing to 1; with ``timed``, medians of the
-    kernel and the plain version."""
+    of every run of equal ids summing to 1 in every head whose logits are
+    not all -inf (those weigh 0); with ``timed``, medians of the kernel's
+    call and the plain version, and the profiler's device time of a call,
+    which must launch K5's kernel once and no other kernel."""
     from analysisgnn_tpu_torch.kernels.segment_softmax import (
         run_ids, segment_softmax_sorted, segment_softmax_sorted_plain,
     )
+    from analysisgnn_tpu_torch.kernels.segment_ops import segment_max
 
     out = segment_softmax_sorted(logits, dst, n)
     ref = segment_softmax_sorted_plain(logits, dst, n)
@@ -1090,21 +1150,31 @@ def check_k5(name: str, logits, dst, n: int, timed: bool) -> dict:
     err = float((out - ref).abs().max()) if e else 0.0
     if err > K5_ATOL:
         raise AssertionError(f"K5 {name}: max |kernel - plain| = {err:.3e} > {K5_ATOL}")
-    runs = run_ids(dst)
-    sums = torch.zeros_like(out).index_add_(0, runs, out)[: int(runs[-1]) + 1] if e else out
-    sum_err = float((sums - 1).abs().max()) if e else 0.0
+    sum_err = 0.0
+    if e:
+        runs = run_ids(dst)
+        count = int(runs[-1]) + 1
+        sums = torch.zeros_like(out).index_add_(0, runs, out)[:count]
+        weighed = segment_max(logits, runs, count) > -math.inf
+        sum_err = float((sums - 1)[weighed].abs().max())
+        if bool(sums[~weighed].any()):
+            raise AssertionError(f"K5 {name}: a head whose logits are all -inf got a nonzero weight")
     if sum_err > K5_SUM_ATOL:
         raise AssertionError(f"K5 {name}: the weights of a destination sum to 1 within {sum_err:.3e} > {K5_SUM_ATOL}")
     row = {"case": name, "E": e, "H": h, "n": n, "max_abs_err": err, "sum_err": sum_err}
     line = (f"kernel check: K5 {name}: E={e} H={h} n={n} max|d|={err:.3e} (tol {K5_ATOL} abs), weights of each "
             f"destination sum to 1 within {sum_err:.1e} (tol {K5_SUM_ATOL})")
     if timed:
+        ids64 = dst.long()  # the call converts int64 ids to int32 first: one more kernel a call
         row["ms"] = cuda_ms(lambda: segment_softmax_sorted(logits, dst, n))
+        row["int64_ids_ms"] = cuda_ms(lambda: segment_softmax_sorted(logits, ids64, n))
         row["plain_ms"] = cuda_ms(lambda: segment_softmax_sorted_plain(logits, dst, n))
         row["library_ms"] = None  # no single PyTorch call computes a segment softmax
-        row["device_ms"] = device_ms(lambda: segment_softmax_sorted(logits, dst, n), "segment_softmax_kernel")
+        row["device_ms"] = device_ms(lambda: segment_softmax_sorted(logits, dst, n), "segment_softmax_kernel",
+                                     alone=True)
         row["bound_ms"], row["bound_by"] = k5_bound_ms(e, h)
-        line += (f" | kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms of it on the device), plain "
+        line += (f" | kernel {row['ms']:.4f} ms ({row['device_ms']:.4f} ms of it on the device, one launch a "
+                 f"call and no other kernel; {row['int64_ids_ms']:.4f} ms a call with int64 ids), plain "
                  f"{row['plain_ms']:.4f} ms (no single PyTorch call computes it), bound {row['bound_ms']:.5f} ms "
                  f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time, "
                  f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of its device time)")
@@ -1112,19 +1182,46 @@ def check_k5(name: str, logits, dst, n: int, timed: bool) -> dict:
     return row
 
 
-def k5_checks(batch) -> list:
-    """K5 over the HGT layer's valid union edges of a train batch (H = 4),
-    at tests/test_pallas.py's two cases, and at edge cases."""
+def k5_union(edge_index, capacities) -> tuple:
+    """The sorted valid union edges of the HGT model's ``emax`` plan of a
+    graph: K5's destination ids, and the node count."""
     from analysisgnn_tpu_torch.core.graph import metadata
     from analysisgnn_tpu_torch.models.encoders import plan_hgt
 
+    _, model_edges = metadata(HGT_CFG["add_beats"], HGT_CFG["add_measures"])
+    k2 = plan_hgt(edge_index, model_edges, capacities, "emax").k2
+    return k2.node[k2.node < k2.num_nodes].sort().values, k2.num_nodes
+
+
+def k5_timed_shapes(batch) -> list:
+    """K5's two timed shapes, as ``(name, sorted int64 ids on the card, node
+    count)``: the HGT layer's valid union edges of a train batch (H = 4) and
+    those of the serve phase's 20,000-note score, whose bytes bound lies above
+    the single-launch floor."""
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.inference.predict import graph_from_note_array
+
+    dst, n = k5_union(batch.edge_index, {t: v.shape[0] for t, v in batch.node_features.items()})
+    shapes = [("HGT union edges", dst, n)]
+    notes = max(REQUEST_NOTES)
+    graph = graph_from_note_array(synthetic_score(notes, seed=notes), add_beats=HGT_CFG["add_beats"],
+                                  add_measures=HGT_CFG["add_measures"], bucket_factor=BUCKET_FACTOR, device="cuda")
+    dst, n = k5_union(graph.edge_index, {t: v.shape[0] for t, v in graph.node_features.items()})
+    return shapes + [(f"HGT union edges of a {notes}-note score", dst, n)]
+
+
+def k5_checks(batch) -> list:
+    """K5 at its two timed shapes (``k5_timed_shapes``), at tests/
+    test_pallas.py's two cases, and at edge cases: the kernel's slices of 32
+    edges and its registers (the tails of up to 32 edges past a slice) at
+    their ends, heads that are not a power of two or span two grid rows,
+    -inf logits."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(5)
-    _, model_edges = metadata(HGT_CFG["add_beats"], HGT_CFG["add_measures"])
-    k2 = plan_hgt(batch.edge_index, model_edges, {t: v.shape[0] for t, v in batch.node_features.items()}, "emax").k2
-    dst = k2.node[k2.node < k2.num_nodes].sort().values
-    rows = [check_k5("HGT union edges", (torch.randn(dst.shape[0], 4, generator=gen) * 2).to(dev), dst,
-                     k2.num_nodes, timed=True)]
+    rows = []
+    for name, dst, n in k5_timed_shapes(batch):
+        logits = (torch.randn(dst.shape[0], 4, generator=gen) * 2).to(dev)
+        rows.append(check_k5(name, logits, dst.to(torch.int32), n, timed=True))
     stability = torch.tensor([[1e4], [1e4 + 1], [-1e4], [0.0]])
     cases = [
         ("test_pallas.py case", torch.randint(0, 300, (2000,), generator=gen).sort().values, 300, 4, 3.0),
@@ -1134,10 +1231,29 @@ def k5_checks(batch) -> list:
         ("ids past num_nodes", torch.tensor([0, 0, 5, 299, 300, 300, 400]), 300, 1, 2.0),
         ("ids below 0 and past the tiles", torch.tensor([-2, -2, -1, 3, 3, 300, 300, 300, 1000]), 10, 2, 2.0),
         ("no edges", torch.zeros(0, dtype=torch.long), 50, 4, 1.0),
+        # runs that start on a slice's last edge (31, 95): one with a tail of exactly
+        # 32 edges in the next slice, one that outgrows its tail (40 edges), then
+        # 100 edges (online)
+        ("slice ends", torch.tensor([0] * 31 + [1] * 33 + [2] * 31 + [3] * 40 + [4] * 100 + [5] + [6] * 3), 7, 4,
+         3.0),
+        ("one run of every edge", torch.full((5000,), 7), 8, 4, 3.0),
+        ("H=1 long runs", torch.randint(0, 3, (1000,), generator=gen).sort().values, 3, 1, 3.0),
+        ("H=6 long runs", torch.randint(0, 5, (400,), generator=gen).sort().values, 5, 6, 3.0),
+        ("H=40 over 32 lanes", torch.randint(0, 60, (600,), generator=gen).sort().values, 60, 40, 3.0),
+        ("int64 ids", torch.randint(0, 300, (2000,), generator=gen).sort().values, 300, 8, 3.0),
     ]
     for name, ids, n, h, scale in cases:
         logits = stability if scale is None else torch.randn(len(ids), h, generator=gen) * scale
-        rows.append(check_k5(name, logits.to(dev), ids.to(torch.int32).to(dev), n, timed=False))
+        ids = ids if name == "int64 ids" else ids.to(torch.int32)
+        rows.append(check_k5(name, logits.to(dev), ids.to(dev), n, timed=False))
+    # -inf logits: whole runs (in registers and online) and parts of runs
+    ids = torch.tensor([0] * 3 + [1] * 200 + [2] * 5 + [3] * 150)
+    logits = torch.randn(len(ids), 4, generator=gen) * 3
+    logits[:3] = -math.inf
+    logits[3:203, :2] = -math.inf
+    logits[203:205] = -math.inf
+    logits[208::3] = -math.inf
+    rows.append(check_k5("-inf logits", logits.to(dev), ids.to(torch.int32).to(dev), 4, timed=False))
     return rows
 
 
@@ -1729,6 +1845,11 @@ def main() -> None:
             "shape": f"{r['case']}: E={r['E']} " + (f"F={r['F']} n={r['n']}" if "F" in r else f"H={r['H']} n={r['n']}"),
             "note": "only tests call it (tests/test_pallas.py in the JAX package), so no path launches it",
         })
+    # K5's bound at the train batch's shape lies below a single launch's floor: the larger shape beside it
+    large = k5_rows[1]
+    kernels[-1]["large"] = {k: large[k] for k in ("case", "E", "H", "ms", "int64_ids_ms", "device_ms", "plain_ms",
+                                                  "bound_ms", "bound_by", "max_abs_err")}
+    kernels[-1]["int64_ids_ms"] = k5_rows[0]["int64_ids_ms"]
     kernels[0]["partitioned_serve_launches"] = partitioned["regime1"]["launches"]
     k6 = k6_rows[0]
     if (k6["D"], k6["H"]) != (PARTITIONS, partitioned["regime2"][PARTITIONS]["halo"]):

@@ -1,0 +1,194 @@
+"""Serving parity beyond random weights and beyond HybridGNN: the port's
+``predict_score_ids`` and ``predict_score`` (``device="cpu"``) against the
+JAX package's on the same note arrays.
+
+* The repo's trained checkpoint ``checkpoints_parity_l_r5/last`` (HybridGNN
+  3 x 256 -> 128), loaded by the JAX CLI's ``load_model_and_params`` and
+  converted with ``state_dict_from_flax`` into a strictly loaded port model,
+  at 300 and 1,500 notes: ids equal for all 21 tasks, probabilities within
+  1e-5 absolute (the same f32 network in another summation order; trained
+  weights give logits up to a few tens, whose rounding the softmax keeps).
+* HybridHGT (2 layers, hidden 16, seeded random weights, converted with
+  ``flax_tree_from_state_dict``) in the ``pair`` and ``emax`` layouts, with
+  and without beat and measure nodes, at 400 notes, with two weight draws:
+  ``init_parameters`` alone (the model's own initialisation) and then
+  ``torch_style_reinit`` (the Trainer's draw, which gives smaller logits).
+  Ids equal; probabilities within HGT_ROUNDING_FACTOR times the f32
+  rounding of the port's own probabilities, which is measured, not assumed:
+  the largest difference between the port's float32 forward and the same
+  network, same weights and same graph evaluated in float64 on the CPU.
+  Two float32 runs of one network in two summation orders differ by at most
+  the sum of their distances from the float64 result; with the JAX run's
+  rounding up to three times the port's, a factor of 4 covers it, and a
+  difference in what the two compute (a missing term, another epsilon)
+  beyond four times the rounding fails.  At these seeds the rounding is
+  up to 8.3e-6 with ``init_parameters`` and 5.5e-7 with the Trainer's
+  draw, and the port and JAX differ by 0.8-2.3 times it (up to 1.6e-5 and
+  8.7e-7): no one fixed limit fits both draws.
+* The port's CLI on an HGT ``model_config.json`` with beats and measures
+  writes the CSV that the JAX package's decode and export write.
+"""
+
+import copy
+import csv
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from analysisgnn_tpu.cli.predict import load_model_and_params
+from analysisgnn_tpu.core.graph import metadata
+from analysisgnn_tpu.data.musicxml import load_score as jload_score
+from analysisgnn_tpu.data.note_array import synthetic_score
+from analysisgnn_tpu.inference import predict as jpred
+from analysisgnn_tpu.models.analysis import AnalysisGNN as JAnalysisGNN
+from analysisgnn_tpu.theory.vocab import TASK_DICT
+from analysisgnn_tpu_torch.cli.predict import main as port_cli
+from analysisgnn_tpu_torch.convert import flax_tree_from_state_dict, state_dict_from_flax
+from analysisgnn_tpu_torch.core.graph import NOTE
+from analysisgnn_tpu_torch.inference import predict as tpred
+from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base_plain
+from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
+from analysisgnn_tpu_torch.train.state import torch_style_reinit
+
+REPO = Path(__file__).resolve().parent.parent
+CKPT = REPO / "checkpoints_parity_l_r5"
+TRAINED_PROB_ATOL = 1e-5
+HGT_ROUNDING_FACTOR = 4.0
+
+SCORE_XML = """<?xml version="1.0"?>
+<score-partwise version="3.1">
+  <part-list><score-part id="P1"/></part-list>
+  <part id="P1">
+    <measure number="1">
+      <attributes><divisions>2</divisions><key><fifths>1</fifths></key>
+        <time><beats>3</beats><beat-type>4</beat-type></time></attributes>
+      <note><pitch><step>G</step><octave>3</octave></pitch><duration>2</duration></note>
+      <note><chord/><pitch><step>B</step><octave>3</octave></pitch><duration>2</duration></note>
+      <note><pitch><step>D</step><octave>4</octave></pitch><duration>1</duration></note>
+      <note><pitch><step>F</step><alter>1</alter><octave>4</octave></pitch><duration>1</duration></note>
+      <note><pitch><step>G</step><octave>4</octave></pitch><duration>2</duration></note>
+    </measure>
+    <measure number="2">
+      <note><pitch><step>A</step><octave>3</octave></pitch><duration>3</duration></note>
+      <note><chord/><pitch><step>C</step><octave>4</octave></pitch><duration>3</duration></note>
+      <note><rest/><duration>1</duration></note>
+      <note><pitch><step>D</step><octave>4</octave></pitch><duration>2</duration></note>
+    </measure>
+  </part>
+</score-partwise>
+"""
+
+
+def _assert_same_predictions(jm, params, tm, na, bm, prob_atol):
+    kw = dict(add_beats=bm, add_measures=bm)
+    want_ids = jpred.predict_score_ids(jm, params, na, **kw)
+    got_ids = tpred.predict_score_ids(tm, na, device="cpu", **kw)
+    assert sorted(got_ids) == sorted(want_ids) == sorted(TASK_DICT)
+    for task, ref in want_ids.items():
+        np.testing.assert_array_equal(got_ids[task], ref, err_msg=task)
+    want = jpred.predict_score(jm, params, na, **kw)
+    got = tpred.predict_score(tm, na, device="cpu", **kw)
+    assert sorted(got) == sorted(want)
+    for task, ref in want.items():
+        assert got[task].shape == ref.shape == (len(na), dict(TASK_DICT)[task])
+        np.testing.assert_allclose(got[task], ref, rtol=0, atol=prob_atol, err_msg=task)
+
+
+@pytest.fixture(scope="module")
+def trained():
+    jm, params, cfg = load_model_and_params(str(CKPT), "last")
+    tm = model_from_config(cfg, device="cpu")
+    tm.load_state_dict(state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params), cfg), strict=True)
+    return jm, params, tm.eval(), cfg
+
+
+@pytest.mark.parametrize("notes", [300, 1500])
+def test_trained_checkpoint_serves_as_in_jax(trained, notes):
+    jm, params, tm, cfg = trained
+    assert not cfg["add_beats"] and not cfg["add_measures"]
+    _assert_same_predictions(jm, params, tm, synthetic_score(notes, seed=notes), False, TRAINED_PROB_ATOL)
+
+
+def _hgt_cfg(group_mode, bm):
+    return {"model": "HGT", "num_layers": 2, "hidden_channels": 16, "out_channels": 8, "in_channels": 25,
+            "use_jk": True, "dropout": 0.0, "hgt_group_mode": group_mode, "add_beats": bm, "add_measures": bm,
+            "feature_type": "simple"}
+
+
+def _hgt_models(cfg, seed=0, trainer_draw=True):
+    """The port's model with seeded random weights (``init_parameters``, then
+    ``torch_style_reinit`` with ``trainer_draw``) and the JAX model with the
+    same weights."""
+    tm = model_from_config(cfg, device="cpu")
+    init_parameters(tm, torch.Generator().manual_seed(seed))
+    if trainer_draw:
+        torch_style_reinit(tm, seed=seed)
+    jm = JAnalysisGNN(metadata=metadata(cfg["add_beats"], cfg["add_measures"]), in_channels=25,
+                      hidden_channels=cfg["hidden_channels"], out_channels=cfg["out_channels"],
+                      task_dict=tuple(TASK_DICT.items()), num_layers=cfg["num_layers"], dropout=0.0,
+                      encoder_type="hgt", hgt_group_mode=cfg["hgt_group_mode"])
+    params = {"params": jax.tree_util.tree_map(jnp.asarray, flax_tree_from_state_dict(tm.state_dict()))}
+    return jm, params, tm.eval()
+
+
+def _aggregate_any_dtype(plan, rows, x_base):
+    # the K1 wrapper takes float32 only; its CPU path is this plain version
+    return segment_mean_base_plain(rows.index_select(0, plan.gather), plan.seg, x_base, plan.num_segments)[0]
+
+
+def _f32_rounding(tm, na, bm, monkeypatch):
+    """The largest difference between the port's float32 probabilities and
+    those of the same network evaluated in float64."""
+    monkeypatch.setattr("analysisgnn_tpu_torch.models.analysis.aggregate", _aggregate_any_dtype)
+    graph = tpred.graph_from_note_array(na, add_beats=bm, add_measures=bm, device="cpu")
+    attrs, n = graph.node_attrs[NOTE], len(na)
+    onset = graph.edges((NOTE, "onset", NOTE))[:, : graph.num_edges[(NOTE, "onset", NOTE)]].numpy()
+    probs = {}
+    for dtype in (torch.float32, torch.float64):
+        model = copy.deepcopy(tm).to(dtype)
+        feats = {k: v.to(dtype) for k, v in graph.node_features.items()}
+        with torch.no_grad():
+            logits = model(feats, graph.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
+                           graph.num_target_nodes)
+        probs[dtype] = tpred._logits_to_probs({k: v[:n].numpy() for k, v in logits.items()}, na, onset, None)
+    monkeypatch.undo()
+    return max(float(np.abs(probs[torch.float32][k] - probs[torch.float64][k]).max()) for k in probs[torch.float64])
+
+
+@pytest.mark.parametrize("trainer_draw", [False, True], ids=["init_parameters", "trainer draw"])
+@pytest.mark.parametrize("group_mode", ["pair", "emax"])
+@pytest.mark.parametrize("bm", [False, True], ids=["notes only", "beats and measures"])
+def test_hgt_serving_matches_jax(group_mode, bm, trainer_draw, monkeypatch):
+    jm, params, tm = _hgt_models(_hgt_cfg(group_mode, bm), trainer_draw=trainer_draw)
+    na = synthetic_score(400, seed=4)
+    rounding = _f32_rounding(tm, na, bm, monkeypatch)
+    assert 0 < rounding < 1e-3
+    _assert_same_predictions(jm, params, tm, na, bm, HGT_ROUNDING_FACTOR * rounding)
+
+
+def test_cli_serves_an_hgt_checkpoint_with_beats_and_measures(tmp_path):
+    cfg = _hgt_cfg("pair", True)
+    jm, params, tm = _hgt_models(cfg, seed=5)
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    (ckpt / "model_config.json").write_text(json.dumps(cfg))
+    torch.save(tm.state_dict(), ckpt / "best.pt")
+    score = tmp_path / "piece.musicxml"
+    score.write_text(SCORE_XML)
+    out = tmp_path / "port.csv"
+    port_cli(["--checkpoint_dir", str(ckpt), "--score", str(score), "--output_csv", str(out), "--device", "cpu"])
+
+    parsed = jload_score(str(score))
+    ids = jpred.predict_score_ids(jm, params, parsed.note_array, measures=parsed.measures, add_beats=True,
+                                  add_measures=True)
+    ref = tmp_path / "jax.csv"
+    jpred.export_predictions_csv(str(ref), parsed.note_array, jpred.decode_predictions(ids))
+    rows, ref_rows = list(csv.reader(open(out))), list(csv.reader(open(ref)))
+    assert rows[0] == ["onset_div", "onset_beat", "pitch"] + sorted(TASK_DICT)
+    assert len(rows) == len(parsed.note_array) + 1
+    assert rows == ref_rows
