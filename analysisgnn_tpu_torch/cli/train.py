@@ -8,9 +8,15 @@ same comma-list ``--num_epochs`` per-task schedule, plus ``--device``.
 
 It writes ``<checkpoint_dir>/model_config.json`` as the JAX CLI does, trains
 with :class:`~analysisgnn_tpu_torch.train.loop.Trainer` (``log.jsonl``,
-``best.pt``, ``last.pt``, ...) and evaluates the test split.  The corpus is
-the synthetic demo corpus; reading corpora from ``--raw_dir`` comes with a
-later slice (ROADMAP queue 1 item 7).
+``best.pt``, ``last.pt``, ...) and evaluates the test split.  The corpora
+come from ``--raw_dir`` (DLC or AugmentedNet TSVs, time-divided TSVs,
+MusicXML; cached as ``.npz`` under ``<raw_dir>/.cache``) or, with
+``--demo``, from the synthetic demo corpus.  On a copy of the repo's
+``data_synth/`` (so that the cache lands in the copy):
+
+    cp -r data_synth /tmp/ds
+    python -m analysisgnn_tpu_torch.cli.train --raw_dir /tmp/ds --test_split_file /tmp/ds/test_split.json \\
+        --main_tasks all --use_transpositions --do_train --do_eval
 """
 
 from __future__ import annotations
@@ -226,38 +232,74 @@ def resolve_config(argv=None) -> Dict:
 
 
 def build_datamodule(config: Dict):
-    """The demo corpus (six synthetic 200-note scores per main task, the last
-    one held out for test, labels derived from the pitches) in a data module
+    """The corpora of ``--raw_dir`` (one sub-directory per main task, its
+    layout detected from its files) or, with ``--demo`` or no ``--raw_dir``,
+    the demo corpus (six synthetic 200-note scores per main task, the last one
+    held out for test, labels derived from the pitches), in a data module
     whose batches lie on ``config["device"]``."""
-    from analysisgnn_tpu_torch.data.corpus import samples_from_note_array
+    from analysisgnn_tpu_torch.data.corpus import CorpusConfig, DLCTsvCorpus, MusicXMLCorpus
     from analysisgnn_tpu_torch.data.datamodule import AnalysisDataModule, DataModuleConfig
-    from analysisgnn_tpu_torch.data.note_array import synthetic_score
 
-    if config.get("raw_dir") and not config.get("demo"):
-        raise NotImplementedError(
-            "--raw_dir corpora (DLC TSV, MusicXML, .krn, the AN joint TSV) are not ported yet: they come with the "
-            "file corpora (ROADMAP queue 1 item 7); use --demo"
-        )
     feature_type = "voice" if config.get("feature_type") == "simple" else "cadence"
     task_samples = {}
-    for mt in config["main_tasks"]:
-        ss = []
-        for i in range(6):
-            na = synthetic_score(200, seed=i)
-            labels = {
-                t: (na["pitch"].astype(np.int64) * (j + 2)) % n_cls
-                for j, (t, n_cls) in enumerate(TASK_DICT.items())
-            }
-            labels["valid_label"] = np.ones(len(na), np.int64)
-            ss += samples_from_note_array(
-                na, name=f"{mt}{i}", labels=labels,
-                transpositions=("P1",),
-                add_beats=config.get("add_beats", False),
-                add_measures=config.get("add_measures", False),
-                feature_type=feature_type,
-                test=(i >= 5),
-            )
-        task_samples[mt] = ss
+    if config.get("demo") or not config.get("raw_dir"):
+        from analysisgnn_tpu_torch.data.corpus import samples_from_note_array
+        from analysisgnn_tpu_torch.data.note_array import synthetic_score
+
+        for mt in config["main_tasks"]:
+            ss = []
+            for i in range(6):
+                na = synthetic_score(200, seed=i)
+                labels = {
+                    t: (na["pitch"].astype(np.int64) * (j + 2)) % n_cls
+                    for j, (t, n_cls) in enumerate(TASK_DICT.items())
+                }
+                labels["valid_label"] = np.ones(len(na), np.int64)
+                ss += samples_from_note_array(
+                    na, name=f"{mt}{i}", labels=labels,
+                    transpositions=("P1",),
+                    add_beats=config.get("add_beats", False),
+                    add_measures=config.get("add_measures", False),
+                    feature_type=feature_type,
+                    test=(i >= 5),
+                )
+            task_samples[mt] = ss
+    else:
+        raw = config["raw_dir"]
+        ccfg = CorpusConfig(
+            cache_dir=os.path.join(raw, ".cache"),
+            feature_type=feature_type,
+            transpose=config.get("use_transpositions", False),
+            add_beats=config.get("add_beats", False),
+            add_measures=config.get("add_measures", False),
+            force_reload=config.get("force_reload", False),
+        )
+        test_names = None
+        if config.get("test_split_file"):
+            with open(config["test_split_file"]) as f:
+                test_names = json.load(f)
+        for mt in config["main_tasks"]:
+            sub = os.path.join(raw, mt)
+            if not os.path.isdir(sub):
+                continue
+            tsvs = [os.path.join(r, f) for r, _, fs in os.walk(sub) for f in fs if f.endswith(".tsv")]
+            if not tsvs:
+                corpus = MusicXMLCorpus(ccfg, sub)
+            elif any(os.path.isdir(os.path.join(sub, d)) for d in ("training", "validation")) and any(
+                f.endswith("joint.tsv") for f in tsvs
+            ):
+                # AN v1.0.0 layout: {training,test,validation}/*joint.tsv
+                from analysisgnn_tpu_torch.data.time_divided import ANJointTsvCorpus
+
+                corpus = ANJointTsvCorpus(ccfg, sub)
+            elif "s_notes" in _first_line(tsvs[0]):
+                # legacy time-divided slices (one row per 1/8th-note frame)
+                from analysisgnn_tpu_torch.data.time_divided import TimeDividedTsvCorpus
+
+                corpus = TimeDividedTsvCorpus(ccfg, sub)
+            else:
+                corpus = DLCTsvCorpus(ccfg, sub, test_names=test_names, dlc=(mt != "rna"))
+            task_samples[mt] = corpus.load().samples
     dm_cfg = DataModuleConfig(
         subgraph_size=config.get("subgraph_size", 500),
         batch_size=max(config.get("batch_size", 8) // 10, 2),
@@ -270,6 +312,11 @@ def build_datamodule(config: Dict):
         sort_edges_by_src=(not config.get("no_sort_edges", False) or config.get("use_pallas", False)),
     )
     return AnalysisDataModule(task_samples, dm_cfg, device=config.get("device", "cuda")).setup()
+
+
+def _first_line(path: str) -> str:
+    with open(path) as f:
+        return f.readline()
 
 
 def train_config(config: Dict):

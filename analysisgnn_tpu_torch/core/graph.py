@@ -64,6 +64,12 @@ def edge_type_key(et: EdgeType) -> str:
     return "__".join(et)
 
 
+def parse_edge_type_key(key: str) -> EdgeType:
+    """The edge type of a flat key (inverse of :func:`edge_type_key`)."""
+    src, rel, dst = key.split("__")
+    return (src, rel, dst)
+
+
 def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     """The device an entry point runs on.  A CUDA device without a usable GPU
     raises: the port never falls back to the CPU unless asked."""

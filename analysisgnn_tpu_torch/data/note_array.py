@@ -111,3 +111,27 @@ def synthetic_score(
     return make_note_array(
         onsets, durations, pitches, divs_per_beat=divs_per_beat, ts_beats=ts_beats
     )
+
+
+def transpose_note_array(na: np.ndarray, interval) -> np.ndarray:
+    """Chromatic+spelled transposition of a note array (reference
+    ``transpose_note_array``, analysisgnn/utils/music.py:279-325, with the
+    key-signature shift on the true line of fifths)."""
+    from analysisgnn_tpu_torch.theory.tonal import Interval, transpose_step_alter
+
+    iv = Interval.parse(interval)
+    out = na.copy()
+    out["pitch"] = np.remainder(na["pitch"] + iv.semitones, 128)
+    steps, alters = [], []
+    for s, a in zip(na["step"], na["alter"]):
+        ns, nalt = transpose_step_alter(str(s), int(a), iv)
+        steps.append(ns)
+        alters.append(nalt)
+    out["step"] = np.array(steps)
+    out["alter"] = np.array(alters, np.int32)
+    out["octave"] = out["pitch"] // 12 - 1
+    new_ks = na["ks_fifths"] + iv.lof_shift
+    if np.any(new_ks < -7) or np.any(new_ks > 7):
+        raise ValueError("Key signature transposition out of range")
+    out["ks_fifths"] = new_ks
+    return out

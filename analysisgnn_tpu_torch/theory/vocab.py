@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from analysisgnn_tpu_torch.theory.tonal import (
+    CHROMATIC_INTERVALS,
     Interval,
     transpose_key_name,
     transpose_pcset,
@@ -177,6 +178,64 @@ def build_representations() -> Dict[str, Representation]:
 #: ``available_representations`` (chord_representations.py:529-541).
 def available_representations() -> Dict[str, Representation]:
     return build_representations()
+
+
+# Task → number of classes table, mirroring the train CLI TASK_DICT
+# (reference train/train_analysisgnn.py:22-45).
+TASK_DICT: Dict[str, int] = {
+    "cadence": 4,
+    "localkey": 50,
+    "tonkey": 50,
+    "quality": 15,
+    "inversion": 4,
+    "root": 38,
+    "bass": 38,
+    "degree1": 22,
+    "degree2": 22,
+    "hrythm": 2,
+    "pcset": 94,
+    "romanNumeral": 185,
+    "section": 2,
+    "phrase": 2,
+    "organ_point": 2,
+    "tpc_in_label": 2,
+    "tpc_is_root": 2,
+    "tpc_is_bass": 2,
+    "downbeat": 45,
+    "note_degree": 49,
+    "staff": 4,
+}
+
+
+def normalize_key_name(raw: str) -> Optional[str]:
+    """Dataset key spelling ('Ab', 'bb') → vocabulary spelling ('A-', 'b-')."""
+    return _data()["keys50_normalize"].get(raw)
+
+
+def normalize_tone_function(raw: str) -> Optional[str]:
+    return _data()["tone_functions38_normalize"].get(raw)
+
+
+def admissible_transpositions(local_keys: Sequence[str]) -> List[str]:
+    """Chromatic intervals under which every local key stays representable.
+
+    Augmentation-filter analog of reference ``_getTranspositions``
+    (chord_representations.py:309-321), restricted to the 12 chromatic
+    interval spellings used by the data pipeline.
+    """
+    targets = set(_data()["transposition_target_keys"])
+    keys = {k for k in local_keys if k and k != "None"}
+    out = []
+    for interval in CHROMATIC_INTERVALS:
+        if interval == "P1":
+            continue
+        try:
+            transposed = {transpose_key_name(k, interval) for k in keys}
+        except (ValueError, KeyError):
+            continue
+        if transposed.issubset(targets):
+            out.append(interval)
+    return out
 
 
 # Task → number of classes table, mirroring the train CLI TASK_DICT

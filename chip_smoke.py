@@ -82,14 +82,26 @@ Phases, each on its own line with elapsed seconds:
      request), one epoch of --model HGT --use_pallas (K2), and one fit epoch
      of 2 steps on the GPU against the same on the CPU (dropout 0, the same
      initial state dict);
- 14. K6 check: halo_pull (csrc/halo_pull.cu), in the allocating form and in
+ 14. raw-dir trainer: cli.train.main on file corpora with
+     scripts/parity_experiment.py's recipe at full width (HybridGNN 3 x 256
+     -> 128, subgraph 500, batch 80, --main_tasks all --use_transpositions,
+     conv_impl node) on a temporary copy of data_synth/ and its split file,
+     three epochs: the corpus build's seconds and its 227 samples per
+     interval (the JAX corpus's list), steps per epoch, median ms per train
+     step, K1 launches against the code's prediction, finite losses and
+     --do_eval metrics, whether pandas is importable on the host (the port
+     does not use it); a second build_datamodule from the .npz cache (24
+     .done markers, its samples array for array the built ones); then one
+     fit epoch of 2 steps on the GPU against the same on the CPU (dropout 0,
+     the same initial state dict);
+ 15. K6 check: halo_pull (csrc/halo_pull.cu), in the allocating form and in
      the planned form with out= that regime 2 uses, bit-equal to its plain
      version at the regime-2 shape (D = 4 partitions of 5,000 rows, H = 24,
      F = 256), at D = 1, 2, 8, H = 1, H = N_local, F = 25 (the scalar loop)
      and on non-contiguous inputs, with the median times of both forms, the
      plain version and an index_select yardstick (timed in turns), and the
      profiler's device time of the kernel, beside the bytes bound;
- 15. partitioned serve: the serve model (phase 4's weights) on a 20,000-note
+ 16. partitioned serve: the serve model (phase 4's weights) on a 20,000-note
      score through 4 partitions on a line.  Regime 1, the CLI's path:
      predict_score_partitioned(ids_only=True), K1 launches per window, ms
      per request, its embeddings within 2e-4 * max|full| + 2e-5 of the
@@ -100,7 +112,7 @@ Phases, each on its own line with elapsed seconds:
      note embeddings, within the same tolerance of model.encoder's output
      after ReLU and L2 norm, K6 launched num_layers + 1 times per forward, ms
      per forward;
- 16. the dryrun_multichip twin (__graft_entry__.py:287-356): 1,200 notes
+ 17. the dryrun_multichip twin (__graft_entry__.py:287-356): 1,200 notes
      (seed 7) of the serve model's configuration (3 x 256 -> 128, JK, 21
      tasks) through 8 partitions, within the same tolerance.
 The last lines are the card's nvidia-smi line, one JSON object describing
@@ -109,12 +121,15 @@ each kernel, and the result line.  Any failure raises and exits nonzero.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import importlib.util
 import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -186,6 +201,18 @@ HGT_TRAINER_FLAGS = ["--demo", "--use_metrical", "--model", "HGT", "--use_pallas
 TRAINER_PARITY_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--dropout", "0",
                         "--num_epochs", "1", "--main_tasks", "all"]
 TRAINER_PARITY_RTOL = 1e-5
+# scripts/parity_experiment.py:84-99's recipe (the repo's training run with task
+# metrics, RESULTS.md) at full width on a temporary copy of data_synth/ and its
+# split file; the default conv_impl "node" runs every SAGE layer and onset
+# pooling through K1
+RAW_DIR_FLAGS = ["--model", "HybridGNN", "--num_layers", "3", "--hidden_channels", "256", "--out_channels", "128",
+                 "--subgraph_size", "500", "--batch_size", "80", "--main_tasks", "all", "--use_transpositions",
+                 "--seed", "0"]
+RAW_DIR_EPOCHS = 3
+# data_synth/'s samples per interval under transposition: 227 in all, the
+# JAX corpus's list (tests/test_torch_port_corpora.py)
+RAW_DIR_COUNTS = {"P1": 24, "M2": 20, "m3": 20, "P4": 20, "P5": 20, "m6": 20, "M6": 20, "m7": 20, "M3": 18,
+                  "M7": 18, "m2": 15, "A4": 12}
 # partitioned against full-graph embeddings: 2e-4 of the largest |full| plus
 # 2e-5 (__graft_entry__.py:341-344; the JAX partition tests' tolerance)
 PART_RTOL, PART_ATOL = 2e-4, 2e-5
@@ -1376,7 +1403,7 @@ def hgt_trainer_phase(ckpt_dir: str) -> dict:
     return {"secs": rec["secs"], "median_step_ms": median_ms, "launches": launches, "wall_s": wall}
 
 
-def trainer_parity(ckpt_dir: str) -> dict:
+def trainer_parity(ckpt_dir: str, flags: list = TRAINER_PARITY_FLAGS, label: str = "trainer") -> dict:
     """One fit epoch of 2 steps on the GPU (kernels) against the same on the
     CPU (plain versions): dropout 0, the same initial state dict."""
     from analysisgnn_tpu_torch.cli.train import build_datamodule, resolve_config, train_config
@@ -1386,8 +1413,8 @@ def trainer_parity(ckpt_dir: str) -> dict:
 
     init = None
     out = {}
-    for label, dev in (("gpu", "cuda"), ("cpu", "cpu")):
-        config = resolve_config([*TRAINER_PARITY_FLAGS, "--device", dev, "--checkpoint_dir", f"{ckpt_dir}/{label}"])
+    for side, dev in (("gpu", "cuda"), ("cpu", "cpu")):
+        config = resolve_config([*flags, "--device", dev, "--checkpoint_dir", f"{ckpt_dir}/{side}"])
         trainer = Trainer(train_config(config), build_datamodule(config))
         if init is None:
             model = model_from_config(trainer.model_config, device="cpu")
@@ -1396,19 +1423,108 @@ def trainer_parity(ckpt_dir: str) -> dict:
             init = model.state_dict()
         t = time.perf_counter()
         trainer.fit(max_steps_per_epoch=2, initial_state_dict=init)
-        out[label] = (trainer.history[0], time.perf_counter() - t)
+        out[side] = (trainer.history[0], time.perf_counter() - t)
     rels = {}
     for key in ("train_loss", "val/total_loss"):
         g, c = out["gpu"][0][key], out["cpu"][0][key]
         rels[key] = abs(g - c) / abs(c)
         if not (np.isfinite(g) and rels[key] <= TRAINER_PARITY_RTOL):
-            raise AssertionError(f"trainer GPU vs CPU: {key} {g} vs {c} (rel {rels[key]:.2e}, tol {TRAINER_PARITY_RTOL})")
-    phase(f"trainer: one fit epoch of 2 steps, GPU vs CPU (plain versions, dropout 0, the same initial state dict, "
-          f"{' '.join(TRAINER_PARITY_FLAGS)}): train_loss {out['gpu'][0]['train_loss']:.6f} vs "
+            raise AssertionError(f"{label} GPU vs CPU: {key} {g} vs {c} (rel {rels[key]:.2e}, tol {TRAINER_PARITY_RTOL})")
+    phase(f"{label}: one fit epoch of 2 steps, GPU vs CPU (plain versions, dropout 0, the same initial state dict, "
+          f"{' '.join(flags)}): train_loss {out['gpu'][0]['train_loss']:.6f} vs "
           f"{out['cpu'][0]['train_loss']:.6f} (rel {rels['train_loss']:.2e}), val/total_loss "
           f"{out['gpu'][0]['val/total_loss']:.6f} vs {out['cpu'][0]['val/total_loss']:.6f} "
           f"(rel {rels['val/total_loss']:.2e}; tol {TRAINER_PARITY_RTOL}); the CPU fit took {out['cpu'][1]:.1f} s")
     return rels
+
+
+def _same_samples(a: list, b: list) -> None:
+    if [(s.name, s.test) for s in a] != [(s.name, s.test) for s in b]:
+        raise AssertionError("raw-dir trainer: the cached corpus lists other samples than the built one")
+    for x, y in zip(a, b):
+        for part in ("features", "edges", "note_attrs"):
+            px, py = getattr(x, part), getattr(y, part)
+            if list(px) != list(py) or not all(np.array_equal(px[k], py[k]) and px[k].dtype == py[k].dtype
+                                               for k in px):
+                raise AssertionError(f"raw-dir trainer: {x.name} {part} differ between the build and the cache")
+
+
+def raw_dir_trainer_phase(tmp: str) -> dict:
+    """The training entry point on file corpora: parity_experiment.py's recipe
+    at full width on a copy of data_synth/, then a second corpus build from
+    its .npz cache."""
+    import analysisgnn_tpu_torch.cli.train as cli
+
+    raw = f"{tmp}/data_synth"  # the CLI caches under <raw_dir>/.cache, so never in the checkout
+    shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_synth"), raw,
+                    ignore=shutil.ignore_patterns(".cache"))
+    data = ["--raw_dir", raw, "--test_split_file", f"{raw}/test_split.json"]
+    argv = [*data, *RAW_DIR_FLAGS, "--num_epochs", str(RAW_DIR_EPOCHS), "--do_train", "--do_eval",
+            "--checkpoint_dir", f"{tmp}/ckpt"]
+    build, build_s = cli.build_datamodule, []
+
+    def timed_build(config):
+        t0 = time.perf_counter()
+        dm = build(config)
+        build_s.append(time.perf_counter() - t0)
+        return dm
+
+    printed = io.StringIO()
+    t = time.perf_counter()
+    cli.build_datamodule = timed_build
+    _reset_counts()  # the raw-dir Trainer path's run starts here
+    try:
+        with contextlib.redirect_stdout(printed):  # --do_eval prints the test metrics as JSON
+            trainer = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        cli.build_datamodule = build
+    counts = _counts()
+    wall = time.perf_counter() - t
+    samples = trainer.dm.task_samples["all"]
+    per_interval = collections.Counter(s.transposition for s in samples)
+    if len(samples) != 227 or per_interval != RAW_DIR_COUNTS:
+        raise AssertionError(f"raw-dir trainer: {len(samples)} samples {dict(per_interval)}, want 227 "
+                             f"{RAW_DIR_COUNTS}")
+    pandas = importlib.util.find_spec("pandas")
+    phase(f"raw-dir trainer: corpus of {len(samples)} samples from {len(os.listdir(f'{raw}/all'))} DLC TSVs "
+          f"built in {build_s[0]:.2f} s (" + ", ".join(f"{k} {v}" for k, v in per_interval.items())
+          + f"); test pieces {sorted(s.name for s in samples if s.test)}; pandas importable on this host: "
+          f"{pandas is not None}{f' ({pandas.origin})' if pandas else ''} (the port does not use it)")
+    text = printed.getvalue()
+    test_metrics = json.loads(text[text.index("{"):])
+    if not test_metrics or not all(np.isfinite(v) for v in test_metrics.values()):
+        raise AssertionError("raw-dir trainer: --do_eval printed no or non-finite test metrics")
+    hist = trainer.history
+    epochs = len(hist)
+    launches = _check_trainer_launches("raw-dir trainer", trainer, counts, epochs, evaluated=True)
+    losses = [r["train_loss"] for r in hist] + [r["val/total_loss"] for r in hist]
+    if epochs != RAW_DIR_EPOCHS or not all(np.isfinite(losses)):
+        raise AssertionError(f"raw-dir trainer: {epochs} epochs, losses {losses}")
+    steps_ms = [x * 1e3 for x in trainer.step_seconds]
+    per_epoch = len(steps_ms) // epochs
+    median_ms = statistics.median(steps_ms[per_epoch:])  # after the first epoch's warm-up
+    phase(f"raw-dir trainer: cli.train.main {' '.join(RAW_DIR_FLAGS)} --num_epochs {RAW_DIR_EPOCHS}: {epochs} epochs "
+          f"of {per_epoch} train steps in {wall:.2f} s (corpus build included); seconds per epoch "
+          + ", ".join(f"{r['secs']}" for r in hist)
+          + f"; median {median_ms:.2f} ms per train step after the first epoch (first step {steps_ms[0]:.1f} ms); "
+          "train_loss " + ", ".join(f"{r['train_loss']:.4f}" for r in hist)
+          + "; val/total_loss " + ", ".join(f"{r['val/total_loss']:.4f}" for r in hist))
+    phase(f"raw-dir trainer: --do_eval test metrics ({len(test_metrics)} keys): "
+          + ", ".join(f"{k} {test_metrics[k]:.4f}" for k in ("all/localkey_acc", "all/degree1_acc", "all/cadence_acc",
+                                                           "all/rna_onset_acc") if k in test_metrics))
+    t = time.perf_counter()
+    cached = cli.build_datamodule(cli.resolve_config(argv))
+    cache_s = time.perf_counter() - t
+    markers = [f for f in os.listdir(f"{raw}/.cache") if f.endswith(".done")]
+    if len(markers) != 24:
+        raise AssertionError(f"raw-dir trainer: {len(markers)} .done markers in the cache, want 24")
+    _same_samples(samples, cached.task_samples["all"])
+    phase(f"raw-dir trainer: a second build_datamodule read the cache ({len(markers)} .done markers) in "
+          f"{cache_s:.2f} s, its {len(cached.task_samples['all'])} samples array for array the built ones")
+    return {"samples": len(samples), "build_s": build_s[0], "cache_s": cache_s, "epochs": epochs,
+            "steps_per_epoch": per_epoch, "median_step_ms": median_ms, "secs": [r["secs"] for r in hist],
+            "launches": launches, "wall_s": wall, "flags": [*data, *RAW_DIR_FLAGS]}
 
 
 # ------------------------------------------------------- partitioned serving
@@ -1746,8 +1862,13 @@ def main() -> None:
         trainer = trainer_phase(f"{tmp}/trainer")
         hgt_trainer = hgt_trainer_phase(f"{tmp}/trainer_hgt")
         trainer_rels = trainer_parity(f"{tmp}/parity")
-    phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step, "
-          f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step; GPU vs CPU {trainer_rels}")
+        phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step, "
+              f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step; GPU vs CPU {trainer_rels}")
+        raw_dir = raw_dir_trainer_phase(f"{tmp}/raw_dir")
+        raw_dir_rels = trainer_parity(f"{tmp}/raw_dir_parity", [*raw_dir["flags"], "--dropout", "0", "--num_epochs",
+                                                                "1"], "raw-dir trainer")
+    phase(f"raw-dir trainer: done; {raw_dir['samples']} samples built in {raw_dir['build_s']:.2f} s, read back in "
+          f"{raw_dir['cache_s']:.2f} s; {raw_dir['median_step_ms']:.2f} ms per train step; GPU vs CPU {raw_dir_rels}")
 
     k6_rows = k6_checks()
     phase("kernel check: K6 done")
@@ -1827,6 +1948,7 @@ def main() -> None:
         "trainer_launches": hgt_trainer["launches"]["launches"]["segment_softmax_agg"],
     })
     kernels[0]["trainer_launches"] = trainer["launches"]["launches"]["segment_mean_base"]
+    kernels[0]["raw_dir_trainer_launches"] = raw_dir["launches"]["launches"]["segment_mean_base"]
     kernels[1]["trainer_launches"] = trainer["launches"]["launches"]["relation_weighted_matmul"]
     # K4 and K5: held against their plain versions above; no path of the JAX
     # package runs them (their only callers are tests), so none here does

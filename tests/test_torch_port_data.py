@@ -98,9 +98,18 @@ def test_samples_from_note_array_match_jax(beats):
 
 
 def test_samples_from_note_array_refuses_what_is_not_ported():
+    """Labels of another length than the notes are refused; a transposed
+    sample (``M2``) is the JAX package's."""
     na = synthetic_score(20, seed=0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcorpus.samples_from_note_array(na, transpositions=("P1", "M2"))
+    (_, j), (_, t) = (corpus.samples_from_note_array(na, transpositions=("P1", "M2"), labels=_labels(na))
+                      for corpus in (jcorpus, tcorpus))
+    assert (t.name, t.transposition) == (j.name, j.transposition) == ("_M2", "M2")
+    for part in ("features", "edges", "note_attrs"):
+        assert list(getattr(t, part)) == list(getattr(j, part))
+        for k, v in getattr(j, part).items():
+            np.testing.assert_array_equal(getattr(t, part)[k], v, err_msg=f"{part} {k}")
+    assert not np.array_equal(t.note_attrs["pitch_spelling"], tcorpus.samples_from_note_array(na)[0].note_attrs[
+        "pitch_spelling"])
     with pytest.raises(ValueError, match="rows"):
         tcorpus.samples_from_note_array(na, labels={"cadence": np.zeros(3, np.int64)})
 

@@ -1,5 +1,6 @@
-"""The port imports nothing of JAX or of the JAX package, and its entry points
-never fall back to the CPU on their own."""
+"""The port imports nothing of JAX, of the JAX package or of pandas (which
+the machine with the card lacks), and its entry points never fall back to
+the CPU on their own."""
 
 import os
 import re
@@ -12,7 +13,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "analysisgnn_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "analysisgnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "analysisgnn_tpu", "pandas")
 
 IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -36,7 +37,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
-    assert len(names) >= 53  # every module of the port and chip_smoke, the launch helper's included
+    assert len(names) >= 58  # every module of the port and chip_smoke, the file corpora's included
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
@@ -44,7 +45,8 @@ def test_every_port_module_imports_without_jax():
         "kernels.segment_sum", "kernels.segment_softmax", "data.corpus", "data.prefetch", "data.datamodule",
         "train.metrics", "train.loop", "cli.train",
         "kernels.halo", "distributed", "distributed.partition", "distributed.partition_encoder",
-        "kernels.launch",
+        "kernels.launch", "data._table", "data.tsv", "data.dlc_meta", "data.time_divided", "data.samplers",
+        "data.features", "theory.encoders",
     )} <= names
 
 
@@ -55,10 +57,11 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 54 and {
+    assert len(files) >= 59 and {
         "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
         "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
-        "halo.py", "partition.py", "partition_encoder.py", "launch.py",
+        "halo.py", "partition.py", "partition_encoder.py", "launch.py", "_table.py", "tsv.py", "dlc_meta.py",
+        "time_divided.py", "samplers.py",
     } <= {f.name for f in files}
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
     assert not offenders, offenders

@@ -13,6 +13,8 @@ byte-equal.
 import dataclasses
 import functools
 import json
+import shutil
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -35,6 +37,7 @@ from analysisgnn_tpu_torch.inference.predict import predict_score_ids
 from analysisgnn_tpu_torch.train import loop as tloop
 
 TASKS = tuple(TASK_DICT.items())
+REPO = Path(__file__).resolve().parent.parent
 TRAINER_RTOL, TRAINER_ATOL = 1e-4, 1e-6
 
 
@@ -214,5 +217,14 @@ def test_cli_train_then_predict_roundtrip_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     metrics = json.loads(out[out.index("{"):])
     assert "all/cadence_acc" in metrics and "all/rna_onset_acc" in metrics
-    with pytest.raises(NotImplementedError, match="raw_dir"):
-        tcli.main(["--raw_dir", str(tmp_path), "--device", "cpu", *TINY, "--checkpoint_dir", ckpt])
+    # --raw_dir trains on the corpus files (here three pieces of data_synth) and writes the checkpoints
+    raw = tmp_path / "raw" / "all"
+    raw.mkdir(parents=True)
+    for name in ("synth_07_000.tsv", "synth_07_001.tsv", "synth_07_020.tsv"):
+        shutil.copy(REPO / "data_synth" / "all" / name, raw / name)
+    raw_ckpt = tmp_path / "raw_ckpt"
+    trainer = tcli.main(["--raw_dir", str(tmp_path / "raw"), "--device", "cpu", *TINY, "--checkpoint_dir",
+                         str(raw_ckpt), "--do_train", "--main_tasks", "all", "--num_epochs", "1",
+                         "--subgraph_size", "24", "--batch_size", "20", "--max_steps_per_epoch", "1"])
+    assert len(trainer.history) == 1 and np.isfinite(trainer.history[0]["train_loss"])
+    assert (raw_ckpt / "last.pt").is_file() and (tmp_path / "raw" / ".cache").is_dir()
