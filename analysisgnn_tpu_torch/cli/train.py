@@ -17,6 +17,14 @@ MusicXML; cached as ``.npz`` under ``<raw_dir>/.cache``) or, with
     cp -r data_synth /tmp/ds
     python -m analysisgnn_tpu_torch.cli.train --raw_dir /tmp/ds --test_split_file /tmp/ds/test_split.json \\
         --main_tasks all --use_transpositions --do_train --do_eval
+
+``configs/example_config.json`` trains the three main tasks one after
+another (``cl_training``) with the distillation from the frozen teacher; its
+raw dir holds ``all/``, ``cadence/`` and ``rna/`` (``rna/`` is read with the
+AugmentedNet labels):
+
+    python -m analysisgnn_tpu_torch.cli.train --config_path configs/example_config.json --raw_dir /tmp/ds \\
+        --num_epochs 3 --do_train --do_eval
 """
 
 from __future__ import annotations
@@ -347,7 +355,9 @@ def train_config(config: Dict):
         logit_fusion=config.get("logit_fusion", False),
         use_rnn=config.get("use_rnn", False),
         mt_strategy=config.get("mt_strategy", "wloss"),
+        lambda_dctn=config.get("lambda_dctn", 0.5),
         lambda_featl=config.get("lambda_featl", 0.1),
+        lambda_ewc=config.get("lambda_ewc", 2.0),
         use_ewc=config.get("use_ewc", False),
         use_smote=config.get("use_smote", False),
         use_swa=config.get("use_swa", False),
@@ -363,6 +373,8 @@ def train_config(config: Dict):
         log_path=os.path.join(config.get("checkpoint_dir", "checkpoints"), "log.jsonl"),
         use_wandb=config.get("use_wandb", False),
         resume=config.get("load_from_checkpoint", False),
+        scan_steps=config.get("scan_steps", 1),
+        num_workers=config.get("num_workers", 0),
         test_eval_every=config.get("test_eval_every", 0),
         device=config.get("device", "cuda"),
     )

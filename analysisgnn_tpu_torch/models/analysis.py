@@ -179,8 +179,8 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
             raise NotImplementedError(f"model_config {key}={cfg[key]!r} is not ported (supported: {allowed})")
     if cfg.get("hgt_stage_dtype", "float32") != "float32":
         raise NotImplementedError(
-            f"model_config hgt_stage_dtype={cfg['hgt_stage_dtype']!r} is not ported yet: bf16 staging comes with "
-            "the Trainer slice (ROADMAP queue 1 item 7), as StepConfig's bf16 compute does"
+            f"model_config hgt_stage_dtype={cfg['hgt_stage_dtype']!r} is not ported yet: bf16 staging feeds K2 bf16 "
+            "inputs and comes in a later slice with StepConfig's bf16 compute (ROADMAP queue 1 item 7.3)"
         )
     encoder_type = cfg.get("model", "HybridGNN").lower()
     nodes, edges = metadata(cfg.get("add_beats", False), cfg.get("add_measures", False))

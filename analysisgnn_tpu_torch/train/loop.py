@@ -1,18 +1,24 @@
 """Training orchestration (counterpart of ``analysisgnn_tpu/train/loop.py``):
 the epoch loop in combined mode (every main task's batches round-robin each
-step, one union of task heads), note-weighted validation after every epoch,
-best/last/``{task}_model`` checkpoints, stochastic weight averaging, the
-periodic test-split curve, and the test-split evaluation.
+step, one union of task heads) or in continual-learning mode (``cl_training``:
+one main task after another, each with its own heads, prefetched batches from
+``num_workers`` sampler threads and ``scan_steps`` updates a call; at each
+switch the frozen teacher takes the current parameters for the distillation
+over the tasks seen so far and, with ``use_ewc``, the EWC anchor is taken and
+the fisher filled from one validation batch of every seen task), note-weighted
+validation after every epoch, best/last/``{task}_model`` checkpoints,
+stochastic weight averaging, the periodic test-split curve, and the test-split
+evaluation.  FAMO (``mt_strategy="famo"``) weighs the tasks in either mode.
 
 ``torch.save`` replaces Orbax: ``<checkpoint_dir>/<tag>.pt`` is the model's
 state dict (what ``cli/predict.py::load_model`` reads), and ``full.pt`` holds
 the whole training state (parameters, ``mt_params``, both Adam moments with
-their count, the step and the dropout generator) for ``resume``.
+their count, the step, the dropout generator, the teacher, the EWC fisher
+and means, and FAMO's state) for ``resume``.
 
-Not ported yet, and refused: continual-learning task switches (``cl_training``;
-they need distillation), EWC, SMOTE, the edge-consistency loss, FAMO, bf16
-staging and W&B logging (ROADMAP queue 1 item 7); ``remat``,
-``final_dropout`` and the Dense-only torch-style init (item 11).
+Not ported yet, and refused: SMOTE, the edge-consistency loss, bf16 staging
+and W&B logging (ROADMAP queue 1 item 7.3); ``remat``, ``final_dropout`` and
+the Dense-only torch-style init (item 11).
 """
 
 from __future__ import annotations
@@ -33,8 +39,22 @@ from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_co
 from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
 from analysisgnn_tpu_torch.train.metrics import accumulate_weighted, finalize_weighted
 from analysisgnn_tpu_torch.train.schedules import warmup_cosine_schedule
-from analysisgnn_tpu_torch.train.state import TrainState, create_train_state, make_optimizer, torch_style_reinit
-from analysisgnn_tpu_torch.train.step import StepConfig, make_eval_step, make_test_step, make_train_step
+from analysisgnn_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    make_optimizer,
+    snapshot_ewc_anchor,
+    torch_style_reinit,
+    update_teacher,
+)
+from analysisgnn_tpu_torch.train.step import (
+    StepConfig,
+    make_eval_step,
+    make_fisher_step,
+    make_test_step,
+    make_train_step,
+    make_train_step_multi,
+)
 
 # composite main task -> its head names
 RNA_TASKS = ("localkey", "tonkey", "quality", "root", "bass", "inversion", "degree1", "degree2")
@@ -50,10 +70,8 @@ def expand_main_task(task: str, task_dict: Mapping[str, int]) -> Tuple[str, ...]
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The JAX ``TrainConfig``'s fields (the reference CLI's surface) that
-    combined mode reads or refuses, plus the device the Trainer runs on.  The
-    weights of the distillation, EWC and edge losses and the continual-
-    learning loop's ``scan_steps`` and ``num_workers`` come with that loop."""
+    """The JAX ``TrainConfig``'s fields (the reference CLI's surface) that the
+    Trainer reads or refuses, plus the device the Trainer runs on."""
 
     num_layers: int = 3
     hidden_channels: int = 256
@@ -76,8 +94,10 @@ class TrainConfig:
     torch_init: bool = True
     fused_torch_init: bool = True
     final_dropout: bool = False
-    mt_strategy: str = "wloss"
+    mt_strategy: str = "wloss"  # "wloss" | "famo" | any other name for the plain sum
+    lambda_dctn: float = 0.5  # distillation from the teacher over the previous tasks
     lambda_featl: float = 0.1
+    lambda_ewc: float = 2.0
     use_ewc: bool = False
     use_edge_loss: bool = False
     use_smote: bool = False
@@ -94,23 +114,26 @@ class TrainConfig:
     log_path: Optional[str] = None
     use_wandb: bool = False
     resume: bool = False  # restore the full state from checkpoint_dir/full.pt
+    # continual-learning mode: optimizer updates a step call (the same
+    # updates, one after another), and sampler threads (> 1: that many
+    # sampler clones in no fixed order; else one prefetch thread, the stream
+    # of the JAX Trainer)
+    scan_steps: int = 1
+    num_workers: int = 0
     # every N global epochs, evaluate the test split and append a line to
     # <checkpoint_dir>/test_curve.jsonl; 0 disables
     test_eval_every: int = 0
     device: str = "cuda"  # the GPU unless the caller asks for the CPU
 
 
-_ITEM7 = "is not ported yet: it comes with the continual-learning part of the Trainer slice (ROADMAP queue 1 item 7)"
+_ITEM7 = "is not ported yet (ROADMAP queue 1 item 7.3)"
 _ITEM11 = "is not ported yet: it comes with the remaining HybridGNN knobs (ROADMAP queue 1 item 11)"
 
 
 def _refuse(cfg: TrainConfig) -> None:
     refused = {
-        "cl_training (task switches need distillation)": (cfg.cl_training, _ITEM7),
-        "use_ewc": (cfg.use_ewc, _ITEM7),
         "use_smote": (cfg.use_smote, _ITEM7),
         "use_edge_loss": (cfg.use_edge_loss, _ITEM7),
-        "mt_strategy='famo'": (cfg.mt_strategy == "famo", _ITEM7),
         f"hgt_stage_dtype={cfg.hgt_stage_dtype!r} (bf16 staging)": (cfg.hgt_stage_dtype != "float32", _ITEM7),
         "use_wandb": (cfg.use_wandb, _ITEM7),
         "remat": (cfg.remat, _ITEM11),
@@ -145,6 +168,7 @@ class Trainer:
         self.best_val = float("inf")
         # host seconds of each train step call (each step ends in a host sync)
         self.step_seconds: List[float] = []
+        self.epoch_memory_loss: List[float] = []  # each epoch's mean distillation loss
         self._step_cache: Dict = {}
 
     # ------------------------------------------------------------------ #
@@ -163,24 +187,44 @@ class Trainer:
         schedule = warmup_cosine_schedule(self.cfg.lr, total_steps=max(total_steps, 10))
         self.optimizer = make_optimizer(schedule, self.cfg.weight_decay)
         self._step_cache = {}
-        return create_train_state(self.model, len(self.task_dict), self.optimizer, seed=self.cfg.seed + 1)
+        return create_train_state(
+            self.model, len(self.task_dict), self.optimizer, seed=self.cfg.seed + 1, mt_strategy=self.cfg.mt_strategy
+        )
 
     def _epochs_per_task(self) -> Tuple[int, ...]:
         if self.cfg.epochs_per_task:
             return tuple(self.cfg.epochs_per_task)
-        return (max(self.cfg.num_epochs, 1),)
+        n = len(self.dm.main_tasks) if self.cfg.cl_training else 1
+        return tuple([max(self.cfg.num_epochs // n, 1)] * n)
 
-    def _steps_for(self, active: Tuple[str, ...]) -> Tuple[Callable, Callable]:
-        """The train and eval steps of one set of active task heads."""
-        if active not in self._step_cache:
+    def _cl_active(self, main_task: str) -> Tuple[str, ...]:
+        """A main task's heads in continual-learning mode: its expansion, cut
+        to the labels its corpus has."""
+        return tuple(t for t in expand_main_task(main_task, self.task_dict) if t in self.dm.active_tasks(main_task))
+
+    def _steps_for(self, active: Tuple[str, ...], previous: Tuple[str, ...]) -> Tuple[Callable, ...]:
+        """The train, eval, fisher and K-step train steps of one set of active
+        task heads and one set of distillation targets."""
+        key = (active, previous)
+        if key not in self._step_cache:
+            cfg = self.cfg
             sc = StepConfig(
                 task_dict=tuple(self.task_dict.items()),
                 active_tasks=active,
-                mt_strategy=self.cfg.mt_strategy,
-                lambda_featl=self.cfg.lambda_featl,
+                previous_tasks=previous,
+                mt_strategy=cfg.mt_strategy,
+                lambda_dctn=cfg.lambda_dctn,
+                lambda_featl=cfg.lambda_featl,
+                lambda_ewc=cfg.lambda_ewc,
+                use_ewc=cfg.use_ewc,
             )
-            self._step_cache[active] = (make_train_step(self.model, self.optimizer, sc), make_eval_step(self.model, sc))
-        return self._step_cache[active]
+            self._step_cache[key] = (
+                make_train_step(self.model, self.optimizer, sc),
+                make_eval_step(self.model, sc),
+                make_fisher_step(self.model, sc),
+                make_train_step_multi(self.model, self.optimizer, sc) if cfg.scan_steps > 1 else None,
+            )
+        return self._step_cache[key]
 
     def _log(self, record: Dict) -> None:
         self.history.append(record)
@@ -204,21 +248,27 @@ class Trainer:
 
     def save_full_state(self, state: TrainState, tag: str = "full") -> str:
         """Everything a resumed run needs: parameters, ``mt_params``, both Adam
-        moments with their count, the step and the dropout generator."""
+        moments with their count, the step, the dropout generator, the
+        teacher, the EWC fisher and means, and FAMO's state."""
         path = self._path(tag)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        torch.save(
-            {
-                "step": state.step,
-                "params": self.model.state_dict(),
-                "mt_params": state.mt_params.detach(),
-                "opt_count": state.opt_state.count,
-                "opt_mu": list(state.opt_state.mu),
-                "opt_nu": list(state.opt_state.nu),
-                "generator": state.generator.get_state(),
-            },
-            path,
-        )
+        full = {
+            "step": state.step,
+            "params": self.model.state_dict(),
+            "mt_params": state.mt_params.detach(),
+            "opt_count": state.opt_state.count,
+            "opt_mu": list(state.opt_state.mu),
+            "opt_nu": list(state.opt_state.nu),
+            "generator": state.generator.get_state(),
+            "teacher": state.teacher.state_dict(),
+            "fisher": list(state.fisher),
+            "means": list(state.means),
+        }
+        if state.famo is not None:
+            famo = state.famo
+            full["famo"] = {"w": famo.w, "opt_count": famo.opt_state.count, "opt_mu": famo.opt_state.mu,
+                            "opt_nu": famo.opt_state.nu, "prev_loss": famo.prev_loss, "min_losses": famo.min_losses}
+        torch.save(full, path)
         return path
 
     @torch.no_grad()
@@ -231,6 +281,16 @@ class Trainer:
         state.opt_state.count = int(full["opt_count"])
         state.step = int(full["step"])
         state.generator.set_state(full["generator"].cpu())
+        state.teacher.load_state_dict(full["teacher"])
+        for dst, src in zip(state.fisher + state.means, full["fisher"] + full["means"]):
+            dst.copy_(src)
+        if state.famo is not None:
+            famo, saved = state.famo, full["famo"]
+            for dst, src in zip([famo.w, famo.prev_loss, famo.min_losses, *famo.opt_state.mu, *famo.opt_state.nu],
+                                [saved["w"], saved["prev_loss"], saved["min_losses"], *saved["opt_mu"],
+                                 *saved["opt_nu"]]):
+                dst.copy_(src)
+            famo.opt_state.count = int(saved["opt_count"])
         return state
 
     # ------------------------------------------------------------------ #
@@ -240,12 +300,12 @@ class Trainer:
         max_steps_per_epoch: Optional[int] = None,
         initial_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> TrainState:
-        """Train in combined mode, from fresh parameters or from
-        ``initial_state_dict``; returns the final state (the parameters are
-        the model's)."""
+        """Train in combined or continual-learning mode, from fresh parameters
+        or from ``initial_state_dict``; returns the final state (the
+        parameters are the model's)."""
         cfg = self.cfg
         requested = [t for t in cfg.main_tasks if t in self.dm.main_tasks] or self.dm.main_tasks
-        main_tasks = [requested[0]]
+        main_tasks = requested if cfg.cl_training else [requested[0]]
         epochs_per_task = self._epochs_per_task()
         # the JAX Trainer draws one batch per task here for its init; drawing
         # it too keeps the samplers' random streams the same
@@ -254,30 +314,57 @@ class Trainer:
         if cfg.resume and os.path.isfile(self._path("full")):
             state = self.restore_full_state(state, "full")
 
+        previous: Tuple[str, ...] = ()
         total_epochs = sum(epochs_per_task)
         swa_begin = int(cfg.swa_start_frac * total_epochs)
         swa_params: Optional[Dict[str, torch.Tensor]] = None
         swa_n = 0
         global_epoch = 0
         total_steps_done = 0
-        active_by_task = {mt: tuple(self.dm.active_tasks(mt)) for mt in self.dm.main_tasks}
+        if cfg.cl_training:
+            active_by_task = {mt: self._cl_active(mt) for mt in main_tasks}
+        else:
+            active_by_task = {mt: tuple(self.dm.active_tasks(mt)) for mt in self.dm.main_tasks}
         for ti, main_task in enumerate(main_tasks):
             for epoch in range(epochs_per_task[ti]):
                 t0 = time.time()
                 steps = max_steps_per_epoch or self.dm.steps_per_epoch(main_task)
-                loss_handles = []  # read once at the epoch's end
-                for batch_dict in prefetch(self.dm.combined_train_batches(steps)):
-                    for mt, batch in batch_dict.items():
-                        train_step, _ = self._steps_for(active_by_task[mt])
-                        t = time.perf_counter()
-                        state, aux = train_step(state, batch)
-                        self.step_seconds.append(time.perf_counter() - t)
-                        loss_handles.append(aux["total_loss"])
-                losses = torch.stack(loss_handles).cpu().tolist() if loss_handles else []
+                auxes = []  # read once at the epoch's end
+
+                def run(step, state, batch):
+                    t = time.perf_counter()
+                    new_state, aux = step(state, batch)
+                    self.step_seconds.append(time.perf_counter() - t)
+                    auxes.append(aux)
+                    return new_state
+
+                if cfg.cl_training:
+                    train_step, _, _, multi_step = self._steps_for(active_by_task[main_task], previous)
+                    chunk = []
+                    for batch in self.dm.train_batches_prefetched(main_task, steps, num_workers=cfg.num_workers):
+                        if multi_step is None:
+                            state = run(train_step, state, batch)
+                            continue
+                        chunk.append(batch)
+                        if len(chunk) == cfg.scan_steps:
+                            state = run(multi_step, state, chunk)
+                            chunk = []
+                    for batch in chunk:  # the remainder, fewer than scan_steps
+                        state = run(train_step, state, batch)
+                else:
+                    for batch_dict in prefetch(self.dm.combined_train_batches(steps)):
+                        for mt, batch in batch_dict.items():
+                            state = run(self._steps_for(active_by_task[mt], previous)[0], state, batch)
+                if auxes:
+                    losses = torch.cat([a["total_loss"].reshape(-1) for a in auxes]).cpu().tolist()
+                    memory = torch.cat([a["memory_loss"].reshape(-1) for a in auxes]).cpu().tolist()
+                    self.epoch_memory_loss.append(float(np.mean(memory)))
+                else:
+                    losses = []
                 # validation, each metric weighted by the notes it covers
                 val_acc: Dict[str, object] = {}
-                for mt in self.dm.main_tasks:
-                    _, eval_step = self._steps_for(active_by_task[mt])
+                for mt in main_tasks if cfg.cl_training else self.dm.main_tasks:
+                    _, eval_step, _, _ = self._steps_for(active_by_task[mt], previous)
                     for batch in self.dm.val_batches(mt):
                         accumulate_weighted(val_acc, eval_step(state, batch))
                 val_metrics = finalize_weighted(val_acc)
@@ -311,7 +398,21 @@ class Trainer:
                             "wloss_p": [round(float(v), 5) for v in state.mt_params.detach().cpu()],
                             **{k: float(v) for k, v in test_metrics.items()},
                         }) + "\n")
+            # the task switch: nothing else resets (optimizer moments,
+            # mt_params, the step count and the schedule carry over)
             self.save_checkpoint(f"{main_task}_model")
+            if cfg.cl_training and ti < len(main_tasks) - 1:
+                active = active_by_task[main_task]
+                previous = tuple(dict.fromkeys(previous + expand_main_task(main_task, self.task_dict)))
+                state = update_teacher(state, self.model)
+                if cfg.use_ewc:
+                    state = snapshot_ewc_anchor(state, self.model)
+                    # the fisher from the first validation batch of every task seen
+                    fisher_step = self._steps_for(active, previous)[2]
+                    for mt in main_tasks[: ti + 1]:
+                        for batch in self.dm.val_batches(mt):
+                            state = fisher_step(state, batch, float(ti + 1))
+                            break
         if cfg.use_swa and swa_params is not None:
             # the averaged weights replace the trained ones for the final checkpoints
             self.model.load_state_dict(swa_params)

@@ -32,7 +32,7 @@ def f1_stats(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor, n
     negatives of the weighted rows, added across batches and finalized by
     :func:`finalize_f1` (split-level macro-F1, not a mean of batch F1s)."""
     w = weight.float()
-    labels = labels.clamp(0, num_classes - 1)
+    labels = labels.long().clamp(0, num_classes - 1)  # transposed corpora carry int32 labels
     onehot_true = torch.nn.functional.one_hot(labels, num_classes).float() * w[:, None]
     onehot_pred = torch.nn.functional.one_hot(logits.argmax(-1), num_classes).float() * w[:, None]
     tp = (onehot_true * onehot_pred).sum(0)

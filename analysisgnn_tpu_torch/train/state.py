@@ -1,24 +1,27 @@
 """Training state and optimizer (counterpart of
-``analysisgnn_tpu/train/state.py``: ``TrainState`` without the continual-
-learning memories, ``torch_style_reinit`` and ``make_optimizer``).
+``analysisgnn_tpu/train/state.py``: ``TrainState`` with the continual-
+learning memories, ``update_teacher``, ``snapshot_ewc_anchor``,
+``accumulate_fisher``, ``torch_style_reinit`` and ``make_optimizer``).
 
 The model's parameters live in the ``nn.Module`` and are updated in place;
 the state holds what else a step reads and writes: the multi-task weights,
-the optimizer's moments and count, the step count and the dropout generator.
+the optimizer's moments and count, the step count, the dropout generator,
+the frozen distillation teacher, the EWC fisher and means, and FAMO's state.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections.abc import Mapping
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from analysisgnn_tpu_torch.convert import flax_tree_from_state_dict, state_dict_from_flax
-from analysisgnn_tpu_torch.train.losses import init_mt_params
+from analysisgnn_tpu_torch.train.losses import FAMOState, famo_init, init_mt_params
 
 
 # optax.adamw's defaults, the JAX package's default weight decay and clipping norm
@@ -35,7 +38,8 @@ class AdamWState:
 class ClippedAdamW:
     """``optax.chain(clip_by_global_norm(clip_norm), adamw(lr_schedule,
     weight_decay))`` (b1 0.9, b2 0.999, ``eps`` added after the square root)
-    over every trainable, ``mt_params`` included:
+    over every trainable, ``mt_params`` included, or ``optax.adamw`` alone
+    with ``clip_norm=None`` (FAMO's task logits):
 
     * clip: ``g * clip_norm / norm`` when the global norm is at least
       ``clip_norm`` (not ``clip_grad_norm_``'s ``norm + 1e-6``);
@@ -49,7 +53,7 @@ class ClippedAdamW:
         lr_schedule: Callable[[int], float],
         eps: float = 1e-8,
         weight_decay: float = WEIGHT_DECAY,
-        clip_norm: float = CLIP_NORM,
+        clip_norm: Optional[float] = CLIP_NORM,
     ):
         self.lr_schedule = lr_schedule
         self.eps = eps
@@ -63,9 +67,10 @@ class ClippedAdamW:
     def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: AdamWState) -> None:
         """One update of ``params`` and ``state``, in place."""
         params, grads = list(params), list(grads)
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
-        grads = torch._foreach_mul(grads, scale)
+        if self.clip_norm is not None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
+            grads = torch._foreach_mul(grads, scale)
         count = state.count + 1
         torch._foreach_mul_(state.mu, B1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - B1)
@@ -93,17 +98,55 @@ class TrainState:
     mt_params: torch.Tensor  # [num_tasks] learnable uncertainty weights
     opt_state: AdamWState  # over the model's parameters, then mt_params
     generator: torch.Generator  # dropout masks, on the model's device
+    teacher: nn.Module  # the frozen distillation teacher: a copy of the model
+    fisher: List[torch.Tensor]  # EWC fisher diagonal, one per model parameter (zeros when unused)
+    means: List[torch.Tensor]  # EWC anchor, one per model parameter
+    famo: Optional[FAMOState] = None  # when mt_strategy == "famo"
     step: int = 0
 
 
-def create_train_state(model: nn.Module, num_tasks: int, optimizer: ClippedAdamW, seed: int) -> TrainState:
+def create_train_state(
+    model: nn.Module, num_tasks: int, optimizer: ClippedAdamW, seed: int, mt_strategy: str = "wloss"
+) -> TrainState:
+    """The state of a fresh run; the teacher and the EWC means are copies of
+    the model's parameters, with buffers of their own, and the fisher zeros."""
     device = next(model.parameters()).device
     mt = init_mt_params(num_tasks, device).requires_grad_(True)
+    params = [p.detach() for p in model.parameters()]
     return TrainState(
         mt_params=mt,
         opt_state=optimizer.init([*model.parameters(), mt]),
         generator=torch.Generator(device=device).manual_seed(seed),
+        teacher=copy.deepcopy(model).eval().requires_grad_(False),
+        fisher=[torch.zeros_like(p) for p in params],
+        means=[p.clone() for p in params],
+        famo=famo_init(num_tasks, device)[0] if mt_strategy == "famo" else None,
     )
+
+
+@torch.no_grad()
+def update_teacher(state: TrainState, model: nn.Module) -> TrainState:
+    """Freeze the model's current parameters as the distillation teacher."""
+    state.teacher.load_state_dict(model.state_dict())
+    return state
+
+
+@torch.no_grad()
+def snapshot_ewc_anchor(state: TrainState, model: nn.Module) -> TrainState:
+    """The model's current parameters become the EWC means; the fisher is
+    reset to zeros."""
+    state.means = [p.detach().clone() for p in model.parameters()]
+    state.fisher = [torch.zeros_like(p) for p in state.means]
+    return state
+
+
+@torch.no_grad()
+def accumulate_fisher(state: TrainState, grads: Sequence[Optional[torch.Tensor]], scale: float) -> TrainState:
+    """``fisher += grad^2 / scale`` (a missing gradient is zero)."""
+    for f, g in zip(state.fisher, grads):
+        if g is not None:
+            f.add_(g**2 / scale)
+    return state
 
 
 def _redraw(node: Mapping, rng: np.random.Generator) -> dict:

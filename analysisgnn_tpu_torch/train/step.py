@@ -1,13 +1,16 @@
-"""The multi-task train, eval and test steps (counterpart of
+"""The multi-task train, eval, test and fisher steps (counterpart of
 ``analysisgnn_tpu/train/step.py``: ``StepConfig``, ``compute_losses`` with the
-wloss combiner and the feature-norm loss, the step body with its NaN/Inf
-skip, ``make_train_step``, the K-step ``make_train_step_multi`` as a plain
-loop over a list of batches (``stack_batches``), ``make_eval_step`` and
-``make_test_step`` with their ``__w`` weight keys).
+wloss or FAMO combiner, the feature-norm loss and the distillation from the
+frozen teacher over the previous tasks, the step body with the EWC penalty,
+FAMO's post-step update and the NaN/Inf skip, ``make_train_step``, the K-step
+``make_train_step_multi`` as a plain loop over a list of batches
+(``stack_batches``), ``make_eval_step`` and ``make_test_step`` with their
+``__w`` weight keys, and ``make_fisher_step`` for EWC's replay).
 
-Distillation, EWC (and its fisher step), the edge-consistency loss, SMOTE,
-FAMO and bf16 compute come with the continual-learning part of the Trainer
-(ROADMAP queue 1 item 7); a config asking for one of them is refused.
+The eval and fisher steps take no teacher and no FAMO state: the JAX steps
+compute a memory loss there and throw it away, and their total is the plain
+combiner's.  The edge-consistency loss, SMOTE and bf16 compute are not ported
+(ROADMAP queue 1 item 7.3); a config asking for one of them is refused.
 """
 
 from __future__ import annotations
@@ -19,7 +22,16 @@ import torch
 from torch import nn
 
 from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph
-from analysisgnn_tpu_torch.train.losses import masked_cross_entropy, multi_task_loss
+from analysisgnn_tpu_torch.train.losses import (
+    FAMOState,
+    distillation_loss,
+    ewc_penalty,
+    famo_init,
+    famo_update,
+    famo_weighted_loss,
+    masked_cross_entropy,
+    multi_task_loss,
+)
 from analysisgnn_tpu_torch.train.metrics import (
     NCT_RNA_KEYS,
     RNA_KEYS,
@@ -28,7 +40,7 @@ from analysisgnn_tpu_torch.train.metrics import (
     nct_rna_accuracy,
     onsetwise_rna_accuracy,
 )
-from analysisgnn_tpu_torch.train.state import ClippedAdamW, TrainState
+from analysisgnn_tpu_torch.train.state import ClippedAdamW, TrainState, accumulate_fisher
 
 # task -> its extra validity-mask attribute
 TASK_MASK_ATTRS: Dict[str, str] = {
@@ -38,27 +50,26 @@ TASK_MASK_ATTRS: Dict[str, str] = {
     "section": "valid_section_start_label",
 }
 
-_LATER = "is not ported yet: it comes with the continual-learning part of the Trainer slice (ROADMAP queue 1 item 7)"
+_LATER = "is not ported yet (ROADMAP queue 1 item 7.3)"
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     task_dict: Tuple[Tuple[str, int], ...]  # all heads
     active_tasks: Tuple[str, ...]  # tasks with labels in this dataset
-    previous_tasks: Tuple[str, ...] = ()  # distillation targets (refused)
-    mt_strategy: str = "wloss"  # "wloss", or any other name for the plain sum ("famo" refused)
+    previous_tasks: Tuple[str, ...] = ()  # distillation targets
+    mt_strategy: str = "wloss"  # "wloss", "famo", or any other name for the plain sum
+    lambda_dctn: float = 0.5
     lambda_featl: float = 0.1
+    lambda_ewc: float = 2.0
+    use_ewc: bool = False
     label_smoothing: float = 0.1
-    use_ewc: bool = False  # refused
     use_edge_loss: bool = False  # refused
     use_smote: bool = False  # refused
     compute_dtype: str = "float32"  # "bfloat16" refused
 
     def __post_init__(self):
         refused = {
-            "previous_tasks (distillation)": bool(self.previous_tasks),
-            "mt_strategy='famo'": self.mt_strategy == "famo",
-            "use_ewc": self.use_ewc,
             "use_edge_loss": self.use_edge_loss,
             "use_smote": self.use_smote,
             f"compute_dtype={self.compute_dtype!r}": self.compute_dtype != "float32",
@@ -89,16 +100,19 @@ def compute_losses(
     cfg: StepConfig,
     deterministic: bool,
     generator: Optional[torch.Generator] = None,
+    teacher: Optional[nn.Module] = None,
+    famo: Optional[FAMOState] = None,
 ):
-    """Forward and loss assembly: ``(task total, feature loss, task losses,
-    metrics)``."""
+    """Forward and loss assembly: ``(task total, feature loss, memory loss,
+    task losses, metrics)``.  The memory loss needs ``teacher`` (else it is
+    0); the FAMO surrogate needs ``famo`` (else the total is the plain
+    combiner's)."""
     task_sizes = dict(cfg.task_dict)
     attrs = batch.node_attrs[NOTE]
     base_w, task_w = _task_weights(batch, cfg)
-    x = model.encode(
-        batch.node_features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
-        batch.num_target_nodes, deterministic, generator,
-    )
+    args = (batch.node_features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
+            batch.num_target_nodes)
+    x = model.encode(*args, deterministic, generator)
     # feature-norm regularizer over the valid target rows
     fw = base_w.float()
     feature_loss = ((x.float() ** 2).sum(-1) * fw).sum() / (fw.sum() * x.shape[-1]).clamp_min(1.0)
@@ -113,9 +127,26 @@ def compute_losses(
         task_losses[task] = masked_cross_entropy(logits[task], labels, w, cfg.label_smoothing)
         metrics[f"{task}_acc"] = masked_accuracy(logits[task], labels, w)
         metrics[f"{task}_acc__w"] = w.sum().float()
-    # the weighted task losses are summed, NOT divided by the task count
-    total = multi_task_loss(task_losses, mt_params, tuple(t for t, _ in cfg.task_dict), cfg.mt_strategy)
-    return total, feature_loss, task_losses, metrics
+    task_order = tuple(t for t, _ in cfg.task_dict)
+    if cfg.mt_strategy == "famo" and famo is not None:
+        zero = x.new_zeros(())
+        loss_vec = torch.stack([task_losses.get(t, zero) for t in task_order])
+        mask = torch.tensor([t in task_losses for t in task_order], device=x.device)
+        total = famo_weighted_loss(famo, loss_vec, mask)
+    else:
+        # the weighted task losses are summed, NOT divided by the task count
+        total = multi_task_loss(task_losses, mt_params, task_order, cfg.mt_strategy)
+    memory_loss = x.new_zeros(())
+    if teacher is not None and cfg.previous_tasks and cfg.lambda_dctn > 0:
+        # the student's heads read the TEACHER's embedding, so the memory
+        # loss reaches the heads and never the encoder
+        with torch.no_grad():
+            x_t = teacher.encode(*args, True)
+            teacher_logits = teacher.classify(x_t)
+        memory_loss = cfg.lambda_dctn * distillation_loss(
+            model.classify(x_t), teacher_logits, base_w, cfg.previous_tasks
+        )
+    return total, feature_loss, memory_loss, task_losses, metrics
 
 
 def make_train_step(
@@ -124,25 +155,38 @@ def make_train_step(
     """``step(state, batch) -> (state, aux)``: one optimizer update of the
     model's parameters (in place) and of ``state``."""
     params = list(model.parameters())
+    task_order = tuple(t for t, _ in cfg.task_dict)
+    famo_opt = famo_init(len(task_order))[1] if cfg.mt_strategy == "famo" else None
 
     def step_body(state: TrainState, batch: HeteroGraph) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         trainables = [*params, state.mt_params]
-        total, feature_loss, task_losses, metrics = compute_losses(
-            model, state.mt_params, batch, cfg, False, state.generator
+        total, feature_loss, memory_loss, task_losses, metrics = compute_losses(
+            model, state.mt_params, batch, cfg, False, state.generator, teacher=state.teacher, famo=state.famo
         )
-        loss = total + cfg.lambda_featl * feature_loss
+        loss = total + memory_loss + cfg.lambda_featl * feature_loss
+        if cfg.use_ewc:
+            loss = loss + cfg.lambda_ewc * ewc_penalty(params, state.means, state.fisher)
         grads = torch.autograd.grad(loss, trainables, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainables, grads)]
-        # NaN/Inf-loss skip: params, mt_params and the optimizer stay as they
-        # were; the step count and the generator still advance
+        # NaN/Inf-loss skip: params, mt_params, the optimizer and FAMO's state
+        # stay as they were; the step count and the generator still advance
         finite = bool(torch.isfinite(loss))
         if finite:
             optimizer.update(trainables, grads, state.opt_state)
+            if famo_opt is not None and state.famo is not None:
+                # the task logits move on this step's losses against the
+                # previous step's, then this step's become the anchor
+                zero = loss.new_zeros(())
+                curr = torch.stack([task_losses.get(t, zero).detach() for t in task_order])
+                famo_update(state.famo, famo_opt, curr)
+                active = torch.tensor([t in cfg.active_tasks for t in task_order], device=curr.device)
+                state.famo.prev_loss = torch.where(active, curr, state.famo.prev_loss)
         state.step += 1
         aux = {
             "total_loss": loss,
             "task_loss": total,
             "feature_loss": feature_loss,
+            "memory_loss": memory_loss,
             **{f"{k}_loss": v for k, v in task_losses.items()},
             **metrics,
         }
@@ -180,7 +224,7 @@ def make_eval_step(model: nn.Module, cfg: StepConfig) -> Callable[[TrainState, H
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: HeteroGraph) -> Dict[str, torch.Tensor]:
-        total, _, task_losses, metrics = compute_losses(model, state.mt_params, batch, cfg, True)
+        total, _, _, task_losses, metrics = compute_losses(model, state.mt_params, batch, cfg, True)
         base_w, task_w = _task_weights(batch, cfg)
         return {
             "total_loss": total,
@@ -227,3 +271,16 @@ def make_test_step(model: nn.Module, cfg: StepConfig) -> Callable[[TrainState, H
         return out
 
     return test_step
+
+
+def make_fisher_step(model: nn.Module, cfg: StepConfig) -> Callable[[TrainState, HeteroGraph, float], TrainState]:
+    """``fisher(state, batch, scale) -> state``: EWC's replay, ``fisher +=
+    grad^2 / scale`` for the gradient of the task total (the plain combiner's,
+    without dropout) with respect to the model's parameters."""
+    params = list(model.parameters())
+
+    def fisher_step(state: TrainState, batch: HeteroGraph, scale: float) -> TrainState:
+        total = compute_losses(model, state.mt_params, batch, cfg, True)[0]
+        return accumulate_fisher(state, torch.autograd.grad(total, params, allow_unused=True), scale)
+
+    return fisher_step

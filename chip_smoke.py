@@ -93,15 +93,36 @@ Phases, each on its own line with elapsed seconds:
      does not use it); a second build_datamodule from the .npz cache (24
      .done markers, its samples array for array the built ones); then one
      fit epoch of 2 steps on the GPU against the same on the CPU (dropout 0,
-     the same initial state dict);
- 15. K6 check: halo_pull (csrc/halo_pull.cu), in the allocating form and in
+     the same initial state dict, each epoch's losses: trainer_parity);
+ 15. CL trainer: cli.train.main on configs/example_config.json as the file
+     stands (continual learning over all, cadence and rna, HybridGNN 3 x
+     256 -> 128, conv_impl node, batch 100, transpositions) with --num_epochs
+     3 --max_steps_per_epoch 6 --do_train --do_eval, on the raw-dir phase's
+     copy of data_synth/ (all/ read from its .npz cache) with cadence/ and
+     rna/ made of its first 8 TSVs (rna/ with the AugmentedNet labels), the
+     CLI's 5 sampler threads: each corpus's build seconds, seconds per epoch,
+     each task's median ms per train step and the medians without the teacher
+     (the first task) and with it, memory_loss per epoch (0, then above 0),
+     the {all,cadence,rna}_model.pt checkpoints, finite test metrics, K1
+     launches against the code's prediction (5 a student pass, a teacher
+     forward after the first switch, a validation or test pass); then the
+     teacher's cost alone: the rna heads' step with and without the teacher
+     on the same batches, timed in turns;
+ 16. CL parity: --demo --cl_training --main_tasks all,cadence --use_ewc
+     --mt_strategy famo --conv_impl edge-zxp at full width, two epochs of 2
+     steps on the GPU against the CPU (every epoch's losses; the optimizer's
+     eps at 1, as in phase 8's step parity), FAMO's logits
+     and the fisher's sum against the CPU's, and K1 and K3 launches in the
+     GPU arm against the code's prediction (the fisher batch's backward
+     included);
+ 17. K6 check: halo_pull (csrc/halo_pull.cu), in the allocating form and in
      the planned form with out= that regime 2 uses, bit-equal to its plain
      version at the regime-2 shape (D = 4 partitions of 5,000 rows, H = 24,
      F = 256), at D = 1, 2, 8, H = 1, H = N_local, F = 25 (the scalar loop)
      and on non-contiguous inputs, with the median times of both forms, the
      plain version and an index_select yardstick (timed in turns), and the
      profiler's device time of the kernel, beside the bytes bound;
- 16. partitioned serve: the serve model (phase 4's weights) on a 20,000-note
+ 18. partitioned serve: the serve model (phase 4's weights) on a 20,000-note
      score through 4 partitions on a line.  Regime 1, the CLI's path:
      predict_score_partitioned(ids_only=True), K1 launches per window, ms
      per request, its embeddings within 2e-4 * max|full| + 2e-5 of the
@@ -112,7 +133,7 @@ Phases, each on its own line with elapsed seconds:
      note embeddings, within the same tolerance of model.encoder's output
      after ReLU and L2 norm, K6 launched num_layers + 1 times per forward, ms
      per forward;
- 17. the dryrun_multichip twin (__graft_entry__.py:287-356): 1,200 notes
+ 19. the dryrun_multichip twin (__graft_entry__.py:287-356): 1,200 notes
      (seed 7) of the serve model's configuration (3 x 256 -> 128, JK, 21
      tasks) through 8 partitions, within the same tolerance.
 The last lines are the card's nvidia-smi line, one JSON object describing
@@ -213,6 +234,29 @@ RAW_DIR_EPOCHS = 3
 # JAX corpus's list (tests/test_torch_port_corpora.py)
 RAW_DIR_COUNTS = {"P1": 24, "M2": 20, "m3": 20, "P4": 20, "P5": 20, "m6": 20, "M6": 20, "m7": 20, "M3": 18,
                   "M7": 18, "m2": 15, "A4": 12}
+# configs/example_config.json as the file stands (HybridGNN 3 x 256 -> 128,
+# continual learning over all, cadence and rna, batch 100, 500-note
+# subgraphs, transpositions), one epoch per task of 6 steps, on the raw-dir
+# phase's copy of data_synth/ with cadence/ and rna/ of its first 8 TSVs;
+# the CLI's default 5 sampler threads
+CL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "example_config.json")
+CL_TASKS = ("all", "cadence", "rna")
+CL_TSVS = 8
+CL_TRAINER_FLAGS = ["--num_epochs", "3", "--max_steps_per_epoch", "6", "--do_train", "--do_eval"]
+# the CL path with EWC and FAMO at full width on the edge-zxp arm (K3), GPU
+# against CPU over two tasks of one epoch each, with the optimizer's eps at
+# PARITY_EPS: from the second step on the rate is nonzero, and Adam would
+# move a coordinate whose gradient is rounding noise (the gather's backward
+# adds in no fixed order on the card) by the rate on either side, which
+# reached 2e-5 of an epoch's loss in one of two runs; FAMO's logits after 4
+# updates (Adam at 0.025 a step) absolute, the fisher's sum (squared
+# gradients of one replay batch) relative: at least ten times the largest
+# of three runs on an H100 (w 8.9e-08, the fisher's sum 6.1e-08)
+CL_PARITY_FLAGS = ["--demo", "--cl_training", "--main_tasks", "all,cadence", "--use_ewc", "--mt_strategy", "famo",
+                   "--conv_impl", "edge-zxp", "--dropout", "0", "--num_epochs", "2", "--num_workers", "0"]
+CL_FAMO_W_ATOL, CL_FISHER_RTOL = 1e-5, 1e-6
+# the teacher's cost alone: rounds of (without, with, with, without) over the same batches
+CL_TURNS, CL_TURN_BATCHES = 3, 2
 # partitioned against full-graph embeddings: 2e-4 of the largest |full| plus
 # 2e-5 (__graft_entry__.py:341-344; the JAX partition tests' tolerance)
 PART_RTOL, PART_ATOL = 2e-4, 2e-5
@@ -1297,23 +1341,39 @@ def _forward_passes(dm, epochs: int, evaluated: bool) -> int:
     return epochs * val + (test if evaluated else 0)
 
 
-def _check_trainer_launches(label: str, trainer, counts: dict, epochs: int, evaluated: bool) -> dict:
-    """The run's launches against the code's prediction: every train step and
-    every forward-only pass launches the forward kernels; only train steps
-    launch K3's dx and dw."""
+def _check_trainer_launches(label: str, trainer, counts: dict, epochs: int, evaluated: bool, teacher_passes: int = 0,
+                            fisher_passes: int = 0) -> dict:
+    """The run's launches against the code's prediction: every train step,
+    every forward-only pass, every teacher forward (continual learning, after
+    the first task) and every fisher batch (EWC's replay) launch the forward
+    kernels; only train steps and fisher batches launch K3's dx and dw."""
     per = predicted_launches(trainer.model)
     steps = len(trainer.step_seconds)
     fwd = _forward_passes(trainer.dm, epochs, evaluated)
-    expected = {name: (steps + fwd) * v for name, v in per.items()}
+    expected = {name: (steps + teacher_passes + fwd + fisher_passes) * v for name, v in per.items()}
     for name in ("relation_weighted_matmul.dx", "relation_weighted_matmul.dw"):
-        expected[name] = steps * per[name]
+        expected[name] = (steps + fisher_passes) * per[name]
+    passes = (f"{steps} train steps, {teacher_passes} teacher forwards, {fwd} forward-only passes and "
+              f"{fisher_passes} fisher batches")
     if counts != expected:
-        raise AssertionError(f"{label}: launches {counts}, the code predicts {expected} "
-                             f"({steps} train steps, {fwd} forward-only passes)")
-    phase(f"{label}: {steps} train steps and {fwd} forward-only passes launched "
+        raise AssertionError(f"{label}: launches {counts}, the code predicts {expected} ({passes})")
+    phase(f"{label}: {passes} launched "
           + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
-          + f" (per train step {', '.join(f'{k} {v}' for k, v in per.items() if v)}; the code predicts the same)")
-    return {"steps": steps, "forward_passes": fwd, "launches": counts, "per_step": per}
+          + f" (per pass {', '.join(f'{k} {v}' for k, v in per.items() if v)}; the code predicts the same)")
+    return {"steps": steps, "teacher_passes": teacher_passes, "forward_passes": fwd, "fisher_passes": fisher_passes,
+            "launches": counts, "per_step": per}
+
+
+def _cl_passes(trainer, steps_per_epoch: int) -> tuple:
+    """Teacher forwards and fisher batches of a continual-learning run: the
+    teacher runs on every train step after the first task (when the
+    distillation has a weight); each switch replays the first validation
+    batch of every task seen so far (with EWC)."""
+    cfg, dm = trainer.cfg, trainer.dm
+    tasks = [t for t in cfg.main_tasks if t in dm.main_tasks]
+    teacher = sum(steps_per_epoch for r in trainer.history if r["task"] != tasks[0]) if cfg.lambda_dctn > 0 else 0
+    fisher = sum(1 for ti in range(len(tasks) - 1) for mt in tasks[:ti + 1] if dm.splits[mt][1]) if cfg.use_ewc else 0
+    return teacher, fisher
 
 
 def trainer_phase(ckpt_dir: str) -> dict:
@@ -1403,9 +1463,13 @@ def hgt_trainer_phase(ckpt_dir: str) -> dict:
     return {"secs": rec["secs"], "median_step_ms": median_ms, "launches": launches, "wall_s": wall}
 
 
-def trainer_parity(ckpt_dir: str, flags: list = TRAINER_PARITY_FLAGS, label: str = "trainer") -> dict:
-    """One fit epoch of 2 steps on the GPU (kernels) against the same on the
-    CPU (plain versions): dropout 0, the same initial state dict."""
+def trainer_parity(ckpt_dir: str, flags: list = TRAINER_PARITY_FLAGS, label: str = "trainer",
+                   eps: "float | None" = None) -> dict:
+    """A fit of 2 steps an epoch on the GPU (kernels) against the same on the
+    CPU (plain versions): dropout 0, the same initial state dict, and with
+    ``eps`` the optimizer's eps raised to it (see PARITY_EPS); every epoch's
+    train and validation loss within TRAINER_PARITY_RTOL.  The GPU arm's
+    launches are counted."""
     from analysisgnn_tpu_torch.cli.train import build_datamodule, resolve_config, train_config
     from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
     from analysisgnn_tpu_torch.train.loop import Trainer
@@ -1416,26 +1480,49 @@ def trainer_parity(ckpt_dir: str, flags: list = TRAINER_PARITY_FLAGS, label: str
     for side, dev in (("gpu", "cuda"), ("cpu", "cpu")):
         config = resolve_config([*flags, "--device", dev, "--checkpoint_dir", f"{ckpt_dir}/{side}"])
         trainer = Trainer(train_config(config), build_datamodule(config))
+        if eps is not None:
+            trainer._init_state = _with_eps(trainer, eps)
         if init is None:
             model = model_from_config(trainer.model_config, device="cpu")
             init_parameters(model, torch.Generator(device="cpu").manual_seed(0))
             torch_style_reinit(model, seed=0)
             init = model.state_dict()
+        _reset_counts()  # the GPU arm's run starts here
         t = time.perf_counter()
-        trainer.fit(max_steps_per_epoch=2, initial_state_dict=init)
-        out[side] = (trainer.history[0], time.perf_counter() - t)
-    rels = {}
-    for key in ("train_loss", "val/total_loss"):
-        g, c = out["gpu"][0][key], out["cpu"][0][key]
-        rels[key] = abs(g - c) / abs(c)
-        if not (np.isfinite(g) and rels[key] <= TRAINER_PARITY_RTOL):
-            raise AssertionError(f"{label} GPU vs CPU: {key} {g} vs {c} (rel {rels[key]:.2e}, tol {TRAINER_PARITY_RTOL})")
-    phase(f"{label}: one fit epoch of 2 steps, GPU vs CPU (plain versions, dropout 0, the same initial state dict, "
-          f"{' '.join(flags)}): train_loss {out['gpu'][0]['train_loss']:.6f} vs "
-          f"{out['cpu'][0]['train_loss']:.6f} (rel {rels['train_loss']:.2e}), val/total_loss "
-          f"{out['gpu'][0]['val/total_loss']:.6f} vs {out['cpu'][0]['val/total_loss']:.6f} "
-          f"(rel {rels['val/total_loss']:.2e}; tol {TRAINER_PARITY_RTOL}); the CPU fit took {out['cpu'][1]:.1f} s")
-    return rels
+        state = trainer.fit(max_steps_per_epoch=2, initial_state_dict=init)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[side] = {"trainer": trainer, "state": state, "secs": time.perf_counter() - t, "counts": _counts()}
+    gpu, cpu = out["gpu"]["trainer"].history, out["cpu"]["trainer"].history
+    if len(gpu) != len(cpu):
+        raise AssertionError(f"{label} GPU vs CPU: {len(gpu)} epochs against {len(cpu)}")
+    rels = []
+    for epoch, (g, c) in enumerate(zip(gpu, cpu)):
+        rels.append({})
+        for key in ("train_loss", "val/total_loss"):
+            rels[-1][key] = abs(g[key] - c[key]) / abs(c[key])
+            if not (np.isfinite(g[key]) and rels[-1][key] <= TRAINER_PARITY_RTOL):
+                raise AssertionError(f"{label} GPU vs CPU, epoch {epoch}: {key} {g[key]} vs {c[key]} "
+                                     f"(rel {rels[-1][key]:.2e}, tol {TRAINER_PARITY_RTOL})")
+    phase(f"{label}: {len(gpu)} fit epoch(s) of 2 steps, GPU vs CPU (plain versions, dropout 0, the same initial "
+          f"state dict, {f'Adam eps {eps}, ' if eps is not None else ''}{' '.join(flags)}): "
+          + "; ".join(f"{g['task']} epoch {g['epoch']}: train_loss {g['train_loss']:.6f} vs {c['train_loss']:.6f} "
+                      f"(rel {r['train_loss']:.2e}), val/total_loss {g['val/total_loss']:.6f} vs "
+                      f"{c['val/total_loss']:.6f} (rel {r['val/total_loss']:.2e})" for g, c, r in zip(gpu, cpu, rels))
+          + f" (tol {TRAINER_PARITY_RTOL}); the CPU fit took {out['cpu']['secs']:.1f} s")
+    return {"rels": rels, **out}
+
+
+def _with_eps(trainer, eps: float):
+    """The Trainer's ``_init_state``, then its optimizer's eps set to ``eps``."""
+    init_state = trainer._init_state
+
+    def init(*args, **kwargs):
+        state = init_state(*args, **kwargs)
+        trainer.optimizer.eps = eps
+        return state
+
+    return init
 
 
 def _same_samples(a: list, b: list) -> None:
@@ -1524,7 +1611,153 @@ def raw_dir_trainer_phase(tmp: str) -> dict:
           f"{cache_s:.2f} s, its {len(cached.task_samples['all'])} samples array for array the built ones")
     return {"samples": len(samples), "build_s": build_s[0], "cache_s": cache_s, "epochs": epochs,
             "steps_per_epoch": per_epoch, "median_step_ms": median_ms, "secs": [r["secs"] for r in hist],
-            "launches": launches, "wall_s": wall, "flags": [*data, *RAW_DIR_FLAGS]}
+            "launches": launches, "wall_s": wall, "flags": [*data, *RAW_DIR_FLAGS], "raw": raw}
+
+
+# ------------------------------------------------- continual-learning training
+
+
+def cl_trainer_phase(raw: str, ckpt_dir: str) -> dict:
+    """The training entry point on configs/example_config.json as the file
+    stands (continual learning over all, cadence and rna), on the raw-dir
+    phase's copy of data_synth/ (all/ read from its .npz cache) with cadence/
+    and rna/ made of the first CL_TSVS pieces of all/."""
+    import analysisgnn_tpu_torch.cli.train as cli
+    from analysisgnn_tpu_torch.data import corpus
+
+    pieces = sorted(f for f in os.listdir(f"{raw}/all") if f.endswith(".tsv"))[:CL_TSVS]
+    for sub in ("cadence", "rna"):
+        os.makedirs(f"{raw}/{sub}")
+        for name in pieces:
+            shutil.copy(f"{raw}/all/{name}", f"{raw}/{sub}/{name}")
+    argv = ["--config_path", CL_CONFIG, "--raw_dir", raw, "--test_split_file", f"{raw}/test_split.json",
+            *CL_TRAINER_FLAGS, "--checkpoint_dir", ckpt_dir]
+    load, build_s = corpus.DLCTsvCorpus.load, {}
+
+    def timed_load(self):
+        t0 = time.perf_counter()
+        out = load(self)
+        build_s[os.path.basename(self.source_dir.rstrip("/"))] = time.perf_counter() - t0
+        return out
+
+    printed = io.StringIO()
+    t = time.perf_counter()
+    corpus.DLCTsvCorpus.load = timed_load
+    _reset_counts()  # the CL Trainer path's run starts here
+    try:
+        with contextlib.redirect_stdout(printed):  # --do_eval prints the test metrics as JSON
+            trainer = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        corpus.DLCTsvCorpus.load = load
+    counts = _counts()
+    wall = time.perf_counter() - t
+    cfg, hist = trainer.cfg, trainer.history
+    tasks = [r["task"] for r in hist]
+    if not cfg.cl_training or tasks != list(CL_TASKS) or cfg.conv_impl != "node":
+        raise AssertionError(f"CL trainer: epochs of {tasks} with cl_training={cfg.cl_training}, want {CL_TASKS}")
+    phase("CL trainer: corpora " + ", ".join(
+        f"{mt} {len(trainer.dm.task_samples[mt])} samples in {build_s[mt]:.2f} s" for mt in CL_TASKS)
+        + f" (all/ from the raw-dir phase's .npz cache; cadence/ and rna/ of {len(pieces)} TSVs each, rna/ with the "
+        f"AugmentedNet labels); {cfg.num_workers} sampler threads; batches of {trainer.dm.cfg.batch_size} graphs "
+        f"split over {len(CL_TASKS)} main tasks")
+    text = printed.getvalue()
+    test_metrics = json.loads(text[text.index("{"):])
+    if not test_metrics or not all(np.isfinite(v) for v in test_metrics.values()):
+        raise AssertionError("CL trainer: --do_eval printed no or non-finite test metrics")
+    losses = [r["train_loss"] for r in hist] + [r["val/total_loss"] for r in hist]
+    memory = trainer.epoch_memory_loss
+    if not all(np.isfinite(losses)) or memory[0] != 0 or not all(m > 0 for m in memory[1:]):
+        raise AssertionError(f"CL trainer: losses {losses}, memory_loss per epoch {memory} (want 0, then > 0)")
+    missing = [f"{tag}.pt" for tag in (*(f"{mt}_model" for mt in CL_TASKS), "best", "last", "full")
+               if not os.path.isfile(f"{ckpt_dir}/{tag}.pt")]
+    if missing:
+        raise AssertionError(f"CL trainer: checkpoints missing: {missing}")
+    per_epoch = len(trainer.step_seconds) // len(hist)
+    teacher, fisher = _cl_passes(trainer, per_epoch)
+    launches = _check_trainer_launches("CL trainer", trainer, counts, len(hist), evaluated=True,
+                                       teacher_passes=teacher, fisher_passes=fisher)
+    steps_ms = [x * 1e3 for x in trainer.step_seconds]
+    by_task = {r["task"]: steps_ms[i * per_epoch:(i + 1) * per_epoch] for i, r in enumerate(hist)}
+    by_task[CL_TASKS[0]] = by_task[CL_TASKS[0]][1:]  # the run's first step warms up
+    median = {mt: statistics.median(v) for mt, v in by_task.items()}
+    without = statistics.median(by_task[CL_TASKS[0]])
+    with_teacher = statistics.median([x for mt in CL_TASKS[1:] for x in by_task[mt]])
+    phase(f"CL trainer: cli.train.main {' '.join(argv[:2])} {' '.join(CL_TRAINER_FLAGS)}: {len(hist)} epochs "
+          f"({', '.join(tasks)}) of {per_epoch} train steps in {wall:.2f} s (corpus builds included); seconds per "
+          f"epoch " + ", ".join(f"{r['task']} {r['secs']}" for r in hist)
+          + "; median ms per train step " + ", ".join(f"{mt} {v:.2f}" for mt, v in median.items())
+          + f" (first step {steps_ms[0]:.1f} ms); without the teacher {without:.2f}, with it {with_teacher:.2f}; "
+          "train_loss " + ", ".join(f"{r['train_loss']:.4f}" for r in hist)
+          + "; memory_loss " + ", ".join(f"{m:.4f}" for m in memory)
+          + "; val/total_loss " + ", ".join(f"{r['val/total_loss']:.4f}" for r in hist))
+    turns = _teacher_turns(trainer)
+    phase(f"CL trainer: the teacher's cost alone, the rna heads' step on the same {CL_TURN_BATCHES} rna batches "
+          f"in turns (without, with, with, without) x {CL_TURNS}: median {turns['without']:.2f} ms without the "
+          f"teacher, {turns['with']:.2f} ms with it (previous tasks: all heads), {turns['with'] - turns['without']:.2f} "
+          f"ms a step for the teacher's forward and the distillation")
+    phase(f"CL trainer: checkpoints {', '.join(f'{mt}_model.pt' for mt in CL_TASKS)}, best.pt, last.pt, full.pt "
+          f"present; --do_eval test metrics ({len(test_metrics)} keys): "
+          + ", ".join(f"{k} {test_metrics[k]:.4f}" for k in ("all/cadence_acc", "cadence/cadence_acc",
+                                                           "rna/localkey_acc", "rna/rna_onset_acc")
+                      if k in test_metrics))
+    return {"build_s": build_s, "secs": {r["task"]: r["secs"] for r in hist}, "median_step_ms": median,
+            "without_teacher_ms": without, "with_teacher_ms": with_teacher, "memory_loss": memory,
+            "launches": launches, "wall_s": wall, "teacher_turns": turns}
+
+
+def _teacher_turns(trainer) -> dict:
+    """Median ms of the rna heads' train step without the teacher and with it
+    (every head distilled), on the same batches, timed in turns after one
+    warm-up step of each; the Trainer's model trains on."""
+    from analysisgnn_tpu_torch.train.state import create_train_state
+    from analysisgnn_tpu_torch.train.step import StepConfig, make_train_step
+
+    tasks = tuple(trainer.task_dict.items())
+    state = create_train_state(trainer.model, len(tasks), trainer.optimizer, seed=0)
+    steps = {label: make_train_step(trainer.model, trainer.optimizer, StepConfig(
+        task_dict=tasks, active_tasks=trainer._cl_active("rna"), previous_tasks=previous,
+        lambda_dctn=trainer.cfg.lambda_dctn)) for label, previous in (("without", ()), ("with", tuple(trainer.task_dict)))}
+    batches = list(trainer.dm.train_batches("rna", CL_TURN_BATCHES))
+    times = {"without": [], "with": []}
+    for label in steps:  # warm-up
+        state, _ = steps[label](state, batches[0])
+    for _ in range(CL_TURNS):
+        for label in ("without", "with", "with", "without"):
+            for batch in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, aux = steps[label](state, batch)
+                torch.cuda.synchronize()
+                times[label].append((time.perf_counter() - t) * 1e3)
+                if (label == "with") != (float(aux["memory_loss"]) > 0):
+                    raise AssertionError(f"CL trainer: memory_loss {float(aux['memory_loss'])} in the {label} arm")
+    return {label: statistics.median(v) for label, v in times.items()}
+
+
+def cl_parity(ckpt_dir: str) -> dict:
+    """The CL path with EWC and FAMO on the edge-zxp arm: a fit on the GPU
+    against the CPU (trainer_parity), FAMO's logits and the fisher's sum
+    against the CPU's, and K3's launches in the GPU arm against the code's
+    prediction."""
+    out = trainer_parity(ckpt_dir, CL_PARITY_FLAGS, "CL parity", eps=PARITY_EPS)
+    gpu, cpu = out["gpu"], out["cpu"]
+    w_err = float((gpu["state"].famo.w.cpu() - cpu["state"].famo.w).abs().max())
+    sums = [float(sum(f.double().sum() for f in side["state"].fisher).cpu()) for side in (gpu, cpu)]
+    fisher_rel = abs(sums[0] - sums[1]) / abs(sums[1])
+    if not (w_err <= CL_FAMO_W_ATOL and sums[1] > 0 and fisher_rel <= CL_FISHER_RTOL):
+        raise AssertionError(f"CL parity: FAMO w max|d| {w_err:.3e} (tol {CL_FAMO_W_ATOL}), fisher sum {sums[0]} vs "
+                             f"{sums[1]} (rel {fisher_rel:.2e}, tol {CL_FISHER_RTOL})")
+    trainer = gpu["trainer"]
+    teacher, fisher = _cl_passes(trainer, 2)
+    launches = _check_trainer_launches("CL parity, GPU arm", trainer, gpu["counts"], len(trainer.history),
+                                       evaluated=False, teacher_passes=teacher, fisher_passes=fisher)
+    if not launches["launches"]["relation_weighted_matmul.dw"]:
+        raise AssertionError("CL parity: the GPU arm launched no K3")
+    phase(f"CL parity: FAMO w max|GPU - CPU| {w_err:.3e} (tol {CL_FAMO_W_ATOL}, |w| up to "
+          f"{float(cpu['state'].famo.w.abs().max()):.4f}); fisher sum {sums[0]:.6e} vs {sums[1]:.6e} (rel "
+          f"{fisher_rel:.2e}, tol {CL_FISHER_RTOL})")
+    return {"rels": out["rels"], "famo_w_max_abs_err": w_err, "fisher_rel": fisher_rel, "launches": launches}
 
 
 # ------------------------------------------------------- partitioned serving
@@ -1861,14 +2094,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         trainer = trainer_phase(f"{tmp}/trainer")
         hgt_trainer = hgt_trainer_phase(f"{tmp}/trainer_hgt")
-        trainer_rels = trainer_parity(f"{tmp}/parity")
+        trainer_rels = trainer_parity(f"{tmp}/parity")["rels"]
         phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step, "
               f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step; GPU vs CPU {trainer_rels}")
         raw_dir = raw_dir_trainer_phase(f"{tmp}/raw_dir")
         raw_dir_rels = trainer_parity(f"{tmp}/raw_dir_parity", [*raw_dir["flags"], "--dropout", "0", "--num_epochs",
-                                                                "1"], "raw-dir trainer")
+                                                                "1"], "raw-dir trainer")["rels"]
+        cl = cl_trainer_phase(raw_dir["raw"], f"{tmp}/cl")
+        cl_par = cl_parity(f"{tmp}/cl_parity")
     phase(f"raw-dir trainer: done; {raw_dir['samples']} samples built in {raw_dir['build_s']:.2f} s, read back in "
           f"{raw_dir['cache_s']:.2f} s; {raw_dir['median_step_ms']:.2f} ms per train step; GPU vs CPU {raw_dir_rels}")
+    phase(f"CL trainer: done; {cl['without_teacher_ms']:.2f} ms per train step without the teacher, "
+          f"{cl['with_teacher_ms']:.2f} with it; GPU vs CPU {cl_par['rels']}")
 
     k6_rows = k6_checks()
     phase("kernel check: K6 done")
@@ -1949,6 +2186,9 @@ def main() -> None:
     })
     kernels[0]["trainer_launches"] = trainer["launches"]["launches"]["segment_mean_base"]
     kernels[0]["raw_dir_trainer_launches"] = raw_dir["launches"]["launches"]["segment_mean_base"]
+    kernels[0]["cl_trainer_launches"] = cl["launches"]["launches"]["segment_mean_base"]
+    for entry in kernels[1:4]:
+        entry["cl_parity_launches"] = cl_par["launches"]["launches"][entry["name"]]
     kernels[1]["trainer_launches"] = trainer["launches"]["launches"]["relation_weighted_matmul"]
     # K4 and K5: held against their plain versions above; no path of the JAX
     # package runs them (their only callers are tests), so none here does
