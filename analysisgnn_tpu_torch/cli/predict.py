@@ -1,11 +1,18 @@
 """Score-analysis inference CLI of the port.
 
 Counterpart of ``analysisgnn_tpu/cli/predict.py::main`` for ``--score`` and
-``--score_dir`` with CSV output.  A port checkpoint is a directory holding
+``--score_dir`` (MusicXML, ``.mxl`` or Humdrum ``.krn``) with CSV output and
+the Roman-numeral MusicXML (``--output_musicxml``; ``--export_musicxml`` in
+``--score_dir`` mode).  A port checkpoint is a directory holding
 ``model_config.json`` (the training configuration) and ``<tag>.pt``, a
 ``torch.save``d state dict of the analysis model.
 
-    python -m analysisgnn_tpu_torch.cli.predict --checkpoint_dir CKPT --score piece.musicxml
+    python -m analysisgnn_tpu_torch.cli.predict --checkpoint_dir CKPT --score piece.musicxml --output_musicxml rna.musicxml
+
+``--conv_impl`` overrides the fused-SAGE layout of the checkpoint's HybridGNN
+(``edge-zxp`` runs K3; the parameters are the same in every layout), and
+``--hgt_stage_dtype`` the HGT staging dtype (``float32``; ``bfloat16`` is not
+ported yet and raises).
 
 ``--partition_devices N`` serves a long score through N graph partitions on
 a line, all on the one device (the overlap-region regime of
@@ -20,12 +27,12 @@ import os
 
 import torch
 
-SCORE_EXTENSIONS = (".musicxml", ".xml", ".mxl")
+SCORE_EXTENSIONS = (".musicxml", ".xml", ".mxl", ".krn", ".kern")
 
 
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Predict analysis for a score (PyTorch port)")
-    p.add_argument("--score", type=str, default=None, help="MusicXML/.mxl path")
+    p.add_argument("--score", type=str, default=None, help="MusicXML/.mxl/.krn path")
     p.add_argument("--score_dir", type=str, default=None,
                    help="batch mode: predict every score file in this directory (recursive)")
     p.add_argument("--output_dir", type=str, default=None,
@@ -39,17 +46,35 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints",
                    help="directory with model_config.json and <checkpoint>.pt")
     p.add_argument("--checkpoint", type=str, default="best", help="state-dict tag inside checkpoint_dir")
+    p.add_argument("--conv_impl", type=str, default=None, choices=["node", "edge", "edge-zxp"],
+                   help="override the fused-SAGE layout for this run (parameter-compatible)")
+    p.add_argument("--hgt_stage_dtype", type=str, default=None, choices=["float32", "bfloat16"],
+                   help="override the HGT q/k/v staging dtype; default: the checkpoint's (HGT only), else float32")
     p.add_argument("--tasks", type=str, default=None, help="comma list; default all")
     p.add_argument("--output_csv", type=str, default=None)
+    p.add_argument("--output_musicxml", type=str, default=None,
+                   help="write the Roman-numeral annotation MusicXML here")
+    p.add_argument("--export_musicxml", action="store_true",
+                   help="batch mode: also write <score>_rna.musicxml per score next to the CSVs")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
 
-def load_model(checkpoint_dir: str, tag: str, device: "str | torch.device"):
+def load_model(checkpoint_dir: str, tag: str, device: "str | torch.device", conv_impl: "str | None" = None,
+               hgt_stage_dtype: "str | None" = None):
+    """The checkpoint's model on ``device`` and its configuration, with the
+    overrides applied: ``conv_impl`` replaces the saved layout; the staging
+    dtype is ``hgt_stage_dtype`` when given, else the saved one for an HGT
+    checkpoint and float32 for any other (the JAX CLI's rule)."""
     from analysisgnn_tpu_torch.models.analysis import model_from_config
 
     with open(os.path.join(checkpoint_dir, "model_config.json")) as f:
         cfg = json.load(f)
+    if conv_impl:
+        cfg["conv_impl"] = conv_impl
+    is_hgt = cfg.get("model", "HybridGNN").lower() == "hgt"
+    saved = cfg.get("hgt_stage_dtype", "float32") if is_hgt else "float32"
+    cfg["hgt_stage_dtype"] = hgt_stage_dtype if hgt_stage_dtype is not None else saved
     model = model_from_config(cfg, device=device)
     state = torch.load(os.path.join(checkpoint_dir, f"{tag}.pt"), map_location=device, weights_only=True)
     model.load_state_dict(state)
@@ -65,12 +90,13 @@ def main(argv=None) -> None:
     from analysisgnn_tpu_torch.inference.predict import (
         decode_predictions,
         export_predictions_csv,
+        export_roman_numerals_to_musicxml,
         predict_score_ids,
         predict_score_partitioned,
     )
 
     device = resolve_device(args.device)
-    model, cfg = load_model(args.checkpoint_dir, args.checkpoint, device)
+    model, cfg = load_model(args.checkpoint_dir, args.checkpoint, device, args.conv_impl, args.hgt_stage_dtype)
     tasks = args.tasks.split(",") if args.tasks else None
 
     if args.score_dir:
@@ -129,6 +155,14 @@ def main(argv=None) -> None:
             out_csv = args.output_csv or f"{base}_analysis.csv"
         export_predictions_csv(out_csv, parsed.note_array, decoded)
         print(f"wrote {out_csv}")
+        out_xml = None
+        if args.score_dir and args.export_musicxml:
+            out_xml = os.path.join(os.path.dirname(out_csv), f"{base}_rna.musicxml")
+        elif not args.score_dir and args.output_musicxml:
+            out_xml = args.output_musicxml
+        if out_xml:
+            export_roman_numerals_to_musicxml(out_xml, parsed.note_array, decoded)
+            print(f"wrote {out_xml}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,8 @@
-"""Convert a JAX analysis-model parameter tree into the port's state dict,
-and back.
+"""Convert a JAX parameter tree into the port's state dict, and back: the
+analysis model (``state_dict_from_flax`` / ``flax_tree_from_state_dict``) and
+the chord family (``chord_state_dict_from_flax`` /
+``flax_tree_from_chord_state_dict``: ``ChordPredictionModel``,
+``PostProcessingMLT`` and each of their modules).
 
 The caller hands over the flax tree as nested dicts of numpy arrays (reading
 an Orbax checkpoint needs JAX, so it stays outside this package).  Layout
@@ -10,6 +13,18 @@ differences handled here:
 * stacked parameters (``FusedHeteroSage`` ``w_neigh [T, F, F]``, ``w_self``,
   ``w_agg``, ``b_*``; ``FusedTaskHeads`` ``w1``, ``w2``, ``b*``, ``ln_*``) keep
   their layout;
+* flax ``LayerNorm_i`` / ``Dense_i`` of a deep projection are ``norm_i`` /
+  ``dense_i``; a LayerNorm's ``scale`` is the torch ``weight``;
+* the logit-fusion heads' ``proj_{task}``, ``projnorm_{task}`` and
+  ``fusion_{task}`` are ``proj.{task}`` and so on; the cross-task attention's
+  ``query``/``key``/``value`` kernels ``[in, heads, head_dim]`` (bias
+  ``[heads, head_dim]``) and ``out`` kernel ``[heads, head_dim, out]`` are
+  Linears over the flattened ``heads * head_dim`` axis;
+* a flax ``GRUCell`` (``ir, iz, in`` input Denses with bias, ``hr, hz``
+  hidden Denses without, ``hn`` with) is one direction of ``nn.GRU``: the
+  kernels concatenated in ``r, z, n`` order and transposed, ``b_hh =
+  [0, 0, b_hn]``; a ``BiResetGRU``'s ``ResetGRU_0`` / ``ResetGRU_1`` are the
+  forward and ``_reverse`` directions;
 * flax ``OptimizedLSTMCell`` keeps separate ``ii/if/ig/io`` input kernels
   (no bias) and ``hi/hf/hg/ho`` hidden kernels (with bias); the port's
   ``LSTMCell`` packs them in ``i, f, g, o`` order;
@@ -23,12 +38,15 @@ differences handled here:
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 GATES = ("i", "f", "g", "o")
+GRU_GATES = ("r", "z", "n")
+# heads of the cross-task attention (models/heads.py)
+XTASK_HEADS = 4
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
@@ -70,6 +88,49 @@ def _conv_layer(prefix: str, rest: Tuple[str, ...], v: np.ndarray) -> Tuple[str,
     raise KeyError(f"unexpected encoder-layer parameter {'/'.join(rest)} under {prefix}")
 
 
+_FUSION = ("proj", "projnorm", "fusion")
+
+
+def _leaf(prefix: str, leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A Dense (``kernel`` transposed), LayerNorm (``scale``) or Embed leaf."""
+    if leaf == "kernel":
+        return f"{prefix}.weight", v.T
+    if leaf in ("scale", "embedding"):
+        return f"{prefix}.weight", v
+    if leaf == "bias":
+        return f"{prefix}.bias", v
+    raise KeyError(f"unexpected parameter {leaf!r} under {prefix}")
+
+
+def _auto_name(name: str) -> str:
+    """flax ``Dense_i`` / ``LayerNorm_i`` -> the port's ``dense_i`` / ``norm_i``."""
+    m = re.fullmatch(r"(Dense|LayerNorm)_(\d+)", name)
+    if not m:
+        raise KeyError(f"unexpected flax module {name!r}")
+    return f"{'dense' if m.group(1) == 'Dense' else 'norm'}_{m.group(2)}"
+
+
+def _flax_auto_name(name: str) -> str:
+    m = re.fullmatch(r"(dense|norm)_(\d+)", name)
+    return f"{'Dense' if m.group(1) == 'dense' else 'LayerNorm'}_{m.group(2)}" if m else name
+
+
+def _xtask(rest: Tuple[str, ...], v: np.ndarray) -> Tuple[str, np.ndarray]:
+    """The cross-task attention: ``MultiHeadDotProductAttention_0/{query,key,
+    value,out}/{kernel,bias}`` and ``LayerNorm_0``."""
+    if rest[0] == "LayerNorm_0":
+        return _leaf("heads.xtask.norm", rest[1], v)
+    if rest[0] != "MultiHeadDotProductAttention_0" or len(rest) != 3:
+        raise KeyError(f"unexpected cross-task attention parameter {'/'.join(rest)}")
+    proj, leaf = rest[1], rest[2]
+    if proj == "out":
+        return (f"heads.xtask.out.weight", v.reshape(-1, v.shape[-1]).T) if leaf == "kernel" else (
+            "heads.xtask.out.bias", v)
+    if leaf == "kernel":
+        return f"heads.xtask.{proj}.weight", v.reshape(v.shape[0], -1).T
+    return f"heads.xtask.{proj}.bias", v.reshape(-1)
+
+
 def _lstm(flat: Dict[Tuple[str, ...], np.ndarray], cell: str) -> Dict[str, np.ndarray]:
     base = ("encoder", "jk", cell)
     ih = np.concatenate([flat.pop(base + (f"i{g}", "kernel")) for g in GATES], axis=1)
@@ -90,16 +151,23 @@ def state_dict_from_flax(params: Mapping, cfg: Mapping) -> Dict[str, torch.Tenso
         if ("encoder", "jk", cell, "ii", "kernel") in flat:
             out.update(_lstm(flat, cell))
     layers = set()
+    # a projection with more than its one Dense_0 is a deep one (plain_proj=False)
+    deep = {p[0] for p in flat if p[0].startswith("project") and p[1] != "Dense_0"}
     for path, v in flat.items():
         top = path[0]
         if top in ("pitch_embedding", "key_embedding") and path[1:] == ("embedding",):
             key, val = f"{top}.weight", v
-        elif top == "project_enc":
-            key, val = _dense("project_enc.dense", path[-1], v)
-        elif top.startswith("project_"):
-            key, val = _dense(f"project.{top[len('project_'):]}.dense", path[-1], v)
+        elif top.startswith("project"):
+            name = "project_enc" if top == "project_enc" else f"project.{top[len('project_'):]}"
+            key, val = (_leaf(f"{name}.{_auto_name(path[1])}", path[2], v) if top in deep
+                        else _dense(f"{name}.dense", path[-1], v))
         elif top == "heads" and path[1] == "clf" and len(path) == 3:
             key, val = f"heads.clf.{path[2]}", v
+        elif top == "heads" and path[1] == "xtask":
+            key, val = _xtask(path[2:], v)
+        elif top == "heads" and len(path) == 3 and path[1].split("_", 1)[0] in _FUSION:
+            kind, task = path[1].split("_", 1)
+            key, val = _leaf(f"heads.{kind}.{task}", path[2], v)
         elif top == "encoder" and path[1] == "jk" and path[2] == "Dense_0":
             key, val = _dense("encoder.jk.attn", path[3], v)
         elif top == "encoder" and re.fullmatch(r"layer_\d+", path[1]):
@@ -164,16 +232,149 @@ def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[st
                 put(("encoder", "jk", cell, f"{m.group(2)[0]}{gate}", dense_leaf[m.group(3)]), part)
         elif key.startswith("encoder.jk.attn."):
             put(("encoder", "jk", "Dense_0", dense_leaf[leaf]), v)
-        elif key.startswith("project_enc.dense."):
-            put(("project_enc", "Dense_0", dense_leaf[leaf]), v)
-        elif key.startswith("project."):
-            put((f"project_{key.split('.')[1]}", "Dense_0", dense_leaf[leaf]), v)
+        elif m := re.fullmatch(r"project(?:_enc|\.(\w+))\.(\w+)\.(weight|bias)", key):
+            top = f"project_{m.group(1)}" if m.group(1) else "project_enc"
+            module = "Dense_0" if m.group(2) == "dense" else _flax_auto_name(m.group(2))
+            put((top, module, _flax_leaf(module, leaf, v)), v)
         elif key.startswith("heads.clf."):
             put(("heads", "clf", leaf), v)
+        elif m := re.fullmatch(r"heads\.(proj|projnorm|fusion)\.(\w+)\.(weight|bias)", key):
+            put(("heads", f"{m.group(1)}_{m.group(2)}", _flax_leaf(m.group(1), leaf, v)), v)
+        elif m := re.fullmatch(r"heads\.xtask\.(query|key|value|out|norm)\.(weight|bias)", key):
+            if m.group(1) == "norm":
+                put(("heads", "xtask", "LayerNorm_0", "scale" if leaf == "weight" else "bias"), v)
+                continue
+            attn = ("heads", "xtask", "MultiHeadDotProductAttention_0", m.group(1))
+            if m.group(1) == "out":  # v is the kernel [H * D, out] (transposed above) or the bias
+                put(attn + (dense_leaf[leaf],), v.reshape(XTASK_HEADS, -1, v.shape[-1]) if leaf == "weight" else v)
+            else:
+                put(attn + (dense_leaf[leaf],), v.reshape(v.shape[0], XTASK_HEADS, -1) if leaf == "weight"
+                    else v.reshape(XTASK_HEADS, -1))
         elif m := re.fullmatch(r"encoder\.layers\.(\d+)\.(.+)", key):
             put(("encoder", f"layer_{m.group(1)}", *_conv_path(m.group(2))), v)
         elif key.startswith("encoder.final."):
             put(("encoder", "final", *_conv_path(key[len("encoder.final."):])), v)
         else:
             raise KeyError(f"no flax path for port parameter {key}")
+    return tree
+
+
+def _flax_leaf(module: str, leaf: str, v: np.ndarray) -> str:
+    """The flax leaf of a torch ``weight`` / ``bias`` of a Linear (``kernel``),
+    a LayerNorm (1-D ``weight``: ``scale``) or an Embedding."""
+    if leaf == "bias":
+        return "bias"
+    if v.ndim == 1:
+        return "scale"
+    return "embedding" if module.endswith("embedding") and module != "embedding" else "kernel"
+
+
+# ------------------------------------------------------------------ chord family
+
+# flax per-task / per-node-type name prefixes -> the port's ModuleDicts
+_CHORD_DICTS = {"head": "heads", "logits": "logits", "cond": "cond", "norm": "norm", "out": "out", "x_map": "x_map"}
+_CHORD_DICT_NAMES = {v: k for k, v in _CHORD_DICTS.items()}
+_GRU_DIRECTIONS = {"ResetGRU_0": "", "ResetGRU_1": "_reverse"}
+
+
+def _chord_module(name: str) -> str:
+    """One flax module name of the chord family as the port's path."""
+    for prefix, port in _CHORD_DICTS.items():
+        if name.startswith(prefix + "_") and not re.fullmatch(r"\d+", name[len(prefix) + 1:]):
+            return f"{port}.{name[len(prefix) + 1:]}"
+    return _auto_name(name) if re.fullmatch(r"(Dense|LayerNorm)_\d+", name) else name
+
+
+def chord_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state dict of a chord-family module (``ChordPredictionModel``,
+    ``PostProcessingMLT``, or any of their modules) for its flax tree
+    (``{"params": ...}`` or the inner dict)."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    cells: Dict[Tuple[str, str], Dict[Tuple[str, str], np.ndarray]] = {}
+    for path, v in flat.items():
+        if "GRUCell_0" in path:
+            i = path.index("GRUCell_0")
+            owner, suffix = path[: i - 1], ""
+            if owner and owner[-1] in _GRU_DIRECTIONS:  # a BiResetGRU's direction
+                owner, suffix = owner[:-1], _GRU_DIRECTIONS[owner[-1]]
+            prefix = ".".join(_chord_module(c) for c in owner)
+            cells.setdefault((prefix, suffix), {})[path[i + 1:]] = v
+            continue
+        if "gnn" in path:
+            i = path.index("gnn")
+            prefix = ".".join([_chord_module(c) for c in path[:i]] + ["gnn"])
+            layer = path[i + 1]
+            name = f"{prefix}.layers.{layer.split('_')[1]}" if layer.startswith("layer_") else f"{prefix}.{layer}"
+            key, val = _conv_layer(name, path[i + 2:], v)
+        else:
+            key, val = _leaf(".".join(_chord_module(c) for c in path[:-1]), path[-1], v)
+        out[key] = val
+    for (prefix, suffix), gates in cells.items():
+        rnn = f"{prefix}.rnn" if prefix else "rnn"
+        out[f"{rnn}.weight_ih_l0{suffix}"] = np.concatenate([gates[(f"i{g}", "kernel")] for g in GRU_GATES], 1).T
+        out[f"{rnn}.bias_ih_l0{suffix}"] = np.concatenate([gates[(f"i{g}", "bias")] for g in GRU_GATES])
+        out[f"{rnn}.weight_hh_l0{suffix}"] = np.concatenate([gates[(f"h{g}", "kernel")] for g in GRU_GATES], 1).T
+        b_hn = gates[("hn", "bias")]
+        out[f"{rnn}.bias_hh_l0{suffix}"] = np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def flax_tree_from_chord_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+    """The flax tree (inner dict, numpy leaves) of a chord-family state dict:
+    the inverse of :func:`chord_state_dict_from_flax`.  A GRU whose hidden
+    biases of the ``r`` and ``z`` gates are not zero has no flax
+    counterpart and raises."""
+    tree: Dict[str, object] = {}
+
+    def put(path: Sequence[str], v: np.ndarray) -> None:
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(v)
+
+    def modules(parts: Sequence[str]) -> List[str]:
+        out, i = [], 0
+        while i < len(parts):
+            if parts[i] in _CHORD_DICT_NAMES and i + 1 < len(parts):
+                out.append(f"{_CHORD_DICT_NAMES[parts[i]]}_{parts[i + 1]}")
+                i += 2
+            else:
+                out.append(_flax_auto_name(parts[i]))
+                i += 1
+        return out
+
+    gru = re.compile(r"(?:(.+)\.)?rnn\.(weight|bias)_(ih|hh)_l0(_reverse)?")
+    reverse_owners = {m.group(1) or "" for m in map(gru.fullmatch, state_dict) if m and m.group(4)}
+    for key, t in state_dict.items():
+        v = t.detach().cpu().numpy()
+        parts = key.split(".")
+        if m := gru.fullmatch(key):
+            owner = modules(m.group(1).split(".")) if m.group(1) else []
+            if (m.group(1) or "") in reverse_owners:
+                owner.append("ResetGRU_1" if m.group(4) else "ResetGRU_0")
+            kind = "i" if m.group(3) == "ih" else "h"
+            for g, part in zip(GRU_GATES, np.split(v, 3, axis=0)):
+                cell = owner + ["cell", "GRUCell_0", f"{kind}{g}"]
+                if m.group(2) == "weight":
+                    put(cell + ["kernel"], part.T)
+                elif kind == "i" or g == "n":
+                    put(cell + ["bias"], part)
+                elif np.any(part != 0):
+                    raise ValueError(f"{key}: the {g} gate's hidden bias is not zero; a flax GRUCell has none")
+            continue
+        if "gnn" in parts:
+            i = parts.index("gnn")
+            rest = parts[i + 1:]
+            layer = f"layer_{rest[1]}" if rest[0] == "layers" else rest[0]
+            rest = rest[2:] if rest[0] == "layers" else rest[1:]
+            if rest[-1] == "weight" and v.ndim == 2:
+                v = v.T
+            put(modules(parts[:i]) + ["gnn", layer, *_conv_path(".".join(rest))], v)
+            continue
+        path = modules(parts[:-1])
+        leaf = _flax_leaf(path[-1], parts[-1], v)
+        put(path + [leaf], v.T if leaf == "kernel" else v)
     return tree

@@ -258,8 +258,11 @@ def assemble_note_array(
 
 
 def load_score(path: str) -> ParsedScore:
-    """Parse a (compressed) MusicXML score file.  Humdrum kern (``.krn``) is
-    not ported yet and raises."""
-    if path.endswith((".krn", ".kern")):
-        raise ValueError(f"kern scores are not supported by the port yet: {path}")
+    """Parse a score file: (compressed) MusicXML, or Humdrum kern when the
+    path ends in ``.krn`` (reference dispatch, data/data_utils.py:178-183).
+    As in the JAX package, a ``.kern`` path goes to the MusicXML parser."""
+    if path.endswith(".krn"):
+        from analysisgnn_tpu_torch.data.kern import parse_kern
+
+        return parse_kern(path)
     return parse_musicxml(path)

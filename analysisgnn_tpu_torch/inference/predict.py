@@ -5,8 +5,9 @@ note array -> voice features -> score graph (padded to a capacity rung) ->
 model forward -> softmax and onset-edge aggregation of the RNA heads ->
 argmax on the device -> host change-point smoothing on the ids -> decoded
 labels -> CSV (``predict_score_ids``); the same with per-note probabilities
-on the host (``predict_score``); and long-score serving over a line of graph
-partitions (``predict_score_partitioned``).
+on the host (``predict_score``); long-score serving over a line of graph
+partitions (``predict_score_partitioned``); and the Roman-numeral MusicXML
+export (``export_roman_numerals_to_musicxml``, the JAX text byte for byte).
 """
 
 from __future__ import annotations
@@ -370,3 +371,89 @@ def export_predictions_csv(path: str, note_array: np.ndarray, decoded: Dict[str,
                 ]
                 + [decoded[t][i] for t in tasks]
             )
+
+
+def _roman_numeral_strings(decoded: Dict[str, list], note_array: np.ndarray):
+    """One (onset_div, rn_text) per unique onset where the numeral changes."""
+    onsets = note_array["onset_div"]
+    uniq, first = np.unique(onsets, return_index=True)
+    rn = decoded.get("romanNumeral")
+    key = decoded.get("localkey")
+    out = []
+    prev = None
+    for o, i in zip(uniq, first):
+        label = str(rn[i]) if rn else ""
+        if key:
+            label = f"{key[i]}:{label}"
+        if label != prev:
+            out.append((int(o), label))
+            prev = label
+    return out
+
+
+def export_roman_numerals_to_musicxml(
+    path: str,
+    note_array: np.ndarray,
+    decoded: Dict[str, list],
+    divisions: int = 4,
+) -> None:
+    """Write a MusicXML file with an "RNA" annotation part: one
+    percussion-clef staff whose notes carry the Roman-numeral labels as
+    lyrics at each harmony change (reference
+    export_roman_numerals_to_musicxml, predict_analysis.py:225-298)."""
+    changes = _roman_numeral_strings(decoded, note_array)
+    total = int((note_array["onset_div"] + note_array["duration_div"]).max())
+    parts = []
+    parts.append('<?xml version="1.0" encoding="UTF-8"?>')
+    parts.append('<score-partwise version="3.1">')
+    parts.append(
+        '<part-list><score-part id="RNA"><part-name>RNA</part-name></score-part></part-list>'
+    )
+    parts.append('<part id="RNA">')
+    ts_beats = int(note_array["ts_beats"][0])
+    measure_len = ts_beats * divisions
+    n_measures = max((total + measure_len - 1) // measure_len, 1)
+    ci = 0
+    for m in range(n_measures):
+        m_start = m * measure_len
+        parts.append(f'<measure number="{m + 1}">')
+        if m == 0:
+            parts.append(
+                f"<attributes><divisions>{divisions}</divisions>"
+                f"<time><beats>{ts_beats}</beats><beat-type>4</beat-type></time>"
+                "<clef><sign>percussion</sign></clef></attributes>"
+            )
+        cursor = m_start
+        while ci < len(changes) and changes[ci][0] < m_start + measure_len:
+            onset, label = changes[ci]
+            if onset > cursor:
+                parts.append(
+                    f"<note><rest/><duration>{onset - cursor}</duration></note>"
+                )
+                cursor = onset
+            nxt = (
+                changes[ci + 1][0]
+                if ci + 1 < len(changes)
+                else total
+            )
+            dur = max(min(nxt, m_start + measure_len) - cursor, 1)
+            parts.append(
+                "<note><unpitched><display-step>E</display-step>"
+                "<display-octave>4</display-octave></unpitched>"
+                f"<duration>{dur}</duration>"
+                f"<lyric><text>{label}</text></lyric></note>"
+            )
+            cursor += dur
+            if cursor >= m_start + measure_len:
+                break
+            ci += 1
+        if cursor < m_start + measure_len:
+            parts.append(
+                f"<note><rest/><duration>{m_start + measure_len - cursor}</duration></note>"
+            )
+        parts.append("</measure>")
+        while ci < len(changes) and changes[ci][0] < m_start + measure_len:
+            ci += 1
+    parts.append("</part></score-partwise>")
+    with open(path, "w") as f:
+        f.write("\n".join(parts))

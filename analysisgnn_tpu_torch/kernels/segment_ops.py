@@ -34,6 +34,17 @@ def segment_max(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
     return out.scatter_reduce(0, index, data, "amax", include_self=True)[:num_segments]
 
 
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Row-wise min per segment, as ``jax.ops.segment_min``: the dtype's
+    largest value (``inf`` for floats) for an empty segment; out-of-range ids
+    drop."""
+    ids = dummy_row_ids(segment_ids, num_segments)
+    fill = float("inf") if data.is_floating_point() else torch.iinfo(data.dtype).max
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]), fill)
+    index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce(0, index, data, "amin", include_self=True)[:num_segments]
+
+
 def segment_count(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     ones = torch.ones(segment_ids.shape[0], dtype=torch.float32, device=segment_ids.device)
     return segment_sum(ones, segment_ids, num_segments)

@@ -1,11 +1,13 @@
 """The multi-task score-analysis model (counterpart of
 ``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN or
-HybridHGT encoder, single-Linear projections, no logit fusion and no RNN).
+HybridHGT encoder, single-Linear or deep projections, with or without logit
+fusion, and no RNN).
 
 Pipeline: pitch-spelling (35 -> 64) and key-signature (15 -> 64) embeddings
 concatenated onto the note features; per-node-type projections; the encoder;
 onset pooling (K1 over target-restricted onset edges) concatenated onto the
-embeddings; a projection; the fused task heads.
+embeddings; a projection; the fused task heads, optionally fused across
+tasks.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from analysisgnn_tpu_torch.models.conv import sage_plan
 from analysisgnn_tpu_torch.kernels.segment_mean import aggregate
 from analysisgnn_tpu_torch.models.encoders import HybridGNN, HybridHGT
 from analysisgnn_tpu_torch.models.heads import TaskHeads
-from analysisgnn_tpu_torch.models.mlp import PlainProjection
+from analysisgnn_tpu_torch.models.mlp import EncoderProjection, PlainProjection, ProjectionMLP
 from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
 
 PITCH_SPELLING_CLASSES = 35
@@ -60,6 +62,8 @@ class AnalysisGNN(nn.Module):
         use_pallas: bool = False,
         hgt_group_mode: str = "pair",
         hgt_softmax_stab: str = "global",
+        plain_proj: bool = True,
+        logit_fusion: bool = False,
     ):
         super().__init__()
         encoder_type = encoder_type.lower()
@@ -74,11 +78,13 @@ class AnalysisGNN(nn.Module):
         self.task_dict = tuple(task_dict)
         self.pitch_embedding = nn.Embedding(PITCH_SPELLING_CLASSES, EMBED_DIM)
         self.key_embedding = nn.Embedding(KEY_SIGNATURE_CLASSES, EMBED_DIM)
+        def project(width: int) -> nn.Module:
+            if plain_proj:
+                return PlainProjection(width, hidden_channels)
+            return ProjectionMLP(width, hidden_channels, hidden_channels, dropout)
+
         self.project = nn.ModuleDict(
-            {
-                t: PlainProjection(in_channels + (2 * EMBED_DIM if t == NOTE else 0), hidden_channels)
-                for t in self.node_types
-            }
+            {t: project(in_channels + (2 * EMBED_DIM if t == NOTE else 0)) for t in self.node_types}
         )
         if encoder_type == "hgt":
             # K2 needs the union capacity-binned stacks, as in the JAX model
@@ -92,8 +98,11 @@ class AnalysisGNN(nn.Module):
                 hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm,
                 dropout=dropout, conv_impl=conv_impl,
             )
-        self.project_enc = PlainProjection(2 * hidden_channels, out_channels)
-        self.heads = TaskHeads(self.task_dict, out_channels)
+        if plain_proj:
+            self.project_enc = PlainProjection(2 * hidden_channels, out_channels)
+        else:
+            self.project_enc = EncoderProjection(2 * hidden_channels, hidden_channels, out_channels, dropout)
+        self.heads = TaskHeads(self.task_dict, out_channels, logit_fusion)
 
     def encode(
         self,
@@ -115,17 +124,17 @@ class AnalysisGNN(nn.Module):
             ],
             dim=-1,
         )
-        h = {NOTE: self.project[NOTE](emb)}
+        h = {NOTE: self.project[NOTE](emb, deterministic, generator)}
         for t, x in x_dict.items():
             if t != NOTE and t in self.project:
-                h[t] = self.project[t](x)
+                h[t] = self.project[t](x, deterministic, generator)
         # every edge order / edge stack of this graph, built once for all layers
         plan = self.encoder.plan(edge_index_dict, {t: v.shape[0] for t, v in h.items()})
         x = self.encoder(h, plan, deterministic, generator)
         n = x.shape[0]
         onset = restrict_edges_to_targets(edge_index_dict[(NOTE, "onset", NOTE)], num_target_nodes, n)
         x_pool = aggregate(sage_plan(onset, n, n), x, x)
-        return self.project_enc(torch.cat([x, x_pool], dim=-1))
+        return self.project_enc(torch.cat([x, x_pool], dim=-1), deterministic, generator)
 
     def classify(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.heads(x)
@@ -158,8 +167,6 @@ SERVE_CONFIG = {
 # model_config.json keys whose values the port supports, with those values
 _SUPPORTED = {
     "model": ("HybridGNN", "hybridgnn", "HGT", "hgt"),
-    "plain_proj": (True,),
-    "logit_fusion": (False,),
     "use_rnn": (False,),
     "conv_impl": ("node", "edge", "edge-zxp"),
     "add_beats": (False, True),
@@ -201,6 +208,8 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
             use_pallas=cfg.get("use_pallas", False),
             hgt_group_mode=cfg.get("hgt_group_mode", "pair"),
             hgt_softmax_stab=cfg.get("hgt_softmax_stab", "global"),
+            plain_proj=cfg.get("plain_proj", True),
+            logit_fusion=cfg.get("logit_fusion", False),
         )
 
 
@@ -215,16 +224,17 @@ _HEAD_TRANSFORMS = ("watt", "wmsg")  # [R, H, D, D]: fan_in D
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialization: biases zero, LayerNorm scales and the HGT priors
-    and skip gates one, embeddings N(0, 1), every weight N(0, 1/fan_in).
+    and skip gates one, embeddings N(0, 1), every weight N(0, 1/fan_in) (a
+    GRU's ``weight_ih`` / ``weight_hh`` ``[3F, in]`` too).
     Draws on the CPU generator in parameter order, so the weights do not
     depend on the model's device."""
     for name, p in model.named_parameters():
         parts = name.split(".")
         kind, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
-        if leaf in _ZERO_INIT:
+        if leaf in _ZERO_INIT or leaf.startswith("bias_"):  # a GRU's bias_ih_l0, bias_hh_l0_reverse, ...
             p.zero_()
             continue
-        if leaf == "ln_scale" or kind in _ONE_INIT:
+        if leaf == "ln_scale" or kind in _ONE_INIT or (leaf == "weight" and p.dim() == 1):  # LayerNorm
             p.fill_(1.0)
             continue
         if kind in _HEAD_TRANSFORMS:

@@ -47,7 +47,9 @@ class HybridGNN(nn.Module):
     optional LSTM-attention JumpingKnowledge over the note states, and a final
     hetero conv (ReLU -> L2-norm on its output when ``final_norm``).
     ``conv_impl`` is the fused-SAGE layout of every hetero conv
-    (``models/fused.py``)."""
+    (``models/fused.py``).  ``in_channels`` is the width of the first conv's
+    input (``hidden`` by default; flax infers it from the input, and the
+    chord encoders feed raw note features in)."""
 
     def __init__(
         self,
@@ -59,15 +61,17 @@ class HybridGNN(nn.Module):
         final_norm: bool = False,
         dropout: float = 0.0,
         conv_impl: str = "node",
+        in_channels: Optional[int] = None,
     ):
         super().__init__()
         self.final_norm = final_norm
         self.dropout = dropout
+        widths = [hidden if in_channels is None else in_channels] + [hidden] * num_layers
         self.layers = nn.ModuleList(
-            HeteroConv(hidden, hidden, node_types, edge_types, conv_impl) for _ in range(num_layers)
+            HeteroConv(widths[i], hidden, node_types, edge_types, conv_impl) for i in range(num_layers)
         )
         self.jk = LayerAttentionJK(hidden, num_layers) if use_jk else None
-        self.final = HeteroConv(hidden, hidden, node_types, edge_types, conv_impl)
+        self.final = HeteroConv(widths[-1], hidden, node_types, edge_types, conv_impl)
         self.edge_types = tuple(edge_types)
         self.conv_impl = conv_impl
 

@@ -1,16 +1,19 @@
-"""Per-task classification heads (counterpart of
-``analysisgnn_tpu/models/heads.py``: ``FusedTaskHeads`` and ``TaskHeads``
-without logit fusion)."""
+"""Per-task classification heads and cross-task logit fusion (counterpart of
+``analysisgnn_tpu/models/heads.py``: ``FusedTaskHeads``,
+``CrossTaskTransformer`` and ``TaskHeads``)."""
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
 
-# FusedTaskHeads normalizes with eps 1e-6 (flax), not torch's 1e-5 default
-LN_EPS = 1e-6
+from analysisgnn_tpu_torch.models.mlp import LN_EPS, layer_norm
+
+# heads of the cross-task attention (flax CrossTaskTransformer's default)
+XTASK_HEADS = 4
 
 
 class FusedTaskHeads(nn.Module):
@@ -39,12 +42,58 @@ class FusedTaskHeads(nn.Module):
         return {task: logits[i, :, :n_cls] for i, (task, n_cls) in enumerate(self.task_dict)}
 
 
-class TaskHeads(nn.Module):
-    """The task heads of the analysis model (hidden width ``out_channels // 2``)."""
+class CrossTaskTransformer(nn.Module):
+    """Self-attention across the task axis, then a residual LayerNorm: the
+    flax ``MultiHeadDotProductAttention`` (query, key and value projections
+    to ``heads x proj_dim / heads``, scores scaled by ``1 / sqrt(head_dim)``,
+    an output projection) on ``[N, T, proj_dim]``.  The flax kernels
+    ``[in, heads, head_dim]`` and ``[heads, head_dim, out]`` are stored as
+    Linears over the flattened ``heads * head_dim`` axis."""
 
-    def __init__(self, task_dict: Sequence[Tuple[str, int]], out_channels: int):
+    def __init__(self, proj_dim: int, num_heads: int = XTASK_HEADS):
         super().__init__()
-        self.clf = FusedTaskHeads(task_dict, out_channels, out_channels // 2)
+        self.num_heads = num_heads
+        self.query = nn.Linear(proj_dim, proj_dim)
+        self.key = nn.Linear(proj_dim, proj_dim)
+        self.value = nn.Linear(proj_dim, proj_dim)
+        self.out = nn.Linear(proj_dim, proj_dim)
+        self.norm = layer_norm(proj_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, t, f = x.shape
+        split = lambda y: y.reshape(n, t, self.num_heads, f // self.num_heads)
+        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        q = q / math.sqrt(q.shape[-1])
+        w = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q, k), dim=-1)
+        attended = self.out(torch.einsum("nhqk,nkhd->nqhd", w, v).reshape(n, t, f))
+        return self.norm(x + attended)
+
+
+class TaskHeads(nn.Module):
+    """The task heads of the analysis model (hidden width ``out_channels //
+    2``), with the optional cross-task logit fusion: each task's logits
+    projected (Linear -> ReLU -> LayerNorm) to ``out_channels // 2``,
+    attention across the tasks, and a Linear back to each task's classes.
+    At inference the attention's dropout is the identity."""
+
+    def __init__(self, task_dict: Sequence[Tuple[str, int]], out_channels: int, logit_fusion: bool = False):
+        super().__init__()
+        half = out_channels // 2
+        self.task_dict = tuple(task_dict)
+        self.logit_fusion = logit_fusion
+        self.clf = FusedTaskHeads(task_dict, out_channels, half)
+        if logit_fusion:
+            self.proj = nn.ModuleDict({task: nn.Linear(n_cls, half) for task, n_cls in self.task_dict})
+            self.projnorm = nn.ModuleDict({task: layer_norm(half) for task, _ in self.task_dict})
+            self.xtask = CrossTaskTransformer(half)
+            self.fusion = nn.ModuleDict({task: nn.Linear(half, n_cls) for task, n_cls in self.task_dict})
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.clf(x)
+        raw = self.clf(x)
+        if not self.logit_fusion:
+            return raw
+        stack = torch.stack(
+            [self.projnorm[task](torch.relu(self.proj[task](raw[task]))) for task, _ in self.task_dict], dim=1
+        )
+        enhanced = self.xtask(stack)  # [N, T, half]
+        return {task: self.fusion[task](enhanced[:, i]) for i, (task, _) in enumerate(self.task_dict)}

@@ -180,6 +180,77 @@ def available_representations() -> Dict[str, Representation]:
     return build_representations()
 
 
+class LatestInversionRepresentation(Representation):
+    """Inversions 0..3; >3 folds to 0 (reference latest Inversion4.run,
+    chord_representations_latest.py:2254-2265)."""
+
+    def encode_value(self, value) -> int:
+        try:
+            iv = int(value)
+        except (TypeError, ValueError):
+            return 0
+        return iv if 0 <= iv <= 3 else 0
+
+
+@lru_cache(maxsize=1)
+def build_representations_latest() -> Dict[str, Representation]:
+    """The 14-task "latest" SATB-voiced variant (reference
+    ``chord_representations_latest.available_representations``,
+    chord_representations_latest.py:2317-2332).  Class lists are derived
+    from the generated ``frompcset`` vocabulary rather than stored."""
+    from analysisgnn_tpu_torch.theory.roman import (
+        DEGREES_LATEST,
+        NOTEDURATIONS,
+        SPELLINGS,
+        latest_vocab,
+    )
+
+    v = latest_vocab()
+    keys = list(v["KEYS"])
+    spellings = list(SPELLINGS)
+    reps: Dict[str, Representation] = {
+        "localkey": KeyRepresentation(keys, "localkey"),
+        "tonkey": KeyRepresentation(keys, "tonkey"),
+        "degree1": Representation(list(DEGREES_LATEST), "degree1"),
+        "degree2": Representation(list(DEGREES_LATEST), "degree2"),
+        "quality": Representation(list(v["CHORD_QUALITIES"]), "quality"),
+        "inversion": LatestInversionRepresentation(list(range(4)), "inversion"),
+        "root": PitchRepresentation(spellings, "root"),
+        "romanNumeral": Representation(list(v["COMMON_ROMAN_NUMERALS"]), "romanNumeral"),
+        "hrhythm": Representation(list(NOTEDURATIONS), "hrhythm"),
+        "pcset": PcSetRepresentation([list(p) for p in v["PCSETS"]], "pcset"),
+        "bass": PitchRepresentation(spellings, "bass"),
+        "tenor": PitchRepresentation(spellings, "tenor"),
+        "alto": PitchRepresentation(spellings, "alto"),
+        "soprano": PitchRepresentation(spellings, "soprano"),
+    }
+    return reps
+
+
+def available_representations_latest() -> Dict[str, Representation]:
+    return build_representations_latest()
+
+
+#: class counts of the latest variant — the ``tasks`` dict hard-coded by the
+#: reference chord predictor (inference/predict_chords.py:27-31).
+TASK_DICT_LATEST: Dict[str, int] = {
+    "localkey": 38,
+    "tonkey": 38,
+    "degree1": 22,
+    "degree2": 22,
+    "quality": 11,
+    "inversion": 4,
+    "root": 35,
+    "romanNumeral": 31,
+    "hrhythm": 7,
+    "pcset": 121,
+    "bass": 35,
+    "tenor": 35,
+    "alto": 35,
+    "soprano": 35,
+}
+
+
 # Task → number of classes table, mirroring the train CLI TASK_DICT
 # (reference train/train_analysisgnn.py:22-45).
 TASK_DICT: Dict[str, int] = {
@@ -237,29 +308,3 @@ def admissible_transpositions(local_keys: Sequence[str]) -> List[str]:
             out.append(interval)
     return out
 
-
-# Task → number of classes table, mirroring the train CLI TASK_DICT
-# (reference train/train_analysisgnn.py:22-45).
-TASK_DICT: Dict[str, int] = {
-    "cadence": 4,
-    "localkey": 50,
-    "tonkey": 50,
-    "quality": 15,
-    "inversion": 4,
-    "root": 38,
-    "bass": 38,
-    "degree1": 22,
-    "degree2": 22,
-    "hrythm": 2,
-    "pcset": 94,
-    "romanNumeral": 185,
-    "section": 2,
-    "phrase": 2,
-    "organ_point": 2,
-    "tpc_in_label": 2,
-    "tpc_is_root": 2,
-    "tpc_is_bass": 2,
-    "downbeat": 45,
-    "note_degree": 49,
-    "staff": 4,
-}

@@ -128,6 +128,7 @@ class TrainConfig:
 
 _ITEM7 = "is not ported yet (ROADMAP queue 1 item 7.3)"
 _ITEM11 = "is not ported yet: it comes with the remaining HybridGNN knobs (ROADMAP queue 1 item 11)"
+_SERVE_ONLY = "is not ported for training yet: the port serves such checkpoints (ROADMAP queue 1 item 11)"
 
 
 def _refuse(cfg: TrainConfig) -> None:
@@ -139,6 +140,8 @@ def _refuse(cfg: TrainConfig) -> None:
         "remat": (cfg.remat, _ITEM11),
         "final_dropout": (cfg.final_dropout, _ITEM11),
         "fused_torch_init=False": (cfg.torch_init and not cfg.fused_torch_init, _ITEM11),
+        "plain_proj=False (--deep_proj)": (not cfg.plain_proj, _SERVE_ONLY),
+        "logit_fusion": (cfg.logit_fusion, _SERVE_ONLY),
     }
     for name, (on, why) in refused.items():
         if on:

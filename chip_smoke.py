@@ -135,7 +135,21 @@ Phases, each on its own line with elapsed seconds:
      per forward;
  19. the dryrun_multichip twin (__graft_entry__.py:287-356): 1,200 notes
      (seed 7) of the serve model's configuration (3 x 256 -> 128, JK, 21
-     tasks) through 8 partitions, within the same tolerance.
+     tasks) through 8 partitions, within the same tolerance;
+ 20. RNA serve: cli.predict.main on the serve model (phase 4's weights,
+     saved with its model_config.json) with --output_musicxml on a generated
+     MusicXML score of 2,000 notes (seconds, K1 launches against the code's
+     prediction, the RNA MusicXML's bytes and harmony labels), with
+     --conv_impl edge-zxp (K3 forward launches against the prediction, the
+     ids that differ from the node run) and on a .krn score it writes;
+ 21. chord chain: predict_chords.main at the CLI's defaults (hidden 256, one
+     HybridGNN layer, the 14 latest tasks, the BiGRU smoother) with
+     --romantext on a generated 2,000-note score: seconds per request after
+     one warm-up, K1 launches against the code's prediction, one traced
+     request (device busy share, kernels by device time, the GRUs' share),
+     and predict_chord_tasks on the card against the CPU with the same
+     weights (probabilities within CHORD_PROB_ATOL, onsets with other decoded
+     labels, the resolved annotations).
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -144,6 +158,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import csv
 import dataclasses
 import importlib.util
 import io
@@ -264,6 +279,18 @@ PART_NOTES = 20000
 PART_SEED = 0  # its largest edge span, 24 rows, is regime 2's halo and K6's timed shape
 PARTITIONS = 4  # regime 1's, the CLI's, regime 2's traced run's and K6's timed shape's
 REGIME2_PARTITIONS = (1, 2, 4, 8)
+# RNA serve (phase 20) and the chord chain (phase 21): generated MusicXML scores of about 2,000 notes
+RNA_NOTES = 2000
+CHORD_NOTES = 2000
+CHORD_HIDDEN, CHORD_LAYERS = 256, 1  # predict_chords' CLI defaults
+# GPU vs CPU probabilities of the chord chain (float64 softmaxes of f32 logits
+# of the same weights, summed in another order on the card; a softmax moves
+# by at most half its largest logit change, and the serve phase holds whole-
+# model logits at full width to 1e-3): absolute.  An onset may decode to
+# another label on the card only where that task's top two CPU probabilities
+# lie within 2 * CHORD_PROB_ATOL of each other; where every label is equal,
+# the resolved annotations must be equal too
+CHORD_PROB_ATOL = 1e-4
 
 
 def phase(msg: str) -> None:
@@ -573,9 +600,9 @@ def trace(model, notes: int, top: int = 10) -> None:
              if e.key.startswith("predict.") and e.device_type == torch.autograd.DeviceType.CPU}
     if sorted(spans) != ["predict.decode", "predict.forward", "predict.graph"] or min(spans.values()) <= 0:
         raise AssertionError(f"the profiled request lacks its stage spans: {spans}")
-    # kernel entries only: CPU ops and the spans' device-side ranges would count the same time again
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("predict.")]
+    # kernel entries only: CPU ops and the spans' device-side ranges (user annotations) would count the same
+    # time again
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
         raise AssertionError("the profiled request shows no device time")
@@ -1073,10 +1100,12 @@ def step_parity(arm: str, batch) -> dict:
     return {"loss_rel": rel, "param_max_abs": worst}
 
 
-def trace_forward(fn, label: str, prefix: str, top: int, group: str = "") -> dict:
+def trace_forward(fn, label: str, prefix: str, top: int, group: str = "", op: str = "") -> dict:
     """One call of ``fn`` under torch.profiler: the device's busy share of its
     wall time and its kernels by device time, printed after ``prefix``; with
-    ``group``, the summed device time of the kernels whose names contain it."""
+    ``group``, the summed device time of the kernels whose names contain it;
+    with ``op`` (a host op's name, such as ``aten::gru``), the device time of
+    every kernel launched under that op."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILER_ATTEMPTS):  # a window that holds no kernel record (see device_ms) is taken again
@@ -1085,7 +1114,10 @@ def trace_forward(fn, label: str, prefix: str, top: int, group: str = "") -> dic
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = prof.key_averages()
+        # a record_function span shows as a device-side range too; the profiler flags it as a user annotation
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         if busy_ms > 0:
             break
@@ -1104,6 +1136,14 @@ def trace_forward(fn, label: str, prefix: str, top: int, group: str = "") -> dic
         row["group_ms"] = sum(e.self_device_time_total for e in members) / 1e3
         phase(f"{prefix}: {group}* kernels {row['group_ms']:.3f} ms of the {busy_ms:.2f} ms busy, "
               f"{sum(e.count for e in members)} launches")
+    if op:
+        under = [e for e in events if e.key == op and e.device_type == torch.autograd.DeviceType.CPU]
+        if not under:
+            raise AssertionError(f"the profiled {label} ran no {op}")
+        row["op_ms"] = sum(e.device_time_total for e in under) / 1e3
+        row["op_calls"] = sum(e.count for e in under)
+        phase(f"{prefix}: kernels under {op} ({row['op_calls']} calls) {row['op_ms']:.3f} ms of the "
+              f"{busy_ms:.2f} ms busy ({100 * row['op_ms'] / busy_ms:.1f}%)")
     return row
 
 
@@ -2055,6 +2095,257 @@ def partition_twin(model) -> dict:
     return _regime1_check(model, full, host, 8, "dryrun_multichip twin")
 
 
+# ---------------------------------------------------------------- RNA serve, chord chain
+
+
+def humdrum_text(measures: int, seed: int) -> str:
+    """A two-spine 4/4 Humdrum **kern score: a bass of quarter and half notes
+    and an upper spine of chords of up to three notes, with rests and ties."""
+    rng = np.random.default_rng(seed)
+    lines = ["**kern\t**kern", "*clefF4\t*clefG2", "*k[b-]\t*k[b-]", "*M4/4\t*M4/4"]
+    for m in range(measures):
+        lines.append(f"={m + 1}\t={m + 1}")
+        for _ in range(4):
+            bass = f"4{'CDEFGAB'[rng.integers(7)]}" if rng.random() > 0.1 else "4r"
+            upper = " ".join(f"4{'cdefgab'[rng.integers(7)]}" for _ in range(int(rng.integers(1, 4))))
+            lines.append(f"{bass}\t{upper}")
+    lines += ["==\t==", "*-\t*-"]
+    return "\n".join(lines) + "\n"
+
+
+def _serve_expected(model, conv_impl: str) -> dict:
+    """Launches of one serve request the code predicts (no backward): every
+    hetero conv runs one K1 per single relation and, per fused group, one K1
+    ("node") or one K3 forward ("edge-zxp"); onset pooling one K1."""
+    from analysisgnn_tpu_torch.models.hetero import fusion_groups
+
+    groups, singles = fusion_groups(model.edge_types)
+    convs = len(model.encoder.layers) + 1
+    counts = {k: 0 for k in _counts()}
+    counts["segment_mean_base"] = 1 + convs * (len(singles) + (len(groups) if conv_impl == "node" else 0))
+    counts["relation_weighted_matmul"] = convs * len(groups) if conv_impl == "edge-zxp" else 0
+    return counts
+
+
+def _csv_ids(path: str) -> list:
+    """The label columns of each row of a predict CSV."""
+    with open(path, newline="") as f:
+        return [row[3:] for row in list(csv.reader(f))[1:]]
+
+
+@torch.no_grad()
+def _zxp_logits_against_node(ckpt: str, score: str) -> float:
+    """The checkpoint loaded as the predict CLI loads it, once as saved
+    ("node", K1) and once with --conv_impl edge-zxp (K3 forward), run on the
+    card on the score's graph as the CLI builds it: the largest difference of
+    their logits, which must stay within LOGIT_ATOL."""
+    from analysisgnn_tpu_torch.cli.predict import load_model
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.data.musicxml import load_score
+    from analysisgnn_tpu_torch.inference.predict import graph_from_note_array
+
+    parsed = load_score(score)
+    n = len(parsed.note_array)
+    logits = {}
+    for arm in ("node", "edge-zxp"):
+        model, cfg = load_model(ckpt, "best", "cuda", conv_impl=arm)
+        g = graph_from_note_array(parsed.note_array, parsed.measures,
+                                  cfg.get("feature_type", "simple").replace("simple", "voice"),
+                                  cfg.get("add_beats", False), cfg.get("add_measures", False), device="cuda")
+        a = g.node_attrs[NOTE]
+        out = model(g.node_features, g.edge_index, a["pitch_spelling"], a["key_signature"], g.num_target_nodes)
+        logits[arm] = {k: v[:n].float() for k, v in out.items()}
+    worst = 0.0
+    for task, t in logits["node"].items():
+        z = logits["edge-zxp"][task]
+        if z.shape != t.shape or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"RNA serve edge-zxp: {task} logits of shape {tuple(z.shape)} or not finite")
+        worst = max(worst, float((z - t).abs().max()))
+    if worst > LOGIT_ATOL:
+        raise AssertionError(f"RNA serve: edge-zxp (K3) vs node (K1) logits differ by {worst:.3e} > {LOGIT_ATOL}")
+    return worst
+
+
+@torch.no_grad()
+def rna_serve(model, cfg: dict, tmp: str) -> dict:
+    """The predict CLI's Roman-numeral MusicXML on the serve model (phase 4's
+    weights): a generated 2,000-note MusicXML score with --output_musicxml
+    (twice: the first call carries the parse and the model load's first
+    touches), then with --conv_impl edge-zxp (K3), then a Humdrum .krn score."""
+    from analysisgnn_tpu_torch.cli.predict import main as predict_main
+    from analysisgnn_tpu_torch.data.kern import parse_kern
+
+    ckpt = f"{tmp}/rna_ckpt"
+    os.makedirs(ckpt)
+    with open(f"{ckpt}/model_config.json", "w") as f:
+        json.dump(cfg, f)
+    torch.save(model.state_dict(), f"{ckpt}/best.pt")
+    with open(f"{tmp}/rna.musicxml", "w") as f:
+        f.write(synthetic_score_xml(RNA_NOTES, seed=20))
+    with open(f"{tmp}/rna.krn", "w") as f:
+        f.write(humdrum_text(40, seed=20))
+
+    def run(name: str, score: str, extra: list) -> dict:
+        _reset_counts()  # this CLI run starts here
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            predict_main(["--checkpoint_dir", ckpt, "--score", score, "--output_csv", f"{tmp}/{name}.csv",
+                          "--output_musicxml", f"{tmp}/{name}.musicxml", "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = _counts()
+        with open(f"{tmp}/{name}.musicxml") as f:
+            xml = f.read()
+        ids = _csv_ids(f"{tmp}/{name}.csv")
+        if not xml.startswith("<?xml") or "<lyric><text>" not in xml or not xml.endswith("</score-partwise>"):
+            raise AssertionError(f"RNA serve {name}: the RNA MusicXML is malformed")
+        return {"s": seconds, "counts": counts, "bytes": len(xml.encode()), "labels": xml.count("<lyric>"),
+                "ids": ids}
+
+    node_expected, zxp_expected = _serve_expected(model, "node"), _serve_expected(model, "edge-zxp")
+    first = run("node_first", f"{tmp}/rna.musicxml", [])
+    node = run("node", f"{tmp}/rna.musicxml", [])
+    zxp = run("zxp", f"{tmp}/rna.musicxml", ["--conv_impl", "edge-zxp"])
+    krn = run("krn", f"{tmp}/rna.krn", [])
+    for name, r, expected in (("first", first, node_expected), ("node", node, node_expected),
+                              ("edge-zxp", zxp, zxp_expected), ("krn", krn, node_expected)):
+        if r["counts"] != expected:
+            raise AssertionError(f"RNA serve {name}: launches {r['counts']}, the code predicts {expected}")
+    notes = len(node["ids"])
+    if notes < RNA_NOTES or len(zxp["ids"]) != notes or node["ids"] != first["ids"]:
+        raise AssertionError(f"RNA serve: {notes} CSV rows (at least {RNA_NOTES}), or unstable ids across calls")
+    krn_notes = len(parse_kern(f"{tmp}/rna.krn").note_array)
+    if len(krn["ids"]) != krn_notes:
+        raise AssertionError(f"RNA serve .krn: {len(krn['ids'])} CSV rows for {krn_notes} notes")
+    differ = sum(a != b for row_a, row_b in zip(node["ids"], zxp["ids"]) for a, b in zip(row_a, row_b))
+    zxp_err = _zxp_logits_against_node(ckpt, f"{tmp}/rna.musicxml")
+    phase(f"RNA serve: cli.predict.main --output_musicxml on a MusicXML score of {notes} notes: {node['s']:.3f} s "
+          f"(first call {first['s']:.3f} s), K1 launches {node['counts']['segment_mean_base']} (the code predicts "
+          f"{node_expected['segment_mean_base']}); RNA MusicXML {node['bytes']} bytes, {node['labels']} harmony "
+          f"labels")
+    phase(f"RNA serve: --conv_impl edge-zxp: {zxp['s']:.3f} s, K3 forward launches "
+          f"{zxp['counts']['relation_weighted_matmul']} (the code predicts "
+          f"{zxp_expected['relation_weighted_matmul']}), K1 {zxp['counts']['segment_mean_base']}; {differ} of "
+          f"{notes * len(model.task_dict)} ids differ from the node run; on the score's graph, the edge-zxp "
+          f"model's logits (K3) against the node model's (K1) max|d| {zxp_err:.3e} (tol {LOGIT_ATOL} abs)")
+    phase(f"RNA serve: a .krn score of {krn_notes} notes: {krn['s']:.3f} s, K1 launches "
+          f"{krn['counts']['segment_mean_base']}, RNA MusicXML {krn['bytes']} bytes, {krn['labels']} labels")
+    return {"notes": notes, "seconds": node["s"], "first_s": first["s"], "k1_launches": node["counts"][
+        "segment_mean_base"], "k3_launches": zxp["counts"]["relation_weighted_matmul"], "zxp_s": zxp["s"],
+            "ids_differing": differ, "zxp_logit_max_abs": zxp_err, "xml_bytes": node["bytes"], "labels": node["labels"], "krn_notes": krn_notes,
+            "krn_s": krn["s"]}
+
+
+def chord_chain(tmp: str) -> dict:
+    """The chord chain: predict_chords.main at its CLI defaults (hidden 256,
+    one HybridGNN layer, the 14 latest tasks, the smoother) with --romantext
+    on a generated score of about 2,000 notes; seconds per request after one
+    warm-up, K1 launches against the code's prediction, one traced request
+    (the GRUs' share named), and predict_chord_tasks on the card against the
+    same on the CPU with the same weights."""
+    from analysisgnn_tpu_torch.data.features import select_features
+    from analysisgnn_tpu_torch.data.musicxml import load_score
+    from analysisgnn_tpu_torch.inference import predict_chords as pc
+    from analysisgnn_tpu_torch.models.hetero import fusion_groups
+
+    score = f"{tmp}/chords.musicxml"
+    with open(score, "w") as f:
+        f.write(synthetic_score_xml(CHORD_NOTES, seed=21))
+    argv = ["--input_score", score, "--output_dir", f"{tmp}/chords", "--hidden", str(CHORD_HIDDEN),
+            "--num_layers", str(CHORD_LAYERS), "--romantext", "--device", "cuda"]
+    na = load_score(score).note_array
+    in_features = select_features(na, "voice").shape[1]
+    model = pc.build_chord_model(in_features, CHORD_HIDDEN, CHORD_LAYERS, device="cuda")
+    post = pc.build_post_model(CHORD_HIDDEN, device="cuda")
+    groups, singles = fusion_groups(model.encoder.gnn.edge_types)
+    # every hetero conv of the chord encoder's HybridGNN (its layers and the final one) runs one K1 per fused
+    # group and per single relation; nothing else of the chain launches a hand-written kernel
+    expected = {k: 0 for k in _counts()}
+    expected["segment_mean_base"] = (len(model.encoder.gnn.layers) + 1) * (len(groups) + len(singles))
+    with contextlib.redirect_stdout(io.StringIO()):
+        pc.main(argv)  # warm-up
+    torch.cuda.synchronize()
+    seconds, counts = [], None
+    for _ in range(REPEATS):
+        _reset_counts()  # the chord chain's run starts here
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            pc.main(argv)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        counts = counts or _counts()
+    if counts != expected:
+        raise AssertionError(f"chord chain: launches {counts}, the code predicts {expected}")
+    base = os.path.splitext(os.path.basename(score))[0]
+    with open(f"{tmp}/chords/{base}.rntxt") as f:
+        rntxt = f.read()
+    with open(f"{tmp}/chords/{base}_rna.musicxml") as f:
+        xml = f.read()
+    if not rntxt.startswith("Composer:") or "m1" not in rntxt or "<lyric><text>" not in xml:
+        raise AssertionError("chord chain: the RomanText or the RNA MusicXML is malformed")
+    phase(f"chord chain: predict_chords.main --hidden {CHORD_HIDDEN} --num_layers {CHORD_LAYERS} --romantext on a "
+          f"score of {len(na)} notes: median of {REPEATS} {statistics.median(seconds):.3f} s a request after one "
+          f"warm-up ({', '.join(f'{x:.3f}' for x in seconds)}); K1 launches {counts['segment_mean_base']} (the code "
+          f"predicts {expected['segment_mean_base']}); {rntxt.count(chr(10))} RomanText lines, "
+          f"{xml.count('<lyric>')} RNA labels")
+
+    tasks = lambda: pc.predict_chord_tasks(na, model=model, post_model=post, device="cuda")
+    tasks()
+    torch.cuda.synchronize()
+    task_s = []
+    for _ in range(REPEATS):
+        t = time.perf_counter()
+        tasks()
+        torch.cuda.synchronize()
+        task_s.append(time.perf_counter() - t)
+    # the GRUs: cuDNN's cell kernels and the recurrent matrix-vector products it has cuBLAS run, all under aten::gru
+    traced = trace_forward(tasks, "one predict_chord_tasks request", "chord chain", 12, op="aten::gru")
+    phase(f"chord chain: predict_chord_tasks alone (graph, model, smoother, host softmaxes): median of {REPEATS} "
+          f"{statistics.median(task_s) * 1e3:.1f} ms; the two BiGRUs {traced['op_ms']:.3f} ms = "
+          f"{100 * traced['op_ms'] / traced['busy_ms']:.1f}% of the device's busy time")
+
+    # the same weights on the CPU (plain versions): probabilities, decoded labels, annotations
+    cpu_model = pc.build_chord_model(in_features, CHORD_HIDDEN, CHORD_LAYERS, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_post = pc.build_post_model(CHORD_HIDDEN, device="cpu")
+    cpu_post.load_state_dict({k: v.cpu() for k, v in post.state_dict().items()})
+    gpu, onsets = tasks()
+    cpu, cpu_onsets = pc.predict_chord_tasks(na, model=cpu_model, post_model=cpu_post, device="cpu")
+    if set(gpu) != set(cpu) or not np.array_equal(onsets, cpu_onsets):
+        raise AssertionError("chord chain: the GPU and CPU runs cover other tasks or onsets")
+    worst = {}
+    for task, p in gpu.items():
+        if p.shape != cpu[task].shape or not np.isfinite(p).all():
+            raise AssertionError(f"chord chain: {task} probabilities of shape {p.shape} or not finite")
+        worst[task] = float(np.abs(p - cpu[task]).max())
+    if max(worst.values()) > CHORD_PROB_ATOL:
+        raise AssertionError(f"chord chain: GPU vs CPU probabilities differ by {max(worst.values()):.3e} > "
+                             f"{CHORD_PROB_ATOL}: {worst}")
+    dec, cpu_dec = pc.decode_chord_predictions(gpu), pc.decode_chord_predictions(cpu)
+    differ = [i for i in range(len(onsets)) if any(dec[t][i] != cpu_dec[t][i] for t in dec)]
+    # an onset may decode to another label only where that task's top two CPU probabilities lie within
+    # 2 * CHORD_PROB_ATOL (a near tie that the allowed difference can flip); anything else raises
+    for i in differ:
+        for t in dec:
+            if dec[t][i] != cpu_dec[t][i]:
+                top2 = np.sort(cpu[t][i])[-2:]
+                if top2[1] - top2[0] > 2 * CHORD_PROB_ATOL:
+                    raise AssertionError(f"chord chain: onset {i} decodes {t} to {dec[t][i]!r} on the GPU and "
+                                         f"{cpu_dec[t][i]!r} on the CPU with a top-two gap of "
+                                         f"{top2[1] - top2[0]:.3e} > {2 * CHORD_PROB_ATOL}")
+    differ = len(differ)
+    ann, cpu_ann = pc.resolve_annotations(dec, onsets), pc.resolve_annotations(cpu_dec, onsets)
+    if differ == 0 and ann != cpu_ann:
+        raise AssertionError("chord chain: equal labels resolved to other annotations on the GPU and the CPU")
+    phase(f"chord chain: GPU vs CPU (plain versions, same weights), {len(onsets)} onsets: probabilities max|d| "
+          f"{max(worst.values()):.3e} (tol {CHORD_PROB_ATOL} abs; worst task "
+          f"{max(worst, key=worst.get)}), {differ} onsets with other decoded labels, {len(ann)} annotations, "
+          f"{'equal' if ann == cpu_ann else 'not equal'}")
+    return {"median_s": statistics.median(seconds), "seconds": seconds, "launches": counts["segment_mean_base"],
+            "task_ms": statistics.median(task_s) * 1e3, "trace": traced, "prob_max_abs_err": max(worst.values()),
+            "labels_differing": differ, "annotations": len(ann), "notes": len(na), "onsets": len(onsets)}
+
+
 def main() -> None:
     smi = environment()
     from analysisgnn_tpu_torch.core.graph import NOTE
@@ -2119,6 +2410,16 @@ def main() -> None:
           f"{PART_NOTES}-note request, regime 2 "
           + ", ".join(f"{d} partitions {r['median_ms']:.2f} ms" for d, r in partitioned["regime2"].items())
           + f" a forward; the 1,200-note twin max|d| {twin['max_abs_err']:.3e}")
+
+    model = model_from_config(CFG, device="cuda").eval()
+    init_parameters(model, torch.Generator(device="cpu").manual_seed(0))  # the serve phase's weights
+    with tempfile.TemporaryDirectory() as tmp:
+        rna = rna_serve(model, CFG, tmp)
+        del model
+        chords = chord_chain(tmp)
+    phase(f"RNA serve and chord chain: done; {rna['seconds']:.3f} s an RNA-serve request of {rna['notes']} notes, "
+          f"{chords['median_s']:.3f} s a chord-chain request of {chords['notes']} notes (GRUs "
+          f"{chords['trace']['op_ms']:.3f} of {chords['trace']['busy_ms']:.2f} ms device busy)")
 
     main_row = rows[0]
     zxp = trained["edge-zxp"]
@@ -2213,6 +2514,9 @@ def main() -> None:
                                                   "bound_ms", "bound_by", "max_abs_err")}
     kernels[-1]["int64_ids_ms"] = k5_rows[0]["int64_ids_ms"]
     kernels[0]["partitioned_serve_launches"] = partitioned["regime1"]["launches"]
+    kernels[0]["rna_serve_launches"] = rna["k1_launches"]
+    kernels[0]["chord_launches"] = chords["launches"]
+    kernels[1]["serve_launches"] = rna["k3_launches"]
     k6 = k6_rows[0]
     if (k6["D"], k6["H"]) != (PARTITIONS, partitioned["regime2"][PARTITIONS]["halo"]):
         raise AssertionError(f"K6 was timed at D={k6['D']} H={k6['H']}, not at the shape of regime 2's run")

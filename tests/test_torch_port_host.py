@@ -137,5 +137,8 @@ def test_musicxml_parse_identical(tmp_path):
     np.testing.assert_array_equal(got.note_array, want.note_array)
     np.testing.assert_array_equal(got.measures, want.measures)
     assert got.divs_per_quarter == want.divs_per_quarter
-    with pytest.raises(ValueError):
+    # a .krn path goes to the kern parser, as in the JAX package (tests/test_torch_port_kern.py)
+    with pytest.raises(FileNotFoundError):
         txml.load_score(str(tmp_path / "piece.krn"))
+    with pytest.raises(FileNotFoundError):
+        jxml.load_score(str(tmp_path / "piece.krn"))

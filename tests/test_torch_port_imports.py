@@ -24,6 +24,14 @@ names = [m.name for m in pkgutil.walk_packages(analysisgnn_tpu_torch.__path__, "
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+# the chord chain and the deep / fused analysis heads import more inside their functions: run them too
+from analysisgnn_tpu_torch.data.note_array import synthetic_score
+from analysisgnn_tpu_torch.inference.predict_chords import decode_chord_predictions, predict_chord_tasks
+from analysisgnn_tpu_torch.models.analysis import model_from_config
+probs, onsets = predict_chord_tasks(synthetic_score(30), hidden=8, device="cpu")
+decode_chord_predictions(probs)
+model_from_config({{"num_layers": 1, "hidden_channels": 8, "out_channels": 4, "in_channels": 25,
+                   "plain_proj": False, "logit_fusion": True}}, device="cpu")
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in {FORBIDDEN!r})
 assert not loaded, loaded
 print(",".join(names + [chip_smoke.__name__]))
@@ -37,7 +45,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
-    assert len(names) >= 58  # every module of the port and chip_smoke, the file corpora's included
+    assert len(names) >= 64  # every module of the port and chip_smoke, the chord chain's included
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
@@ -47,6 +55,8 @@ def test_every_port_module_imports_without_jax():
         "kernels.halo", "distributed", "distributed.partition", "distributed.partition_encoder",
         "kernels.launch", "data._table", "data.tsv", "data.dlc_meta", "data.time_divided", "data.samplers",
         "data.features", "theory.encoders",
+        "theory.roman", "theory.rules", "data.kern", "models.chord", "models.pooling", "models.mlp",
+        "inference.predict_chords",
     )} <= names
 
 
@@ -57,11 +67,12 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 59 and {
+    assert len(files) >= 65 and {
         "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
         "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
         "halo.py", "partition.py", "partition_encoder.py", "launch.py", "_table.py", "tsv.py", "dlc_meta.py",
         "time_divided.py", "samplers.py",
+        "roman.py", "rules.py", "kern.py", "chord.py", "pooling.py", "predict_chords.py",
     } <= {f.name for f in files}
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
     assert not offenders, offenders

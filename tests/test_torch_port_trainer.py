@@ -147,7 +147,8 @@ def test_trainer_refuses_what_is_not_ported():
     for kw in ({"use_smote": True}, {"use_edge_loss": True}, {"hgt_stage_dtype": "bfloat16"}, {"use_wandb": True}):
         with pytest.raises(NotImplementedError, match="item 7.3"):
             tloop.Trainer(tloop.TrainConfig(**TRAINER, **kw, device="cpu"), dm)
-    for kw in ({"remat": True}, {"final_dropout": True}, {"fused_torch_init": False}):
+    for kw in ({"remat": True}, {"final_dropout": True}, {"fused_torch_init": False}, {"plain_proj": False},
+               {"logit_fusion": True}):
         with pytest.raises(NotImplementedError, match="item 11"):
             tloop.Trainer(tloop.TrainConfig(**TRAINER, **kw, device="cpu"), dm)
     with pytest.raises(NotImplementedError):
