@@ -10,13 +10,15 @@ the Roman-numeral MusicXML (``--output_musicxml``; ``--export_musicxml`` in
     python -m analysisgnn_tpu_torch.cli.predict --checkpoint_dir CKPT --score piece.musicxml --output_musicxml rna.musicxml
 
 ``--conv_impl`` overrides the fused-SAGE layout of the checkpoint's HybridGNN
-(``edge-zxp`` runs K3; the parameters are the same in every layout), and
+or MetricalGNN (``edge-zxp`` runs K3; the parameters are the same in every
+layout), and
 ``--hgt_stage_dtype`` the HGT staging dtype (``float32``; ``bfloat16`` is not
 ported yet and raises).
 
 ``--partition_devices N`` serves a long score through N graph partitions on
 a line, all on the one device (the overlap-region regime of
-``distributed/partition_encoder.py``; note-node model configs only).
+``distributed/partition_encoder.py``; note-node HybridGNN and HybridHGT
+configs without ``use_rnn`` only).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Convert a JAX parameter tree into the port's state dict, and back: the
-analysis model (``state_dict_from_flax`` / ``flax_tree_from_state_dict``) and
-the chord family (``chord_state_dict_from_flax`` /
-``flax_tree_from_chord_state_dict``: ``ChordPredictionModel``,
-``PostProcessingMLT`` and each of their modules).
+analysis model (``state_dict_from_flax`` / ``flax_tree_from_state_dict``),
+with any of the three encoders and ``use_rnn``, and the other model families
+(``chord_state_dict_from_flax`` / ``flax_tree_from_chord_state_dict``:
+``ChordPredictionModel``, ``PostProcessingMLT``, the pitch-spelling and
+cadence models and each of their modules).
 
 The caller hands over the flax tree as nested dicts of numpy arrays (reading
 an Orbax checkpoint needs JAX, so it stays outside this package).  Layout
@@ -32,7 +33,13 @@ differences handled here:
   ``qkv.{t}``, ``out.{t}`` and ``res.{t}`` Linears; its ``watt_{g}``,
   ``wmsg_{g}``, ``prior_{g}`` (``g`` a relation stack: ``g0`` .. or
   ``src__dst``) and scalar ``skip_{t}`` keep their layout, as
-  ``watt.{g}`` and so on.
+  ``watt.{g}`` and so on;
+* an encoder's ``layer_i`` is ``layers.i`` (``HierarchicalHeteroSage``'s
+  ``conv_i``: ``convs.i``); MetricalGNN's ``emb_{t}s``,
+  ``project_metrical_i`` and ``{t}_conv_i`` keep their names, and in a
+  ``MetricalConv`` the ``LayerNorm_0`` is ``norm_0`` and an ``AssocBiGRU``'s
+  ``AssocResetGRU_0`` / ``AssocResetGRU_1`` are ``fwd`` / ``bwd``;
+  ``StackedBiGRU``'s ``layer_i`` and ``proj_i`` keep their names.
 """
 
 from __future__ import annotations
@@ -70,6 +77,108 @@ def _dense(prefix: str, leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
 # HGT layer parameters: flax name prefix -> port ParameterDict / ModuleDict
 HGT_LEAVES = ("watt", "wmsg", "prior", "skip")
 HGT_DENSES = ("qkv", "out", "res")
+
+
+_ASSOC_DIRECTIONS = {"AssocResetGRU_0": "fwd", "AssocResetGRU_1": "bwd"}
+_FLAX_ASSOC = {v: k for k, v in _ASSOC_DIRECTIONS.items()}
+_METRICAL_CONV = re.compile(r"(?:beat|measure)_conv_\d+")
+# encoder children that are one Dense under the same name in both packages
+_ENCODER_DENSE = re.compile(r"emb_\w+|project_metrical_\d+|lin")
+# the port's names of an encoder's children (HybridGNN, HybridHGT, MetricalGNN, HierarchicalHeteroSage)
+_ENCODER_CHILD = re.compile(r"layers|final|convs|jk|emb_\w+|project_metrical_\d+|lin|(?:beat|measure)_conv_\d+")
+_FLAX_ENCODER_CHILD = re.compile(r"layer_\d+|final|conv_\d+|jk|emb_\w+|project_metrical_\d+|lin|"
+                                 r"(?:beat|measure)_conv_\d+")
+
+
+def _encoder_param(prefix: str, rest: Tuple[str, ...], v: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A parameter of an encoder's subtree (``rest`` below the encoder) as
+    the port's key under ``prefix``; GRU cells and the JK's LSTM cells are
+    converted apart (:func:`_pop_gru_cells`, :func:`_lstm`)."""
+    head = rest[0]
+    if m := re.fullmatch(r"(layer|conv)_(\d+)", head):
+        return _conv_layer(f"{prefix}.{m.group(1)}s.{m.group(2)}", rest[1:], v)
+    if head == "final":
+        return _conv_layer(f"{prefix}.final", rest[1:], v)
+    if head == "jk" and rest[1:2] == ("Dense_0",):
+        return _dense(f"{prefix}.jk.attn", rest[2], v)
+    if _ENCODER_DENSE.fullmatch(head) and len(rest) == 2:
+        return _dense(f"{prefix}.{head}", rest[1], v)
+    if _METRICAL_CONV.fullmatch(head):
+        sub = rest[1]
+        if sub in ("neigh", "out") and len(rest) == 3:
+            return _dense(f"{prefix}.{head}.{sub}", rest[2], v)
+        if sub == "LayerNorm_0" and len(rest) == 3:
+            return _leaf(f"{prefix}.{head}.norm_0", rest[2], v)
+        if sub == "seq" and rest[2] in _ASSOC_DIRECTIONS and rest[3] == "gates" and len(rest) == 5:
+            return _dense(f"{prefix}.{head}.seq.{_ASSOC_DIRECTIONS[rest[2]]}.gates", rest[4], v)
+    raise KeyError(f"unexpected encoder parameter {'/'.join(rest)} under {prefix}")
+
+
+def _encoder_flax_path(rest: Sequence[str]) -> Tuple[str, ...]:
+    """The flax path below an encoder of the port's key parts ``rest`` below
+    it (the inverse of :func:`_encoder_param`)."""
+    dense_leaf = {"weight": "kernel", "bias": "bias"}
+    head = rest[0]
+    if head in ("layers", "convs"):
+        return (f"{head[:-1]}_{rest[1]}", *_conv_path(".".join(rest[2:])))
+    if head == "final":
+        return ("final", *_conv_path(".".join(rest[1:])))
+    if head == "jk" and rest[1] == "attn":
+        return ("jk", "Dense_0", dense_leaf[rest[2]])
+    if _ENCODER_DENSE.fullmatch(head) and len(rest) == 2:
+        return (head, dense_leaf[rest[1]])
+    if _METRICAL_CONV.fullmatch(head):
+        if rest[1] in ("neigh", "out") and len(rest) == 3:
+            return (head, rest[1], dense_leaf[rest[2]])
+        if rest[1] == "norm_0" and len(rest) == 3:
+            return (head, "LayerNorm_0", "scale" if rest[2] == "weight" else "bias")
+        if rest[1] == "seq" and rest[2] in _FLAX_ASSOC and len(rest) == 5:
+            return (head, "seq", _FLAX_ASSOC[rest[2]], "gates", dense_leaf[rest[4]])
+    raise KeyError(f"unexpected encoder parameter {'.'.join(rest)}")
+
+
+def _pop_gru_cells(flat: Dict[Tuple[str, ...], np.ndarray], module_name) -> Dict[str, np.ndarray]:
+    """Take every flax ``GRUCell`` out of ``flat`` and return the port's
+    ``nn.GRU`` entries: a cell below ``owner/cell/GRUCell_0`` is the ``rnn``
+    of the port module at ``owner`` (each name mapped by ``module_name``),
+    and a ``BiResetGRU``'s ``ResetGRU_0`` / ``ResetGRU_1`` are its forward
+    and ``_reverse`` directions."""
+    cells: Dict[Tuple[str, str], Dict[Tuple[str, str], np.ndarray]] = {}
+    for path in [p for p in flat if "GRUCell_0" in p]:
+        i = path.index("GRUCell_0")
+        owner, suffix = path[: i - 1], ""
+        if owner and owner[-1] in _GRU_DIRECTIONS:  # a BiResetGRU's direction
+            owner, suffix = owner[:-1], _GRU_DIRECTIONS[owner[-1]]
+        prefix = ".".join(module_name(c) for c in owner)
+        cells.setdefault((prefix, suffix), {})[path[i + 1:]] = flat.pop(path)
+    out: Dict[str, np.ndarray] = {}
+    for (prefix, suffix), gates in cells.items():
+        rnn = f"{prefix}.rnn" if prefix else "rnn"
+        out[f"{rnn}.weight_ih_l0{suffix}"] = np.concatenate([gates[(f"i{g}", "kernel")] for g in GRU_GATES], 1).T
+        out[f"{rnn}.bias_ih_l0{suffix}"] = np.concatenate([gates[(f"i{g}", "bias")] for g in GRU_GATES])
+        out[f"{rnn}.weight_hh_l0{suffix}"] = np.concatenate([gates[(f"h{g}", "kernel")] for g in GRU_GATES], 1).T
+        b_hn = gates[("hn", "bias")]
+        out[f"{rnn}.bias_hh_l0{suffix}"] = np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    return out
+
+
+_GRU_KEY = re.compile(r"(?:(.+)\.)?rnn\.(weight|bias)_(ih|hh)_l0(_reverse)?")
+
+
+def _put_gru(put, owner: List[str], key: str, m: "re.Match", v: np.ndarray) -> None:
+    """One ``nn.GRU`` tensor as the flax ``GRUCell`` of the module at
+    ``owner`` (its ``ResetGRU_0`` / ``ResetGRU_1`` already appended for a
+    bidirectional one).  Hidden biases of the ``r`` and ``z`` gates that are
+    not zero have no flax counterpart and raise."""
+    kind = "i" if m.group(3) == "ih" else "h"
+    for g, part in zip(GRU_GATES, np.split(v, 3, axis=0)):
+        cell = owner + ["cell", "GRUCell_0", f"{kind}{g}"]
+        if m.group(2) == "weight":
+            put(cell + ["kernel"], part.T)
+        elif kind == "i" or g == "n":
+            put(cell + ["bias"], part)
+        elif np.any(part != 0):
+            raise ValueError(f"{key}: the {g} gate's hidden bias is not zero; a flax GRUCell has none")
 
 
 def _conv_layer(prefix: str, rest: Tuple[str, ...], v: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -146,7 +255,7 @@ def state_dict_from_flax(params: Mapping, cfg: Mapping) -> Dict[str, torch.Tenso
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     flat = _flatten(params)
-    out: Dict[str, np.ndarray] = {}
+    out: Dict[str, np.ndarray] = _pop_gru_cells(flat, lambda name: name)
     for cell in ("OptimizedLSTMCell_0", "OptimizedLSTMCell_1"):
         if ("encoder", "jk", cell, "ii", "kernel") in flat:
             out.update(_lstm(flat, cell))
@@ -168,14 +277,14 @@ def state_dict_from_flax(params: Mapping, cfg: Mapping) -> Dict[str, torch.Tenso
         elif top == "heads" and len(path) == 3 and path[1].split("_", 1)[0] in _FUSION:
             kind, task = path[1].split("_", 1)
             key, val = _leaf(f"heads.{kind}.{task}", path[2], v)
-        elif top == "encoder" and path[1] == "jk" and path[2] == "Dense_0":
-            key, val = _dense("encoder.jk.attn", path[3], v)
-        elif top == "encoder" and re.fullmatch(r"layer_\d+", path[1]):
-            i = int(path[1].split("_")[1])
-            layers.add(i)
-            key, val = _conv_layer(f"encoder.layers.{i}", path[2:], v)
-        elif top == "encoder" and path[1] == "final":
-            key, val = _conv_layer("encoder.final", path[2:], v)
+        elif top == "encoder":
+            if re.fullmatch(r"layer_\d+", path[1]):
+                layers.add(int(path[1].split("_")[1]))
+            key, val = _encoder_param("encoder", path[1:], v)
+        elif top == "rnn" and re.fullmatch(r"proj_\d+", path[1]) and len(path) == 3:
+            key, val = _dense(f"rnn.{path[1]}", path[2], v)
+        elif top in ("rnn_norm", "rnn_proj") and len(path) == 2:
+            key, val = _leaf(top, path[1], v)
         else:
             raise KeyError(f"no port parameter for flax path {'/'.join(path)}")
         out[key] = val
@@ -220,6 +329,9 @@ def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[st
     dense_leaf = {"weight": "kernel", "bias": "bias"}
     for key, t in state_dict.items():
         v = t.detach().cpu().numpy()
+        if m := _GRU_KEY.fullmatch(key):  # a BiResetGRU's nn.GRU: MetricalConv's seq or use_rnn's layers
+            _put_gru(put, m.group(1).split(".") + ["ResetGRU_1" if m.group(4) else "ResetGRU_0"], key, m, v)
+            continue
         leaf = key.rsplit(".", 1)[-1]
         if leaf == "weight" and v.ndim == 2 and "embedding" not in key:
             v = v.T  # torch Linear [out, in] -> flax Dense kernel [in, out]
@@ -230,8 +342,10 @@ def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[st
             cell = {"fwd": "OptimizedLSTMCell_0", "bwd": "OptimizedLSTMCell_1"}[m.group(1)]
             for gate, part in zip(GATES, np.split(v, 4, axis=-1)):
                 put(("encoder", "jk", cell, f"{m.group(2)[0]}{gate}", dense_leaf[m.group(3)]), part)
-        elif key.startswith("encoder.jk.attn."):
-            put(("encoder", "jk", "Dense_0", dense_leaf[leaf]), v)
+        elif m := re.fullmatch(r"rnn\.(proj_\d+)\.(weight|bias)", key):
+            put(("rnn", m.group(1), dense_leaf[leaf]), v)
+        elif m := re.fullmatch(r"(rnn_norm|rnn_proj)\.(weight|bias)", key):
+            put((m.group(1), _flax_leaf(m.group(1), leaf, v)), v)
         elif m := re.fullmatch(r"project(?:_enc|\.(\w+))\.(\w+)\.(weight|bias)", key):
             top = f"project_{m.group(1)}" if m.group(1) else "project_enc"
             module = "Dense_0" if m.group(2) == "dense" else _flax_auto_name(m.group(2))
@@ -250,10 +364,8 @@ def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[st
             else:
                 put(attn + (dense_leaf[leaf],), v.reshape(v.shape[0], XTASK_HEADS, -1) if leaf == "weight"
                     else v.reshape(XTASK_HEADS, -1))
-        elif m := re.fullmatch(r"encoder\.layers\.(\d+)\.(.+)", key):
-            put(("encoder", f"layer_{m.group(1)}", *_conv_path(m.group(2))), v)
-        elif key.startswith("encoder.final."):
-            put(("encoder", "final", *_conv_path(key[len("encoder.final."):])), v)
+        elif key.startswith("encoder."):
+            put(("encoder", *_encoder_flax_path(key.split(".")[1:])), v)
         else:
             raise KeyError(f"no flax path for port parameter {key}")
     return tree
@@ -279,53 +391,49 @@ _GRU_DIRECTIONS = {"ResetGRU_0": "", "ResetGRU_1": "_reverse"}
 
 def _chord_module(name: str) -> str:
     """One flax module name of the chord family as the port's path."""
+    if name in _ASSOC_DIRECTIONS:
+        return _ASSOC_DIRECTIONS[name]
     for prefix, port in _CHORD_DICTS.items():
         if name.startswith(prefix + "_") and not re.fullmatch(r"\d+", name[len(prefix) + 1:]):
             return f"{port}.{name[len(prefix) + 1:]}"
     return _auto_name(name) if re.fullmatch(r"(Dense|LayerNorm)_\d+", name) else name
 
 
+def _encoder_index(path: Sequence[str], child: "re.Pattern") -> int:
+    """The index of the first ``gnn`` or ``encoder`` in ``path`` whose next
+    name is an encoder's child (``ChordPredictionModel``'s ``encoder`` holds
+    a ``gnn``; the pitch-spelling and cadence models' ``encoder`` and
+    ``CadenceGNNNeighbor``'s ``gnn`` are encoders), or -1."""
+    for i, name in enumerate(path[:-1]):
+        if name in ("gnn", "encoder") and child.fullmatch(path[i + 1]):
+            return i
+    return -1
+
+
 def chord_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state dict of a chord-family module (``ChordPredictionModel``,
-    ``PostProcessingMLT``, or any of their modules) for its flax tree
-    (``{"params": ...}`` or the inner dict)."""
+    """The port's state dict of a chord-family, pitch-spelling or cadence
+    module (``ChordPredictionModel``, ``PostProcessingMLT``, ``PKSpell``,
+    ``PitchSpellingGNN``, ``CadenceGNN``, ... or any of their modules) for its
+    flax tree (``{"params": ...}`` or the inner dict)."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     flat = _flatten(params)
-    out: Dict[str, np.ndarray] = {}
-    cells: Dict[Tuple[str, str], Dict[Tuple[str, str], np.ndarray]] = {}
+    out: Dict[str, np.ndarray] = _pop_gru_cells(flat, _chord_module)
     for path, v in flat.items():
-        if "GRUCell_0" in path:
-            i = path.index("GRUCell_0")
-            owner, suffix = path[: i - 1], ""
-            if owner and owner[-1] in _GRU_DIRECTIONS:  # a BiResetGRU's direction
-                owner, suffix = owner[:-1], _GRU_DIRECTIONS[owner[-1]]
-            prefix = ".".join(_chord_module(c) for c in owner)
-            cells.setdefault((prefix, suffix), {})[path[i + 1:]] = v
-            continue
-        if "gnn" in path:
-            i = path.index("gnn")
-            prefix = ".".join([_chord_module(c) for c in path[:i]] + ["gnn"])
-            layer = path[i + 1]
-            name = f"{prefix}.layers.{layer.split('_')[1]}" if layer.startswith("layer_") else f"{prefix}.{layer}"
-            key, val = _conv_layer(name, path[i + 2:], v)
+        i = _encoder_index(path, _FLAX_ENCODER_CHILD)
+        if i >= 0:
+            prefix = ".".join([_chord_module(c) for c in path[:i]] + [path[i]])
+            key, val = _encoder_param(prefix, path[i + 1:], v)
         else:
             key, val = _leaf(".".join(_chord_module(c) for c in path[:-1]), path[-1], v)
         out[key] = val
-    for (prefix, suffix), gates in cells.items():
-        rnn = f"{prefix}.rnn" if prefix else "rnn"
-        out[f"{rnn}.weight_ih_l0{suffix}"] = np.concatenate([gates[(f"i{g}", "kernel")] for g in GRU_GATES], 1).T
-        out[f"{rnn}.bias_ih_l0{suffix}"] = np.concatenate([gates[(f"i{g}", "bias")] for g in GRU_GATES])
-        out[f"{rnn}.weight_hh_l0{suffix}"] = np.concatenate([gates[(f"h{g}", "kernel")] for g in GRU_GATES], 1).T
-        b_hn = gates[("hn", "bias")]
-        out[f"{rnn}.bias_hh_l0{suffix}"] = np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
     return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
 
 
 def flax_tree_from_chord_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, object]:
-    """The flax tree (inner dict, numpy leaves) of a chord-family state dict:
-    the inverse of :func:`chord_state_dict_from_flax`.  A GRU whose hidden
-    biases of the ``r`` and ``z`` gates are not zero has no flax
+    """The flax tree (inner dict, numpy leaves) of a state dict of
+    :func:`chord_state_dict_from_flax`'s modules: its inverse.  A GRU whose
+    hidden biases of the ``r`` and ``z`` gates are not zero has no flax
     counterpart and raises."""
     tree: Dict[str, object] = {}
 
@@ -341,38 +449,33 @@ def flax_tree_from_chord_state_dict(state_dict: Mapping[str, torch.Tensor]) -> D
             if parts[i] in _CHORD_DICT_NAMES and i + 1 < len(parts):
                 out.append(f"{_CHORD_DICT_NAMES[parts[i]]}_{parts[i + 1]}")
                 i += 2
+            elif parts[i] in _FLAX_ASSOC:
+                out.append(_FLAX_ASSOC[parts[i]])
+                i += 1
             else:
                 out.append(_flax_auto_name(parts[i]))
                 i += 1
         return out
 
-    gru = re.compile(r"(?:(.+)\.)?rnn\.(weight|bias)_(ih|hh)_l0(_reverse)?")
-    reverse_owners = {m.group(1) or "" for m in map(gru.fullmatch, state_dict) if m and m.group(4)}
+    reverse_owners = {m.group(1) or "" for m in map(_GRU_KEY.fullmatch, state_dict) if m and m.group(4)}
     for key, t in state_dict.items():
         v = t.detach().cpu().numpy()
         parts = key.split(".")
-        if m := gru.fullmatch(key):
-            owner = modules(m.group(1).split(".")) if m.group(1) else []
+        if m := _GRU_KEY.fullmatch(key):
+            owner_parts = m.group(1).split(".") if m.group(1) else []
+            i = _encoder_index(owner_parts, _ENCODER_CHILD)
+            if i >= 0:  # a MetricalConv's BiResetGRU (seq_impl="scan")
+                owner = modules(owner_parts[:i]) + [owner_parts[i], *owner_parts[i + 1:]]
+            else:
+                owner = modules(owner_parts)
             if (m.group(1) or "") in reverse_owners:
                 owner.append("ResetGRU_1" if m.group(4) else "ResetGRU_0")
-            kind = "i" if m.group(3) == "ih" else "h"
-            for g, part in zip(GRU_GATES, np.split(v, 3, axis=0)):
-                cell = owner + ["cell", "GRUCell_0", f"{kind}{g}"]
-                if m.group(2) == "weight":
-                    put(cell + ["kernel"], part.T)
-                elif kind == "i" or g == "n":
-                    put(cell + ["bias"], part)
-                elif np.any(part != 0):
-                    raise ValueError(f"{key}: the {g} gate's hidden bias is not zero; a flax GRUCell has none")
+            _put_gru(put, owner, key, m, v)
             continue
-        if "gnn" in parts:
-            i = parts.index("gnn")
-            rest = parts[i + 1:]
-            layer = f"layer_{rest[1]}" if rest[0] == "layers" else rest[0]
-            rest = rest[2:] if rest[0] == "layers" else rest[1:]
-            if rest[-1] == "weight" and v.ndim == 2:
-                v = v.T
-            put(modules(parts[:i]) + ["gnn", layer, *_conv_path(".".join(rest))], v)
+        i = _encoder_index(parts, _ENCODER_CHILD)
+        if i >= 0:  # an encoder holds no embedding: every 2-D weight is a Linear's
+            put(modules(parts[:i]) + [parts[i], *_encoder_flax_path(parts[i + 1:])],
+                v.T if parts[-1] == "weight" and v.ndim == 2 else v)
             continue
         path = modules(parts[:-1])
         leaf = _flax_leaf(path[-1], parts[-1], v)

@@ -8,8 +8,8 @@ Two regimes, both exact for the owned rows:
    raw input rows a side, and run the model's own ``AnalysisGNN.encode`` on
    each window.  The receptive field of every owned node lies inside its
    window, so its owned rows equal the full-graph encode's.  No exchange;
-   the cost is the halo's redundant compute.  Encoder-agnostic: HybridGNN
-   and HybridHGT run through it unchanged.
+   the cost is the halo's redundant compute.  HybridGNN and HybridHGT run
+   through it unchanged; MetricalGNN and ``use_rnn`` are refused.
 2. **Per-layer halo exchange** (:func:`make_partitioned_fused_sage`): a halo
    of one edge span; before every layer each partition pulls its
    neighbours' boundary activations (K6, ``kernels/halo.py``), then applies
@@ -135,7 +135,16 @@ def make_partitioned_encode(model):
     edge plan, ``num_target_nodes = N_ext`` and dropout off) and keeps its
     owned rows.  Rows past ``part.num_nodes`` (tail padding of the last
     partition) are garbage and are dropped by :func:`unpartition`.
+
+    A MetricalGNN encoder or a ``use_rnn`` model is refused: their sequence
+    models run over a whole graph, so no halo of edge spans bounds their
+    receptive field and a window's owned rows would not be exact.
     """
+    if model.encoder_type == "metricalgnn" or model.use_rnn:
+        raise ValueError(
+            "partitioned encode covers the HybridGNN and HybridHGT encoders without use_rnn: a MetricalGNN's or "
+            "use_rnn's sequence model reads the whole graph, which a window's halo cannot hold"
+        )
     dev = next(model.parameters()).device
 
     @torch.no_grad()

@@ -189,6 +189,7 @@ def predict_score_ids(
             attrs["pitch_spelling"],
             attrs["key_signature"],
             graph.num_target_nodes,
+            batch=graph.batch,
         )
     with record_function("predict.decode"):
         stacked = _ids_from_logits(
@@ -284,7 +285,8 @@ def predict_score(
     n = len(note_array)
     attrs = graph.node_attrs[NOTE]
     logits = model(
-        graph.node_features, graph.edge_index, attrs["pitch_spelling"], attrs["key_signature"], graph.num_target_nodes
+        graph.node_features, graph.edge_index, attrs["pitch_spelling"], attrs["key_signature"], graph.num_target_nodes,
+        batch=graph.batch,
     )
     logits = {k: v[:n].float().cpu().numpy() for k, v in logits.items()}
     onset = graph.edges((NOTE, "onset", NOTE))[:, : graph.num_edges[(NOTE, "onset", NOTE)]]
@@ -311,7 +313,8 @@ def predict_score_partitioned(
     ``num_devices`` is the number of partitions on the line (default 1); all
     of them run on ``device`` (the GPU unless the caller passes
     ``device="cpu"``; the model must already be there).  Covers note-node
-    models; configs with beat or measure nodes use ``predict_score``.
+    HybridGNN and HybridHGT models without ``use_rnn``; configs with beat or
+    measure nodes, a MetricalGNN or ``use_rnn`` use ``predict_score``.
     """
     param_dev = _model_device(model, device, "predict_score_partitioned")
     with record_function("predict.graph"):

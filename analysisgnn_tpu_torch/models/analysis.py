@@ -1,13 +1,19 @@
 """The multi-task score-analysis model (counterpart of
-``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN or
-HybridHGT encoder, single-Linear or deep projections, with or without logit
-fusion, and no RNN).
+``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN,
+HybridHGT or MetricalGNN encoder, single-Linear or deep projections, with or
+without logit fusion, with or without the stacked BiGRU of ``use_rnn``).
 
 Pipeline: pitch-spelling (35 -> 64) and key-signature (15 -> 64) embeddings
 concatenated onto the note features; per-node-type projections; the encoder;
 onset pooling (K1 over target-restricted onset edges) concatenated onto the
-embeddings; a projection; the fused task heads, optionally fused across
-tasks.
+embeddings; a projection; with ``use_rnn`` a two-layer bidirectional reset
+GRU over each graph's notes, LayerNorm and a Linear; the fused task heads,
+optionally fused across tasks.
+
+``encode`` and ``forward`` take the per-type graph ids of a packed batch
+(``HeteroGraph.batch``) as ``batch``, as the JAX ``encode`` takes
+``batch_dict``: MetricalGNN's sequence models and the GRU of ``use_rnn``
+reset at each graph's first row.
 """
 
 from __future__ import annotations
@@ -21,9 +27,10 @@ from torch import nn
 from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType, metadata, resolve_device
 from analysisgnn_tpu_torch.models.conv import sage_plan
 from analysisgnn_tpu_torch.kernels.segment_mean import aggregate
-from analysisgnn_tpu_torch.models.encoders import HybridGNN, HybridHGT
+from analysisgnn_tpu_torch.models.encoders import HybridGNN, HybridHGT, MetricalGNN, run_encoder
 from analysisgnn_tpu_torch.models.heads import TaskHeads
-from analysisgnn_tpu_torch.models.mlp import EncoderProjection, PlainProjection, ProjectionMLP
+from analysisgnn_tpu_torch.models.mlp import EncoderProjection, PlainProjection, ProjectionMLP, layer_norm
+from analysisgnn_tpu_torch.models.rnn import StackedBiGRU, segment_starts
 from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
 
 PITCH_SPELLING_CLASSES = 35
@@ -64,11 +71,12 @@ class AnalysisGNN(nn.Module):
         hgt_softmax_stab: str = "global",
         plain_proj: bool = True,
         logit_fusion: bool = False,
+        use_rnn: bool = False,
     ):
         super().__init__()
         encoder_type = encoder_type.lower()
-        if encoder_type not in ("hybridgnn", "hgt"):
-            raise NotImplementedError(f"encoder_type={encoder_type!r} is not ported (supported: hybridgnn, hgt)")
+        if encoder_type not in ENCODER_TYPES:
+            raise NotImplementedError(f"encoder_type={encoder_type!r} is not ported (supported: {ENCODER_TYPES})")
         if encoder_type == "hgt" and conv_impl != "node":
             raise ValueError(f"conv_impl={conv_impl!r} is a fused-SAGE option; encoder_type='hgt' cannot honor it")
         self.conv_impl = conv_impl
@@ -93,6 +101,11 @@ class AnalysisGNN(nn.Module):
                 group_mode="emax" if use_pallas else hgt_group_mode, use_pallas=use_pallas,
                 softmax_stab=hgt_softmax_stab,
             )
+        elif encoder_type == "metricalgnn":
+            self.encoder = MetricalGNN(
+                hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, dropout=dropout,
+                conv_impl=conv_impl,
+            )
         else:
             self.encoder = HybridGNN(
                 hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm,
@@ -103,6 +116,11 @@ class AnalysisGNN(nn.Module):
         else:
             self.project_enc = EncoderProjection(2 * hidden_channels, hidden_channels, out_channels, dropout)
         self.heads = TaskHeads(self.task_dict, out_channels, logit_fusion)
+        self.use_rnn = use_rnn
+        if use_rnn:
+            self.rnn = StackedBiGRU(out_channels, out_channels, num_layers=2)
+            self.rnn_norm = layer_norm(2 * out_channels)
+            self.rnn_proj = nn.Linear(2 * out_channels, out_channels)
 
     def encode(
         self,
@@ -113,9 +131,13 @@ class AnalysisGNN(nn.Module):
         num_target_nodes: int,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        batch: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Note embeddings ``[N_cap, out_channels]``.  Dropout runs between the
-        encoder layers unless ``deterministic``, drawn from ``generator``."""
+        encoder layers unless ``deterministic``, drawn from ``generator``.
+        ``batch`` holds the per-type graph ids (``HeteroGraph.batch``); the
+        ``use_rnn`` GRU needs the notes', and MetricalGNN without them runs
+        each metrical axis as one sequence."""
         emb = torch.cat(
             [
                 x_dict[NOTE],
@@ -129,12 +151,16 @@ class AnalysisGNN(nn.Module):
             if t != NOTE and t in self.project:
                 h[t] = self.project[t](x, deterministic, generator)
         # every edge order / edge stack of this graph, built once for all layers
-        plan = self.encoder.plan(edge_index_dict, {t: v.shape[0] for t, v in h.items()})
-        x = self.encoder(h, plan, deterministic, generator)
+        x = run_encoder(self.encoder, h, edge_index_dict, deterministic, generator, batch)
         n = x.shape[0]
         onset = restrict_edges_to_targets(edge_index_dict[(NOTE, "onset", NOTE)], num_target_nodes, n)
         x_pool = aggregate(sage_plan(onset, n, n), x, x)
-        return self.project_enc(torch.cat([x, x_pool], dim=-1), deterministic, generator)
+        x = self.project_enc(torch.cat([x, x_pool], dim=-1), deterministic, generator)
+        if self.use_rnn:
+            if batch is None or NOTE not in batch:
+                raise ValueError("use_rnn needs the notes' graph ids (batch[NOTE]) to reset its GRU at each graph")
+            x = self.rnn_proj(self.rnn_norm(self.rnn(x, segment_starts(batch[NOTE]))))
+        return x
 
     def classify(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.heads(x)
@@ -148,9 +174,11 @@ class AnalysisGNN(nn.Module):
         num_target_nodes: int,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        batch: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         x = self.encode(
-            x_dict, edge_index_dict, pitch_spelling, key_signature, num_target_nodes, deterministic, generator
+            x_dict, edge_index_dict, pitch_spelling, key_signature, num_target_nodes, deterministic, generator,
+            batch,
         )
         return self.classify(x)
 
@@ -164,10 +192,11 @@ SERVE_CONFIG = {
     "in_channels": 25, "feature_type": "simple",
 }
 
+ENCODER_TYPES = ("hybridgnn", "hgt", "metricalgnn")
+
 # model_config.json keys whose values the port supports, with those values
 _SUPPORTED = {
-    "model": ("HybridGNN", "hybridgnn", "HGT", "hgt"),
-    "use_rnn": (False,),
+    "model": ("HybridGNN", "hybridgnn", "HGT", "hgt", "MetricalGNN", "metricalgnn"),
     "conv_impl": ("node", "edge", "edge-zxp"),
     "add_beats": (False, True),
     "add_measures": (False, True),
@@ -180,7 +209,11 @@ _SUPPORTED = {
 def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> AnalysisGNN:
     """The analysis model a ``model_config.json`` describes, with uninitialized
     parameters (load a state dict or call :func:`init_parameters`), on
-    ``device`` (the GPU unless the caller asks for the CPU)."""
+    ``device`` (the GPU unless the caller asks for the CPU).  Absent keys
+    read as the JAX predict CLI reads them (``analysisgnn_tpu/cli/
+    predict.py::load_model_and_params``): a config without ``final_norm``
+    or ``plain_proj`` predates them and means the raw final conv and the
+    deep projections."""
     for key, allowed in _SUPPORTED.items():
         if key in cfg and cfg[key] not in allowed:
             raise NotImplementedError(f"model_config {key}={cfg[key]!r} is not ported (supported: {allowed})")
@@ -208,8 +241,9 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
             use_pallas=cfg.get("use_pallas", False),
             hgt_group_mode=cfg.get("hgt_group_mode", "pair"),
             hgt_softmax_stab=cfg.get("hgt_softmax_stab", "global"),
-            plain_proj=cfg.get("plain_proj", True),
+            plain_proj=cfg.get("plain_proj", False),
             logit_fusion=cfg.get("logit_fusion", False),
+            use_rnn=cfg.get("use_rnn", False),
         )
 
 

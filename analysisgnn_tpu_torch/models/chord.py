@@ -11,10 +11,12 @@ Sub-modules keep the flax names (``encoder``, ``gnn``, ``pool``, ``gru``,
 ``logits_{task}``, ``out_{task}`` live in ``ModuleDict``s (``heads``,
 ``logits``, ``out``, ...), so ``convert.py`` maps the trees one to one.
 
-Differences from JAX: the encoders' HybridGNN gets its input width
-(``in_features``) where flax infers it; ``SpellingAwareChordEncoder``
-covers note-only graphs (its HybridGNN's first layer takes one input width);
-``metrical=True`` (MetricalGNN) raises, as MetricalGNN is not ported yet.
+Differences from JAX: the encoders' HybridGNN or MetricalGNN
+(``metrical=True``) gets its input width (``in_features``) where flax infers
+it; ``SpellingAwareChordEncoder`` covers note-only graphs (its HybridGNN's
+first layer takes one input width).  The forwards take the notes' graph ids
+as ``batch`` and, for a metrical encoder, the per-type ids as ``batch_dict``
+(the JAX ``batch_dict``; without it each metrical axis is one sequence).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from torch import nn
 
 from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType
 from analysisgnn_tpu_torch.kernels.segment_ops import segment_count, segment_min, segment_sum
-from analysisgnn_tpu_torch.models.encoders import HybridGNN, l2_normalize
+from analysisgnn_tpu_torch.models.encoders import HybridGNN, MetricalGNN, edge_node_types, l2_normalize, run_encoder
 from analysisgnn_tpu_torch.models.mlp import HeadMLP, layer_norm
 from analysisgnn_tpu_torch.models.pooling import OnsetPooling
 from analysisgnn_tpu_torch.models.rnn import BiResetGRU, segment_starts
@@ -35,22 +37,16 @@ TaskDict = Sequence[Tuple[str, int]]
 RNA_METRIC_KEYS = ("degree1", "degree2", "quality", "root", "inversion", "localkey")
 
 
-def _refuse_metrical(metrical: bool) -> None:
-    if metrical:
-        raise NotImplementedError(
-            "metrical=True needs MetricalGNN, which is not ported yet (ROADMAP queue 1 item 9)"
-        )
-
-
 def _gnn(in_features: int, hidden: int, num_layers: int, dropout: float, edge_types,
-         node_types=(NOTE,)) -> HybridGNN:
+         node_types=(NOTE,), metrical: bool = False) -> nn.Module:
+    """The family's encoder without JK: a HybridGNN, or with ``metrical`` a
+    MetricalGNN over the metrical types that ``edge_types`` link to the
+    notes."""
+    if metrical:
+        return MetricalGNN(hidden, num_layers, edge_node_types(edge_types), edge_types, use_jk=False,
+                           dropout=dropout, in_channels=in_features)
     return HybridGNN(hidden, num_layers, node_types, edge_types, use_jk=False, dropout=dropout,
                      in_channels=in_features)
-
-
-def _encode(gnn: HybridGNN, x_dict, edge_index_dict, deterministic, generator) -> torch.Tensor:
-    plan = gnn.plan(edge_index_dict, {t: v.shape[0] for t, v in x_dict.items()})
-    return gnn(dict(x_dict), plan, deterministic, generator)
 
 
 class MultiTaskMLP(nn.Module):
@@ -87,15 +83,14 @@ class NadeClassifierLayer(nn.Module):
 
 
 class ChordEncoder(nn.Module):
-    """HybridGNN over the note graph -> onset pooling -> BiGRU over the onset
-    sequence -> Linear.  Returns (onset_states ``[N, H]``, group_valid
-    ``[N]``, group_batch ``[N]``)."""
+    """HybridGNN (or MetricalGNN, ``metrical``) over the score graph -> onset
+    pooling -> BiGRU over the onset sequence -> Linear.  Returns
+    (onset_states ``[N, H]``, group_valid ``[N]``, group_batch ``[N]``)."""
 
     def __init__(self, in_features: int, hidden: int, edge_types: Sequence[EdgeType], num_layers: int = 3,
                  dropout: float = 0.0, metrical: bool = False):
         super().__init__()
-        _refuse_metrical(metrical)
-        self.gnn = _gnn(in_features, hidden, num_layers, dropout, edge_types)
+        self.gnn = _gnn(in_features, hidden, num_layers, dropout, edge_types, metrical=metrical)
         self.pool = OnsetPooling(hidden, hidden)
         self.gru = BiResetGRU(hidden, hidden)
         self.proj = nn.Linear(2 * hidden, hidden)
@@ -109,8 +104,9 @@ class ChordEncoder(nn.Module):
         weight: torch.Tensor,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        batch_dict: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        h = _encode(self.gnn, x_dict, edge_index_dict, deterministic, generator)
+        h = run_encoder(self.gnn, x_dict, edge_index_dict, deterministic, generator, batch_dict)
         pooled, group_valid, group_batch = self.pool(h, onset_div, batch, weight)
         starts = segment_starts(torch.where(group_valid, group_batch, -1))
         return self.proj(self.gru(pooled, starts)), group_valid, group_batch
@@ -141,18 +137,18 @@ class OnsetEdgePooling(nn.Module):
 
 
 class SpellingAwareChordEncoder(nn.Module):
-    """Pitch and spelling embeddings -> HybridGNN -> onset-edge pooling ->
-    two projections -> BiGRU over the kept onset representatives.  Returns
-    (states ``[N, hidden]``, keep ``[N]``)."""
+    """Pitch and spelling embeddings -> HybridGNN (or MetricalGNN,
+    ``metrical``) -> onset-edge pooling -> two projections -> BiGRU over the
+    kept onset representatives.  Returns (states ``[N, hidden]``, keep
+    ``[N]``)."""
 
     def __init__(self, in_features: int, hidden: int, edge_types: Sequence[EdgeType], num_layers: int = 3,
                  dropout: float = 0.0, metrical: bool = False):
         super().__init__()
-        _refuse_metrical(metrical)
         self.pitch_embedding = nn.Embedding(128, 16)
         self.spelling_embedding = nn.Embedding(49, 16)
         self.embedding = nn.Linear(in_features, 32)
-        self.gnn = _gnn(64, hidden, num_layers, dropout, edge_types)
+        self.gnn = _gnn(64, hidden, num_layers, dropout, edge_types, metrical=metrical)
         self.pool = OnsetEdgePooling(hidden, hidden)
         self.proj1 = nn.Linear(hidden, hidden)
         self.norm1 = layer_norm(hidden)
@@ -171,11 +167,12 @@ class SpellingAwareChordEncoder(nn.Module):
         onset_edge_index: torch.Tensor,
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        batch_dict: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         h = torch.cat(
             [self.embedding(x_dict[NOTE]), self.pitch_embedding(pitch), self.spelling_embedding(spelling)], dim=-1
         )
-        h = _encode(self.gnn, {**x_dict, NOTE: h}, edge_index_dict, deterministic, generator)
+        h = run_encoder(self.gnn, {**x_dict, NOTE: h}, edge_index_dict, deterministic, generator, batch_dict)
         h, keep = self.pool(l2_normalize(torch.relu(h)), onset_edge_index)
         h = self.norm1(torch.relu(self.proj1(h)))
         h = self.norm2(torch.relu(self.proj2(h)))
@@ -213,7 +210,7 @@ class HybridChordEncoder(nn.Module):
             if t == NOTE:
                 v = torch.cat([v, self.spelling_embedding(pitch_spelling)], dim=-1)
             mapped[t] = m(v)
-        return _encode(self.gnn, mapped, edge_index_dict, deterministic, generator)
+        return run_encoder(self.gnn, mapped, edge_index_dict, deterministic, generator)
 
 
 class ChordPredictionModel(nn.Module):
@@ -232,9 +229,10 @@ class ChordPredictionModel(nn.Module):
             self.mlp = MultiTaskMLP(hidden, hidden, self.task_dict)
 
     def forward(self, x_dict, edge_index_dict, batch, onset_div, weight, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                batch_dict: Optional[Mapping[str, torch.Tensor]] = None) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         seq, group_valid, _ = self.encoder(x_dict, edge_index_dict, batch, onset_div, weight, deterministic,
-                                           generator)
+                                           generator, batch_dict)
         return (self.nade if self.use_nade else self.mlp)(seq), group_valid
 
 

@@ -1,10 +1,12 @@
-"""The HybridGNN and HybridHGT encoders (counterpart of
+"""The HybridGNN, HybridHGT and MetricalGNN encoders (counterpart of
 ``analysisgnn_tpu/models/encoders.py``: ``l2_normalize``, ``HybridGNN``, the
-HGT edge stacks, ``HGTLayer`` and ``HybridHGT``).
+HGT edge stacks, ``HGTLayer``, ``HybridHGT``, ``MetricalConv`` and
+``MetricalGNN``).
 
 Every encoder has ``plan(edge_index_dict, capacities)``, which builds what
-depends only on the graph once for all its layers, and
-``forward(x_dict, plan, deterministic, generator)``.
+depends only on the graph once for all its layers (MetricalGNN's takes the
+per-type graph ids ``batch`` too), and ``forward(x_dict, plan,
+deterministic, generator)``.
 """
 
 from __future__ import annotations
@@ -17,13 +19,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType
+from analysisgnn_tpu_torch.core.graph import BEAT, MEASURE, NOTE, EdgeType
 from analysisgnn_tpu_torch.kernels.segment_mean import spread_rows
 from analysisgnn_tpu_torch.kernels.segment_ops import segment_max
 from analysisgnn_tpu_torch.kernels.softmax_agg import SoftmaxAggPlan, plan_softmax_agg, segment_softmax_agg
 from analysisgnn_tpu_torch.models.fused import PADDING_ROWS
 from analysisgnn_tpu_torch.models.hetero import HeteroConv, plan_hetero, present_relations
-from analysisgnn_tpu_torch.models.rnn import LayerAttentionJK
+from analysisgnn_tpu_torch.models.rnn import AssocBiGRU, BiResetGRU, LayerAttentionJK, segment_starts
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -437,3 +439,224 @@ class HybridHGT(nn.Module):
             h = {t: dropout(v, self.dropout, deterministic, generator) for t, v in layer(h, plan).items()}
             note_states.append(h[NOTE])
         return self.jk(note_states) if self.jk is not None else h[NOTE]
+
+
+# ---------------------------------------------------------------- MetricalGNN
+
+SEQ_IMPLS = ("assoc", "scan")
+LN_EPS = 1e-6  # flax's LayerNorm eps (torch's default is 1e-5)
+
+
+@dataclasses.dataclass(frozen=True)
+class MetricalLinks:
+    """The (note, connects, t) links of one metrical node type ``t``, for
+    every layer.  The JAX layer gathers with clamped ids and scatters with
+    ``segment_sum``, which drops ids past the end; here a link whose scatter
+    target lies past the end gathers a spread row (its gradient is zero) and
+    scatters into one of ``PADDING_ROWS`` rows past the end, so that no row
+    takes all of the padding's atomic adds on the card."""
+
+    num_rows: int  # M: the metrical capacity
+    to_metrical: Tuple[torch.Tensor, torch.Tensor]  # [E] int64 (note row gathered, metrical row added to)
+    to_notes: Tuple[torch.Tensor, torch.Tensor]  # [E] int64 (metrical row gathered, note row added to)
+    starts: torch.Tensor  # [M] bool: True where a segment (graph) begins
+
+
+def _links(gather: torch.Tensor, scatter: torch.Tensor, n_gather: int, n_scatter: int):
+    padding = scatter >= n_scatter
+    e = scatter.shape[0]
+    rows = torch.where(padding, spread_rows(e, n_gather, scatter.device), gather.clamp(max=n_gather - 1))
+    return rows, torch.where(padding, n_scatter + spread_rows(e, PADDING_ROWS, scatter.device), scatter)
+
+
+def metrical_links(links: torch.Tensor, num_notes: int, num_rows: int,
+                   batch_ids: Optional[torch.Tensor] = None) -> MetricalLinks:
+    """The plan of one metrical type's ``[2, E]`` links (row 0 notes, row 1
+    metrical nodes, padding past both ends); its segment starts from its
+    graph ids (padding rows, id -1, open one of their own), or one segment
+    over the whole axis without them."""
+    links = links.long()
+    if batch_ids is None:
+        starts = torch.zeros(num_rows, dtype=torch.bool, device=links.device)
+        starts[0] = True
+    else:
+        starts = segment_starts(batch_ids)
+    return MetricalLinks(num_rows, _links(links[0], links[1], num_notes, num_rows),
+                         _links(links[1], links[0], num_rows, num_notes), starts)
+
+
+def scatter_links(x: torch.Tensor, gather_scatter: Tuple[torch.Tensor, torch.Tensor], num_rows: int) -> torch.Tensor:
+    """``segment_sum(x[gather], scatter, num_rows)`` with the padding rows of
+    :class:`MetricalLinks` (plain ``index_add_``, as the JAX layer leaves its
+    ``segment_sum`` to XLA)."""
+    gather, scatter = gather_scatter
+    out = x.new_zeros((num_rows + PADDING_ROWS, x.shape[1]))
+    return out.index_add_(0, scatter, x.index_select(0, gather))[:num_rows]
+
+
+class MetricalConv(nn.Module):
+    """Note <-> metrical-node aggregation with a sequence model over the
+    metrical axis: the notes' ``neigh`` transform summed into their
+    metrical nodes, a bidirectional reset GRU over those sums (``seq``:
+    :class:`AssocBiGRU` for ``seq_impl="assoc"``, :class:`BiResetGRU` for
+    ``"scan"``), ``out`` over ``[sums | x_metrical | seq]``, ReLU,
+    LayerNorm (``norm_0``, flax's ``LayerNorm_0``) and dropout; the result
+    summed back into the notes.  ``features`` is the width of the notes and
+    of the metrical states.  Returns (note messages, new metrical states)."""
+
+    def __init__(self, features: int, out: int, dropout: float = 0.0, seq_impl: str = "assoc"):
+        super().__init__()
+        if seq_impl not in SEQ_IMPLS:
+            raise ValueError(f"seq_impl must be one of {SEQ_IMPLS}, got {seq_impl!r}")
+        self.dropout = dropout
+        self.neigh = nn.Linear(features, features)
+        self.seq = (AssocBiGRU if seq_impl == "assoc" else BiResetGRU)(features, features)
+        self.out = nn.Linear(4 * features, out)
+        self.norm_0 = nn.LayerNorm(out, eps=LN_EPS)
+
+    def forward(
+        self,
+        x_metrical: torch.Tensor,
+        x_notes: torch.Tensor,
+        links: MetricalLinks,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        h_scatter = scatter_links(self.neigh(x_notes), links.to_metrical, links.num_rows)
+        h_seq = self.seq(h_scatter, links.starts)
+        h = self.norm_0(torch.relu(self.out(torch.cat([h_scatter, x_metrical, h_seq], dim=-1))))
+        h = dropout(h, self.dropout, deterministic, generator)
+        return scatter_links(h, links.to_notes, x_notes.shape[0]), h
+
+
+@dataclasses.dataclass(frozen=True)
+class MetricalPlan:
+    hetero: Dict[object, object]  # the note convs' plans (models/hetero.py::plan_hetero)
+    links: Dict[str, MetricalLinks]  # per metrical type the model uses
+
+
+class MetricalGNN(nn.Module):
+    """Note convs interleaved with beat and measure aggregation.  The beat
+    (measure) states start as the sums of each beat's notes' ``emb_beats``
+    transform of the input; before every note conv but the first, each
+    metrical type's :class:`MetricalConv` updates its states and sends
+    messages to the notes, and ``project_metrical_i`` over ``[notes |
+    messages]`` (then ReLU, L2 norm) gives the conv's input.  Each note
+    conv (a hetero conv over the note-to-note relations, in the layout
+    ``conv_impl`` names) is followed by L2 norm, ReLU and dropout, then
+    JumpingKnowledge and a final note conv, as the JAX ``MetricalGNN``.
+
+    The metrical types are those of ``node_types`` whose (note, connects,
+    t) links are in ``edge_types``; a graph must hold exactly those (the
+    JAX model initialised on another graph has other parameters).
+    ``in_channels`` is the input width (``hidden`` by default)."""
+
+    def __init__(
+        self,
+        hidden: int,
+        num_layers: int,
+        node_types: Sequence[str],
+        edge_types: Sequence[EdgeType],
+        use_jk: bool = True,
+        dropout: float = 0.0,
+        conv_impl: str = "node",
+        seq_impl: str = "assoc",
+        in_channels: Optional[int] = None,
+    ):
+        super().__init__()
+        self.dropout = dropout
+        self.conv_impl = conv_impl
+        self.note_edge_types = tuple(e for e in edge_types if e[0] == NOTE and e[2] == NOTE)
+        self.metrical = tuple(t for t in (BEAT, MEASURE) if t in node_types and (NOTE, "connects", t) in edge_types)
+        widths = [hidden if in_channels is None else in_channels] + [hidden] * num_layers
+        self.layers = nn.ModuleList(
+            HeteroConv(widths[i], hidden, (NOTE,), self.note_edge_types, conv_impl) for i in range(num_layers)
+        )
+        for t in self.metrical:
+            self.add_module(f"emb_{t}s", nn.Linear(widths[0], hidden))
+        for i in range(1, num_layers):
+            for t in self.metrical:
+                self.add_module(f"{t}_conv_{i}", MetricalConv(hidden, hidden, dropout, seq_impl))
+            if self.metrical:
+                self.add_module(f"project_metrical_{i}", nn.Linear((1 + len(self.metrical)) * hidden, hidden))
+        self.jk = LayerAttentionJK(hidden, num_layers) if use_jk else None
+        self.final = HeteroConv(widths[-1], hidden, (NOTE,), self.note_edge_types, conv_impl)
+
+    def plan(
+        self,
+        edge_index_dict: Mapping[EdgeType, torch.Tensor],
+        capacities: Mapping[str, int],
+        batch: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> MetricalPlan:
+        """The note convs' plans and each metrical type's links; with
+        ``batch`` (per-type graph ids) each type's segment starts follow the
+        graphs, without it the whole axis is one segment."""
+        n = capacities[NOTE]
+        found = tuple(
+            t for t in (BEAT, MEASURE) if t in capacities and (NOTE, "connects", t) in edge_index_dict
+        )
+        if found != self.metrical:
+            raise ValueError(
+                f"the graph has the metrical types {found}, the model was built for {self.metrical} "
+                "(a JAX model initialised on this graph has other parameters)"
+            )
+        links = {
+            t: metrical_links(edge_index_dict[(NOTE, "connects", t)], n, capacities[t],
+                              None if batch is None or t not in batch else batch[t])
+            for t in self.metrical
+        }
+        note_edges = {et: ei for et, ei in edge_index_dict.items() if et in self.note_edge_types}
+        return MetricalPlan(plan_hetero(note_edges, self.note_edge_types, {NOTE: n}, self.conv_impl), links)
+
+    def forward(
+        self,
+        x_dict: Dict[str, torch.Tensor],
+        plan: MetricalPlan,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        x = x_dict[NOTE]
+        h_metrical = {
+            t: scatter_links(getattr(self, f"emb_{t}s")(x), plan.links[t].to_metrical, plan.links[t].num_rows)
+            for t in self.metrical
+        }
+        h = x
+        note_states = []
+        for i, layer in enumerate(self.layers):
+            if i > 0 and self.metrical:
+                parts = [h]
+                for t in self.metrical:
+                    msg, h_metrical[t] = getattr(self, f"{t}_conv_{i}")(
+                        h_metrical[t], h, plan.links[t], deterministic, generator
+                    )
+                    parts.append(msg)
+                h = l2_normalize(torch.relu(getattr(self, f"project_metrical_{i}")(torch.cat(parts, dim=-1))))
+            h = layer({NOTE: h}, plan.hetero)[NOTE]
+            h = dropout(torch.relu(l2_normalize(h)), self.dropout, deterministic, generator)
+            note_states.append(h)
+        if self.jk is not None:
+            h = self.jk(note_states)
+        return self.final({NOTE: h}, plan.hetero)[NOTE]
+
+
+def edge_node_types(edge_types: Sequence[EdgeType]) -> Tuple[str, ...]:
+    """The node types that ``edge_types`` name, in order of appearance."""
+    return tuple(dict.fromkeys(t for et in edge_types for t in (et[0], et[2])))
+
+
+def run_encoder(
+    encoder: nn.Module,
+    x_dict: Mapping[str, torch.Tensor],
+    edge_index_dict: Mapping[EdgeType, torch.Tensor],
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
+    batch: Optional[Mapping[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The encoder's plan of the graph, then its forward: the note states.
+    ``batch`` (per-type graph ids) reaches a MetricalGNN's plan."""
+    capacities = {t: v.shape[0] for t, v in x_dict.items()}
+    if isinstance(encoder, MetricalGNN):
+        plan = encoder.plan(edge_index_dict, capacities, batch)
+    else:
+        plan = encoder.plan(edge_index_dict, capacities)
+    return encoder(dict(x_dict), plan, deterministic, generator)

@@ -1,11 +1,13 @@
 """Heterogeneous conv dispatch (counterpart of ``analysisgnn_tpu/models/hetero.py``,
-the fused-SAGE path with mean reduction across edge types).
+the fused-SAGE path with mean or sum reduction across edge types).
 
 A node type with two or more same-type relations gets one
 :class:`FusedHeteroSage` over all of them, in the layout ``conv_impl`` names
 (``models/fused.py``); every other relation gets its own :class:`SageConv`.
-A node type's next state is the mean of the contributions of the relations
-whose source it is; a type with none gets a plain Linear.
+A node type's next state is the mean (``aggr="mean"``) or the sum
+(``aggr="sum"``, the cadence family's ``HierarchicalHeteroSage``) of the
+contributions of the relations whose source it is; a type with none gets a
+plain Linear.
 
 The modules follow the relations the model is built for, as the JAX
 ``HeteroConv`` builds its parameters from the relations of the graph it is
@@ -78,12 +80,18 @@ def plan_hetero(
     return plans
 
 
+AGGRS = ("mean", "sum")
+
+
 class HeteroConv(nn.Module):
     def __init__(
         self, in_features: int, out_features: int, node_types: Sequence[str], edge_types: Sequence[EdgeType],
-        conv_impl: str = "node",
+        conv_impl: str = "node", aggr: str = "mean",
     ):
         super().__init__()
+        if aggr not in AGGRS:
+            raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
+        self.aggr = aggr
         self.groups, self.singles = fusion_groups(edge_types)
         self.fused = nn.ModuleDict({
             t: FusedHeteroSage(in_features, out_features, len(rels), reduce="sum", impl=conv_impl)
@@ -108,7 +116,7 @@ class HeteroConv(nn.Module):
                 total = outs[0][0]
                 for arr, _w in outs[1:]:
                     total = total + arr
-                result[t] = total / sum(w for _arr, w in outs)
+                result[t] = total if self.aggr == "sum" else total / sum(w for _arr, w in outs)
             elif t in self.selfs:
                 result[t] = self.selfs[t](x_dict[t])
             else:

@@ -1,7 +1,8 @@
 """Sequence cells over padded node sequences with segment resets, and the
 LSTM-attention JumpingKnowledge (counterpart of
 ``analysisgnn_tpu/models/rnn.py``: ``ResetGRU``, ``BiResetGRU``,
-``segment_starts`` and ``LayerAttentionJK``).
+``AssocResetGRU``, ``AssocBiGRU``, ``StackedBiGRU``, ``segment_starts`` and
+``LayerAttentionJK``).
 
 The JAX reset GRUs run one ``lax.scan`` over the whole padded axis and zero
 the carry at every segment start (the reverse direction: at every segment
@@ -9,17 +10,50 @@ end).  That is the same as running each contiguous segment on its own from a
 zero state, so here the segments are packed into one ``nn.GRU`` call (one
 cuDNN call on the card, the same code on the CPU).  A flax ``GRUCell`` is
 ``torch.nn.GRU``'s cell: gates ``r, z, n``, input Denses with bias, hidden
-Denses without bias but ``hn``'s (``b_hh = [0, 0, b_hn]``), and
-``h' = (1 - z) * n + z * h``.
+Denses without bias but ``hn``'s (``b_hh = [0, 0, b_hn]``, kept so in
+training by :class:`FlaxGRU`), and ``h' = (1 - z) * n + z * h``.
+
+The associative GRUs are a gated linear recurrence, ``h_t = keep_t h_{t-1} +
+b_t``, which the JAX package evaluates with ``lax.associative_scan`` (an XLA
+op, not a Pallas kernel).  Here it is :func:`linear_recurrence`: ceil(log2 T)
+doubling steps of plain torch ops over the whole axis (a few elementwise
+launches each), never a loop over T; autograd gives the backward.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import functools
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_sequence, pad_packed_sequence
+
+
+def _zero_rz(features: int, grad: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.zeros_like(grad[: 2 * features]), grad[2 * features :]])
+
+
+class FlaxGRU(nn.GRU):
+    """``nn.GRU`` with the parameters of flax's ``GRUCell``: the hidden biases
+    of the ``r`` and ``z`` gates (the first ``2F`` entries of each
+    ``bias_hh``) stay 0.  Flax's cell has none; they only add to the input
+    biases, so training them would move the gates' bias twice as fast as
+    the JAX model does.  A hook zeroes their gradient (re-registered on the
+    copies that ``copy.deepcopy`` and unpickling make)."""
+
+    def __init__(self, in_features: int, features: int, bidirectional: bool = False):
+        super().__init__(in_features, features, bidirectional=bidirectional)
+        self._freeze_rz()
+
+    def _freeze_rz(self) -> None:
+        for name, p in self.named_parameters():
+            if name.startswith("bias_hh"):
+                p.register_hook(functools.partial(_zero_rz, self.hidden_size))
+
+    def __setstate__(self, state) -> None:
+        super().__setstate__(state)
+        self._freeze_rz()
 
 
 def segment_starts(batch_ids: torch.Tensor) -> torch.Tensor:
@@ -67,7 +101,7 @@ class ResetGRU(nn.Module):
     def __init__(self, in_features: int, features: int, reverse: bool = False):
         super().__init__()
         self.reverse = reverse
-        self.rnn = nn.GRU(in_features, features)
+        self.rnn = FlaxGRU(in_features, features)
 
     def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         lengths = segment_lengths(starts)
@@ -84,10 +118,98 @@ class BiResetGRU(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.rnn = nn.GRU(in_features, features, bidirectional=True)
+        self.rnn = FlaxGRU(in_features, features, bidirectional=True)
 
     def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         return _run_packed(self.rnn, xs, segment_lengths(starts))
+
+
+def linear_recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``h_t = a_t * h_{t-1} + b_t`` along axis 0 from ``h_{-1} = 0``, in
+    ceil(log2 T) doubling steps (Hillis-Steele).  After the step of stride
+    ``d``, ``(a_t, b_t)`` is the composition of the elements ``t - 2d + 1 ..
+    t``, by the combine ``(a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2)`` of the
+    JAX ``associative_scan``; the sums run in another order than its
+    odd/even recursion, so the two agree to f32 rounding."""
+    t = a.shape[0]
+    d = 1
+    while d < t:
+        b = torch.cat([b[:d], torch.addcmul(b[d:], a[d:], b[:-d])])
+        if 2 * d < t:  # the last step reads no product of a
+            a = torch.cat([a[:d], a[d:] * a[:-d]])
+        d *= 2
+    return b
+
+
+class AssocResetGRU(nn.Module):
+    """Gated linear recurrence with segment resets: ``h_t = (1 - z_t)
+    h_{t-1} + z_t tanh(c_t)``, with the update gate ``z`` and candidate ``c``
+    from one Linear ``gates`` of the input (width ``2F``: ``z`` first), and
+    the carry zeroed at segment starts (``keep = (1 - z)(1 - reset)``).
+    ``reverse`` runs right to left and resets at segment ends."""
+
+    def __init__(self, in_features: int, features: int, reverse: bool = False):
+        super().__init__()
+        self.features = features
+        self.reverse = reverse
+        self.gates = nn.Linear(in_features, 2 * features)
+
+    def coefficients(self, xs: torch.Tensor, starts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(keep, b)`` of the recurrence in scan order (flipped when
+        ``reverse``)."""
+        if self.reverse:
+            resets = torch.roll(starts, -1)
+            resets[-1] = True
+            xs, resets = xs.flip(0), resets.flip(0)
+        else:
+            resets = starts
+        zc = self.gates(xs)
+        z = torch.sigmoid(zc[:, : self.features])
+        keep = (1.0 - z) * (~resets)[:, None].to(xs.dtype)
+        return keep, z * torch.tanh(zc[:, self.features :])
+
+    def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+        h = linear_recurrence(*self.coefficients(xs, starts))
+        return h.flip(0) if self.reverse else h
+
+
+class AssocBiGRU(nn.Module):
+    """Bidirectional associative GRU (``[T, 2F]``, forward then backward):
+    both directions side by side in one :func:`linear_recurrence` over
+    ``[T, 2F]``, the backward one in its flipped order."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.fwd = AssocResetGRU(in_features, features)
+        self.bwd = AssocResetGRU(in_features, features, reverse=True)
+
+    def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+        (a_f, b_f), (a_b, b_b) = self.fwd.coefficients(xs, starts), self.bwd.coefficients(xs, starts)
+        h = linear_recurrence(torch.cat([a_f, a_b], dim=1), torch.cat([b_f, b_b], dim=1))
+        f = self.fwd.features
+        return torch.cat([h[:, :f], h[:, f:].flip(0)], dim=1)
+
+
+class StackedBiGRU(nn.Module):
+    """``num_layers`` bidirectional reset GRUs (``layer_i``, each ``[T, 2F]``)
+    with a Linear ``proj_i`` back to ``F`` between them: the analog of
+    ``nn.GRU(..., num_layers, bidirectional=True)``."""
+
+    def __init__(self, in_features: int, features: int, num_layers: int = 2):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", BiResetGRU(in_features if i == 0 else features, features))
+            if i < num_layers - 1:
+                self.add_module(f"proj_{i}", nn.Linear(2 * features, features))
+
+    def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+        h = xs
+        for i in range(self.num_layers):
+            h = getattr(self, f"layer_{i}")(h, starts)
+            if i < self.num_layers - 1:
+                h = getattr(self, f"proj_{i}")(h)
+        return h
 
 
 class LSTMCell(nn.Module):

@@ -79,7 +79,7 @@ class TrainConfig:
     dropout: float = 0.3
     lr: float = 0.005
     weight_decay: float = 5e-3
-    model: str = "HybridGNN"  # HybridGNN | HGT
+    model: str = "HybridGNN"  # HybridGNN | HGT | MetricalGNN
     use_jk: bool = True
     logit_fusion: bool = False
     use_rnn: bool = False

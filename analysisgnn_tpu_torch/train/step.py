@@ -112,7 +112,7 @@ def compute_losses(
     base_w, task_w = _task_weights(batch, cfg)
     args = (batch.node_features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
             batch.num_target_nodes)
-    x = model.encode(*args, deterministic, generator)
+    x = model.encode(*args, deterministic, generator, batch.batch)
     # feature-norm regularizer over the valid target rows
     fw = base_w.float()
     feature_loss = ((x.float() ** 2).sum(-1) * fw).sum() / (fw.sum() * x.shape[-1]).clamp_min(1.0)
@@ -141,7 +141,7 @@ def compute_losses(
         # the student's heads read the TEACHER's embedding, so the memory
         # loss reaches the heads and never the encoder
         with torch.no_grad():
-            x_t = teacher.encode(*args, True)
+            x_t = teacher.encode(*args, True, batch=batch.batch)
             teacher_logits = teacher.classify(x_t)
         memory_loss = cfg.lambda_dctn * distillation_loss(
             model.classify(x_t), teacher_logits, base_w, cfg.previous_tasks
@@ -249,7 +249,7 @@ def make_test_step(model: nn.Module, cfg: StepConfig) -> Callable[[TrainState, H
         base_w, task_w = _task_weights(batch, cfg)
         logits = model(
             batch.node_features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
-            batch.num_target_nodes, True,
+            batch.num_target_nodes, True, batch=batch.batch,
         )
         out: Dict[str, torch.Tensor] = {}
         labels_dict = {}

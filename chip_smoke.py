@@ -40,13 +40,17 @@ Phases, each on its own line with elapsed seconds:
      shape, padding edges included;
   8. train: the full-width HybridGNN train step of bench.py (dropout 0.3,
      wloss, AdamW + clip 1.0, warmup-cosine 5e-3, torch-style init seed 0)
-     with conv_impl "edge-zxp" (K3 base term) and "node" (K1): ms per step,
-     valid message edges per second, K3 and K1 launches per step against the
-     code's prediction, a finite loss that falls over 20 steps on one batch;
-     then one step on the GPU against the same step on the CPU (plain
-     versions, same weights and batch, dropout 0);
-  9. train trace: one edge-zxp step under torch.profiler, with the device's
-     busy share of the step, its kernels by device time and K3's sum;
+     with conv_impl "edge-zxp" (K3 base term) and "node" (K1), and the same
+     step of the MetricalGNN 3 x 256 -> 128 with use_rnn and edge-zxp: ms
+     per step, valid message edges per second, K3 and K1 launches per step
+     against the code's prediction, a finite loss that falls over 20 steps
+     on one batch (edge-zxp, HGT); then one step on the GPU against the
+     same step on the CPU (plain versions, same weights and batch, dropout
+     0; edge-zxp, HGT, MetricalGNN);
+  9. train trace: one edge-zxp step and one MetricalGNN step under
+     torch.profiler, with the device's busy share of the step, its kernels
+     by device time, K3's sum and the GRUs' (the kernels under the cuDNN
+     GRU's forward and backward ops);
  10. K2 check: segment_softmax_agg's kernel against its plain version (value
      and the autograd gradients of logits and msgs, padding gradients exactly
      0) at the HGT train step's shape (the union softmax of one layer over a
@@ -149,7 +153,19 @@ Phases, each on its own line with elapsed seconds:
      request (device busy share, kernels by device time, the GRUs' share),
      and predict_chord_tasks on the card against the CPU with the same
      weights (probabilities within CHORD_PROB_ATOL, onsets with other decoded
-     labels, the resolved annotations).
+     labels, the resolved annotations);
+ 22. metrical (run after phase 11): cli.train.main --demo --model
+     MetricalGNN --use_metrical at the CLI's full width (3 x 256 -> 128, JK,
+     beats and measures), two epochs of 4 steps, in the node layout (K1 5 a
+     pass) and with --use_rnn --conv_impl edge-zxp (K3's forward, dx and dw
+     4 a step, K1 1 a pass): seconds per epoch, median ms per train step,
+     launches against the code's prediction; each checkpoint served by
+     cli.predict.main on a generated 2,000-note MusicXML score (seconds a
+     request, launches) and through predict_score on the card against the
+     CPU (probabilities within METRICAL_PROB_ATOL); then AssocBiGRU (the
+     log-depth scan) against BiResetGRU (cuDNN) at a train batch's beat rows
+     and F = 256, forward and backward, in turns, with each one's device time
+     and launches, and AssocBiGRU on the card against the CPU.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -204,10 +220,13 @@ TRAIN_CFG = {"model": "HybridGNN", "num_layers": 3, "hidden_channels": 256, "out
 K2_RTOL = 1e-5
 # the "HGT-emax-pallas" model of scripts/bench_encoders.py:98-114 on the same batches
 HGT_CFG = {**TRAIN_CFG, "model": "HGT", "use_pallas": True}
-# train arms: conv_impl of the HybridGNN, or the HGT model
+# train arms: conv_impl of the HybridGNN, the HGT model, or the MetricalGNN with the stacked BiGRU of use_rnn
+# and K3's layout
 ARMS = {"edge-zxp": {**TRAIN_CFG, "conv_impl": "edge-zxp"}, "node": {**TRAIN_CFG, "conv_impl": "node"},
-        "hgt": HGT_CFG}
-TIMED_STEPS = {"edge-zxp": 6, "node": 3, "hgt": 4}
+        "hgt": HGT_CFG, "metrical": {**TRAIN_CFG, "model": "MetricalGNN", "use_rnn": True, "conv_impl": "edge-zxp"}}
+TIMED_STEPS = {"edge-zxp": 6, "node": 3, "hgt": 4, "metrical": 3}
+FALL_ARMS = ("edge-zxp", "hgt")  # the metrical Trainer runs of phase 22 show its loss falling
+PARITY_ARMS = ("edge-zxp", "hgt", "metrical")  # one step on the GPU against the CPU, and one traced step
 FALL_STEPS = 20
 # GPU vs CPU after one train step at the constant rate PARITY_LR, with the
 # optimizer's eps raised to PARITY_EPS: Adam's first step moves every
@@ -291,6 +310,19 @@ CHORD_HIDDEN, CHORD_LAYERS = 256, 1  # predict_chords' CLI defaults
 # lie within 2 * CHORD_PROB_ATOL of each other; where every label is equal,
 # the resolved annotations must be equal too
 CHORD_PROB_ATOL = 1e-4
+# phase 22: the MetricalGNN family through the training entry point at the CLI's full width (MetricalGNN 3 x
+# 256 -> 128, JK, beats and measures) on the demo corpus, two epochs of 4 steps: the node layout (K1), then
+# use_rnn with edge-zxp (K3); each checkpoint served by the predict CLI on a generated MusicXML score
+METRICAL_FLAGS = ["--demo", "--model", "MetricalGNN", "--use_metrical", "--do_train", "--main_tasks", "all",
+                  "--num_epochs", "2", "--max_steps_per_epoch", "4"]
+METRICAL_RNN_FLAGS = [*METRICAL_FLAGS, "--use_rnn", "--conv_impl", "edge-zxp"]
+METRICAL_NOTES = 2000
+# GPU vs CPU probabilities of a served metrical checkpoint: as CHORD_PROB_ATOL
+METRICAL_PROB_ATOL = 1e-4
+# AssocBiGRU on the card against the CPU at a train batch's beat rows, F = 256: the states are convex
+# combinations (|h| <= 1) of gate values from 512-term dot products summed in another order, and the
+# recurrence contracts errors; absolute, the JAX tests' bound for the scan against the sequential cell
+SCAN_ATOL = 2e-5
 
 
 def phase(msg: str) -> None:
@@ -979,20 +1011,28 @@ def _counts() -> dict:
             "segment_sum_sorted": k4.launches, "segment_softmax_sorted": k5.launches, "halo_pull": k6.launches}
 
 
+def _conv_edge_types(model) -> tuple:
+    """The relations of the encoder's hetero convs: every relation of the
+    HybridGNN's, the note-to-note ones of the MetricalGNN's (its metrical
+    convs are index_add_ scatters and scans in plain PyTorch)."""
+    return model.encoder.note_edge_types if model.encoder_type == "metricalgnn" else model.edge_types
+
+
 def predicted_launches(model) -> dict:
-    """Launches per train step the code predicts.  HybridGNN: every hetero
-    conv (the layers and the final one) runs one K1 per single relation, plus
-    one per fused group under "node" or one K3 forward, dx and dw per fused
-    group under "edge-zxp"; no d alpha (the edge layout's alpha = 1 /
-    max(count, 1) carries no gradient).  HybridHGT with K2: one K2 per layer
-    (its backward is plain PyTorch).  Both: onset pooling runs one K1."""
+    """Launches per train step the code predicts.  HybridGNN and MetricalGNN:
+    every hetero conv (the layers and the final one) runs one K1 per single
+    relation, plus one per fused group under "node" or one K3 forward, dx and
+    dw per fused group under "edge-zxp"; no d alpha (the edge layout's alpha
+    = 1 / max(count, 1) carries no gradient).  HybridHGT with K2: one K2 per
+    layer (its backward is plain PyTorch).  All: onset pooling runs one K1;
+    the GRUs of use_rnn launch none of the hand-written kernels."""
     from analysisgnn_tpu_torch.models.hetero import fusion_groups
 
     k1, k2, k3 = 1, 0, 0
     if model.encoder_type == "hgt":
         k2 = len(model.encoder.layers) if model.encoder.layers[0].use_pallas else 0
     else:
-        groups, singles = fusion_groups(model.edge_types)
+        groups, singles = fusion_groups(_conv_edge_types(model))
         convs = len(model.encoder.layers) + 1
         k1 += convs * (len(singles) + (len(groups) if model.conv_impl == "node" else 0))
         k3 = convs * len(groups) if model.conv_impl == "edge-zxp" else 0
@@ -1043,7 +1083,8 @@ def train(arm: str, batches: list) -> dict:
           f"{row['edges_per_s']:.4g} edges/s; losses {', '.join(f'{v:.4f}' for v in losses)}")
     phase(f"train {arm}: launches per step {per_step} (the code predicts the same); "
           f"max memory allocated {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if arm in ("edge-zxp", "hgt"):
+    row["model"], row["state"], row["step"] = model, state, step
+    if arm in FALL_ARMS:
         fixed = batches[0]
         fall = []
         for _ in range(FALL_STEPS):
@@ -1055,7 +1096,6 @@ def train(arm: str, batches: list) -> dict:
         row["fall"] = fall
         phase(f"train {arm}: {FALL_STEPS} steps on one batch: loss {fall[0]:.4f} -> {fall[-1]:.4f} "
               f"(mean of the first 3 {first:.4f}, of the last 3 {last:.4f})")
-        row["model"], row["state"], row["step"] = model, state, step
     return row
 
 
@@ -1100,12 +1140,12 @@ def step_parity(arm: str, batch) -> dict:
     return {"loss_rel": rel, "param_max_abs": worst}
 
 
-def trace_forward(fn, label: str, prefix: str, top: int, group: str = "", op: str = "") -> dict:
+def trace_forward(fn, label: str, prefix: str, top: int, group: str = "", op=()) -> dict:
     """One call of ``fn`` under torch.profiler: the device's busy share of its
     wall time and its kernels by device time, printed after ``prefix``; with
     ``group``, the summed device time of the kernels whose names contain it;
-    with ``op`` (a host op's name, such as ``aten::gru``), the device time of
-    every kernel launched under that op."""
+    with ``op`` (a host op's name, such as ``aten::gru``, or a tuple of
+    them), the device time of every kernel launched under those ops."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(PROFILER_ATTEMPTS):  # a window that holds no kernel record (see device_ms) is taken again
@@ -1137,12 +1177,14 @@ def trace_forward(fn, label: str, prefix: str, top: int, group: str = "", op: st
         phase(f"{prefix}: {group}* kernels {row['group_ms']:.3f} ms of the {busy_ms:.2f} ms busy, "
               f"{sum(e.count for e in members)} launches")
     if op:
-        under = [e for e in events if e.key == op and e.device_type == torch.autograd.DeviceType.CPU]
+        ops = (op,) if isinstance(op, str) else op
+        under = [e for e in events if e.key in ops and e.device_type == torch.autograd.DeviceType.CPU]
         if not under:
-            raise AssertionError(f"the profiled {label} ran no {op}")
+            raise AssertionError(f"the profiled {label} ran none of {ops}")
         row["op_ms"] = sum(e.device_time_total for e in under) / 1e3
         row["op_calls"] = sum(e.count for e in under)
-        phase(f"{prefix}: kernels under {op} ({row['op_calls']} calls) {row['op_ms']:.3f} ms of the "
+        phase(f"{prefix}: kernels under {' and '.join(sorted({e.key for e in under}))} ({row['op_calls']} calls) "
+              f"{row['op_ms']:.3f} ms of the "
               f"{busy_ms:.2f} ms busy ({100 * row['op_ms'] / busy_ms:.1f}%)")
     return row
 
@@ -1151,8 +1193,10 @@ def trace_train(row: dict, batch, top: int = 12) -> dict:
     """One step of the arm under torch.profiler: the device's busy share of
     the step and its kernels by device time (and K3's summed, edge-zxp)."""
     state, step = row["state"], row["step"]
-    group = "rwm_" if row["arm"] == "edge-zxp" else ""
-    return trace_forward(lambda: step(state, batch), f"one {row['arm']} step", "train trace", top, group)
+    group = "rwm_" if ARMS[row["arm"]].get("conv_impl") == "edge-zxp" else ""
+    # use_rnn's GRUs: cuDNN's cell kernels and cuBLAS GEMVs, under the forward's and the backward's cuDNN ops
+    gru = ("aten::gru", "aten::_cudnn_rnn_backward") if ARMS[row["arm"]].get("use_rnn") else ()
+    return trace_forward(lambda: step(state, batch), f"one {row['arm']} step", "train trace", top, group, gru)
 
 
 # ------------------------------------------------------------- K4 and K5
@@ -2119,7 +2163,7 @@ def _serve_expected(model, conv_impl: str) -> dict:
     ("node") or one K3 forward ("edge-zxp"); onset pooling one K1."""
     from analysisgnn_tpu_torch.models.hetero import fusion_groups
 
-    groups, singles = fusion_groups(model.edge_types)
+    groups, singles = fusion_groups(_conv_edge_types(model))
     convs = len(model.encoder.layers) + 1
     counts = {k: 0 for k in _counts()}
     counts["segment_mean_base"] = 1 + convs * (len(singles) + (len(groups) if conv_impl == "node" else 0))
@@ -2346,6 +2390,146 @@ def chord_chain(tmp: str) -> dict:
             "labels_differing": differ, "annotations": len(ann), "notes": len(na), "onsets": len(onsets)}
 
 
+# --------------------------------------------------------- the MetricalGNN family
+
+
+def metrical_trainer(flags: list, label: str, ckpt_dir: str) -> dict:
+    """The training entry point on a MetricalGNN configuration: seconds per
+    epoch, median ms per train step after the first epoch, K1 and K3
+    launches against the code's prediction, finite losses."""
+    from analysisgnn_tpu_torch.cli.train import main as train_main
+
+    t = time.perf_counter()
+    _reset_counts()  # this Trainer path's run starts here
+    trainer = train_main([*flags, "--checkpoint_dir", ckpt_dir])
+    torch.cuda.synchronize()
+    counts = _counts()
+    wall = time.perf_counter() - t
+    hist = trainer.history
+    launches = _check_trainer_launches(label, trainer, counts, len(hist), evaluated=False)
+    losses = [r["train_loss"] for r in hist] + [r["val/total_loss"] for r in hist]
+    if not all(np.isfinite(losses)) or trainer.model.encoder_type != "metricalgnn":
+        raise AssertionError(f"{label}: not a MetricalGNN run, or a non-finite loss: {losses}")
+    steps_ms = [x * 1e3 for x in trainer.step_seconds]
+    per_epoch = len(steps_ms) // len(hist)
+    median_ms = statistics.median(steps_ms[per_epoch:] or steps_ms)
+    phase(f"{label}: cli.train.main {' '.join(flags)}: {len(hist)} epochs of {per_epoch} train steps in {wall:.2f} s "
+          f"(the demo corpus's build included); seconds per epoch {', '.join(str(r['secs']) for r in hist)}; median "
+          f"{median_ms:.2f} ms per train step after the first epoch (first step {steps_ms[0]:.1f} ms); train_loss "
+          + ", ".join(f"{r['train_loss']:.4f}" for r in hist)
+          + "; val/total_loss " + ", ".join(f"{r['val/total_loss']:.4f}" for r in hist))
+    return {"secs": [r["secs"] for r in hist], "median_step_ms": median_ms, "first_step_ms": steps_ms[0],
+            "launches": launches, "wall_s": wall, "train_loss": [r["train_loss"] for r in hist]}
+
+
+def metrical_serve(ckpt: str, label: str, score: str) -> dict:
+    """The predict CLI on a trained MetricalGNN checkpoint: seconds a request
+    (median of REPEATS after one warm-up), K1 and K3 launches against the
+    code's prediction; then predict_score's probabilities on the card against
+    the CPU with the same weights.  The romanNumeral head's class 184, which
+    has no label (ROADMAP queue 3), gets a low bias first, as the CPU tests
+    do: a head trained for 8 steps may still pick it, and the decode raises."""
+    from analysisgnn_tpu_torch.cli.predict import load_model
+    from analysisgnn_tpu_torch.cli.predict import main as predict_main
+    from analysisgnn_tpu_torch.data.musicxml import load_score
+    from analysisgnn_tpu_torch.inference.predict import predict_score
+    from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
+
+    state = torch.load(f"{ckpt}/last.pt", map_location="cpu", weights_only=True)
+    state["heads.clf.b2"][list(TASK_DICT).index("romanNumeral"), 0, TASK_DICT["romanNumeral"] - 1] = -1e3
+    torch.save(state, f"{ckpt}/served.pt")
+    model, cfg = load_model(ckpt, "served", "cuda")
+    expected = _serve_expected(model, cfg["conv_impl"])
+    argv = ["--checkpoint_dir", ckpt, "--checkpoint", "served", "--score", score, "--output_csv",
+            f"{ckpt}/served.csv", "--device", "cuda"]
+    seconds, counts = [], []
+    for _ in range(1 + REPEATS):  # one warm-up, then the timed requests
+        _reset_counts()  # this CLI request starts here
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            predict_main(argv)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        counts.append(_counts())
+    if any(c != expected for c in counts):
+        raise AssertionError(f"{label} serve: launches {counts}, the code predicts {expected} a request")
+    ids = _csv_ids(f"{ckpt}/served.csv")
+    parsed = load_score(score)
+    if len(ids) != len(parsed.note_array) or len(ids) < METRICAL_NOTES:
+        raise AssertionError(f"{label} serve: {len(ids)} CSV rows for {len(parsed.note_array)} notes")
+    cpu_model, _ = load_model(ckpt, "served", "cpu")
+    probs = {dev: predict_score(m, parsed.note_array, parsed.measures, add_beats=True, add_measures=True, device=dev)
+             for dev, m in (("cuda", model), ("cpu", cpu_model))}
+    worst = {}
+    for task, p in probs["cuda"].items():
+        if p.shape != probs["cpu"][task].shape or not np.isfinite(p).all():
+            raise AssertionError(f"{label} serve: {task} probabilities of shape {p.shape} or not finite")
+        worst[task] = float(np.abs(p - probs["cpu"][task]).max())
+    err = max(worst.values())
+    if err > METRICAL_PROB_ATOL:
+        raise AssertionError(f"{label} serve: GPU vs CPU probabilities differ by {err:.3e} > {METRICAL_PROB_ATOL}")
+    median = statistics.median(seconds[1:])
+    phase(f"{label} serve: cli.predict.main on a MusicXML score of {len(ids)} notes: median of {REPEATS} "
+          f"{median:.3f} s a request after one warm-up (first {seconds[0]:.3f} s); launches a request "
+          + ", ".join(f"{k} {v}" for k, v in counts[-1].items() if v)
+          + f" (the code predicts the same); predict_score GPU vs CPU (plain versions, same weights) probabilities "
+          f"max|d| {err:.3e} (tol {METRICAL_PROB_ATOL} abs; worst task {max(worst, key=worst.get)})")
+    return {"median_s": median, "first_s": seconds[0], "launches": counts[-1], "prob_max_abs_err": err,
+            "notes": len(ids)}
+
+
+def scan_turns(batch) -> dict:
+    """AssocBiGRU (MetricalConv's default sequence model, a log-depth scan in
+    plain PyTorch) against BiResetGRU (seq_impl="scan", one packed cuDNN GRU)
+    at a train batch's beat rows, F = 256, forward and backward: ms a call in
+    turns, and each one's device time and launches from one traced call;
+    then AssocBiGRU's forward on the card against the CPU."""
+    from analysisgnn_tpu_torch.models.rnn import AssocBiGRU, BiResetGRU, segment_starts
+
+    f = TRAIN_CFG["hidden_channels"]
+    rows = batch.capacity("beat")
+    starts = segment_starts(batch.batch["beat"])
+    torch.manual_seed(0)
+    mods = {"assoc": AssocBiGRU(f, f).cuda(), "scan": BiResetGRU(f, f).cuda()}
+    x = torch.randn(rows, f, device="cuda", requires_grad=True)
+
+    def call(mod):
+        return lambda: mod(x, starts).sum().backward()
+
+    fns = {k: call(m) for k, m in mods.items()}
+    ms = cuda_ms_turns(fns, iters=5, trials=5)
+    traced = {k: trace_forward(fn, f"one {k} forward and backward", "metrical scan", 4) for k, fn in fns.items()}
+    cpu = AssocBiGRU(f, f)
+    cpu.load_state_dict({k: v.cpu() for k, v in mods["assoc"].state_dict().items()})
+    with torch.no_grad():
+        err = float((mods["assoc"](x, starts).cpu() - cpu(x.detach().cpu(), starts.cpu())).abs().max())
+    if err > SCAN_ATOL:
+        raise AssertionError(f"metrical scan: AssocBiGRU on the card vs the CPU differs by {err:.3e} > {SCAN_ATOL}")
+    segments = int(starts.sum())
+    phase(f"metrical scan: {rows} beat rows ({segments} segments) x {f}, forward and backward, in turns: AssocBiGRU "
+          f"{ms['assoc']:.3f} ms a call ({traced['assoc']['busy_ms']:.3f} ms device, {traced['assoc']['launches']} "
+          f"launches), BiResetGRU {ms['scan']:.3f} ms ({traced['scan']['busy_ms']:.3f} ms device, "
+          f"{traced['scan']['launches']} launches); AssocBiGRU GPU vs CPU max|d| {err:.3e} (tol {SCAN_ATOL} abs)")
+    return {"rows": rows, "segments": segments, "ms": ms,
+            "device_ms": {k: r["busy_ms"] for k, r in traced.items()},
+            "launches": {k: r["launches"] for k, r in traced.items()}, "max_abs_err": err}
+
+
+def metrical_phase(tmp: str, batch) -> dict:
+    """Phase 22: the MetricalGNN family through both CLIs at full width, and
+    the scan on the card."""
+    score = f"{tmp}/metrical.musicxml"
+    with open(score, "w") as f:
+        f.write(synthetic_score_xml(METRICAL_NOTES, seed=22))
+    out = {}
+    for key, flags, label in (("node", METRICAL_FLAGS, "metrical trainer"),
+                              ("rnn", METRICAL_RNN_FLAGS, "metrical trainer use_rnn edge-zxp")):
+        out[key] = metrical_trainer(flags, label, f"{tmp}/metrical_{key}")
+        out[key]["serve"] = metrical_serve(f"{tmp}/metrical_{key}", label, score)
+    out["scan"] = scan_turns(batch)
+    return out
+
+
 def main() -> None:
     smi = environment()
     from analysisgnn_tpu_torch.core.graph import NOTE
@@ -2377,8 +2561,16 @@ def main() -> None:
     k2_rows = k2_checks(batches[0])
     phase("kernel check: K3, K1 backward and K2 done")
     trained = {arm: train(arm, batches) for arm in ARMS}
-    parity = {arm: step_parity(arm, batches[0]) for arm in ("edge-zxp", "hgt")}
-    traced = {arm: trace_train(trained[arm], batches[1]) for arm in ("edge-zxp", "hgt")}
+    parity = {arm: step_parity(arm, batches[0]) for arm in PARITY_ARMS}
+    traced = {arm: trace_train(trained[arm], batches[1]) for arm in PARITY_ARMS}
+    with tempfile.TemporaryDirectory() as tmp:
+        metrical = metrical_phase(tmp, batches[0])
+    phase(f"metrical: done; {trained['metrical']['median_ms']:.2f} ms per MetricalGNN use_rnn edge-zxp train step "
+          f"(device busy {traced['metrical']['busy_ms']:.2f} of {traced['metrical']['wall_ms']:.2f} ms traced); "
+          f"Trainer {metrical['node']['median_step_ms']:.2f} ms (node), {metrical['rnn']['median_step_ms']:.2f} ms "
+          f"(use_rnn edge-zxp) a step; serve {metrical['node']['serve']['median_s']:.3f} s, "
+          f"{metrical['rnn']['serve']['median_s']:.3f} s a request")
+    del trained["metrical"]["model"], trained["metrical"]["state"], trained["metrical"]["step"]
     k4_rows = k4_checks(batches[0])
     k5_rows = k5_checks(batches[0])
     phase("kernel check: K4 and K5 done")
@@ -2517,6 +2709,17 @@ def main() -> None:
     kernels[0]["rna_serve_launches"] = rna["k1_launches"]
     kernels[0]["chord_launches"] = chords["launches"]
     kernels[1]["serve_launches"] = rna["k3_launches"]
+    # phase 22: the MetricalGNN paths' launches (a bench-shaped train step of the use_rnn edge-zxp arm, the two
+    # Trainer runs, one served request of each checkpoint)
+    kernels[0]["metrical"] = {"train_step": trained["metrical"]["launches_per_step"]["segment_mean_base"],
+                              "trainer_node": metrical["node"]["launches"]["launches"]["segment_mean_base"],
+                              "trainer_rnn_edge_zxp": metrical["rnn"]["launches"]["launches"]["segment_mean_base"],
+                              "serve_node": metrical["node"]["serve"]["launches"]["segment_mean_base"],
+                              "serve_rnn_edge_zxp": metrical["rnn"]["serve"]["launches"]["segment_mean_base"]}
+    for entry in kernels[1:4]:
+        entry["metrical"] = {"train_step": trained["metrical"]["launches_per_step"][entry["name"]],
+                             "trainer_rnn_edge_zxp": metrical["rnn"]["launches"]["launches"][entry["name"]],
+                             "serve_rnn_edge_zxp": metrical["rnn"]["serve"]["launches"][entry["name"]]}
     k6 = k6_rows[0]
     if (k6["D"], k6["H"]) != (PARTITIONS, partitioned["regime2"][PARTITIONS]["halo"]):
         raise AssertionError(f"K6 was timed at D={k6['D']} H={k6['H']}, not at the shape of regime 2's run")

@@ -271,5 +271,17 @@ def test_chord_conversion_round_trips_and_refuses_what_flax_lacks():
     sd = tchord.PostProcessingMLT(4, (("a", 2),)).state_dict()
     with pytest.raises(ValueError, match="hidden bias"):
         flax_tree_from_chord_state_dict(sd)  # torch's default init draws b_hr and b_hz
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tchord.ChordEncoder(25, 8, EDGES, metrical=True)
+    # metrical=True (MetricalGNN) is ported: the encoder's tree is the JAX ChordEncoder's
+    _, metrical_edges = metadata(True, True)
+    g = graph_from_note_array(synthetic_score(40, seed=2), add_beats=True, add_measures=True)
+    jenc = jchord.ChordEncoder(hidden=8, num_layers=2, edge_types=metrical_edges, metrical=True)
+    args = (g.x_dict(), g.edge_index_dict(), g.batch, g.node_attrs[NOTE]["onset_div"],
+            jnp.ones(g.capacity(NOTE), bool))
+    shapes = jax.eval_shape(jenc.init, jax.random.PRNGKey(0), *args)["params"]
+    tenc = tchord.ChordEncoder(25, 8, metrical_edges, num_layers=2, metrical=True)
+    with torch.no_grad():  # flax's GRU cell has no hidden r and z biases; torch's default init draws them
+        for name, p in tenc.named_parameters():
+            if "bias_hh" in name:
+                p.zero_()
+    flat = lambda tree: {jax.tree_util.keystr(p): tuple(v.shape) for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    assert flat(flax_tree_from_chord_state_dict(tenc.state_dict())) == flat(shapes)

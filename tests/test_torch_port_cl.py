@@ -74,7 +74,7 @@ ADAM_OUTLIERS = 0.005
 TRAINER_RTOL, TRAINER_ATOL = 1e-4, 1e-6
 # the step tests' model: one layer of the train tests' HybridGNN, beats and measures, edge-zxp
 STEP_CFG = {"num_layers": 1, "hidden_channels": 16, "out_channels": 8, "in_channels": 25, "use_jk": True,
-            "final_norm": True, "dropout": 0.0, "conv_impl": "edge-zxp", "add_beats": True, "add_measures": True}
+            "final_norm": True, "plain_proj": True, "dropout": 0.0, "conv_impl": "edge-zxp", "add_beats": True, "add_measures": True}
 
 
 # ---------------------------------------------------------------- the losses

@@ -252,7 +252,7 @@ def test_hgt_layer_matches_jax(group_mode, stab, pallas):
 
 def _cfg(**kw):
     return {"model": "HGT", "num_layers": 2, "hidden_channels": HIDDEN, "out_channels": 8, "in_channels": 25,
-            "use_jk": True, "dropout": 0.0, "add_beats": True, "add_measures": True, **kw}
+            "use_jk": True, "plain_proj": True, "dropout": 0.0, "add_beats": True, "add_measures": True, **kw}
 
 
 def _samples(cls):

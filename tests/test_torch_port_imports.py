@@ -45,7 +45,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
-    assert len(names) >= 64  # every module of the port and chip_smoke, the chord chain's included
+    assert len(names) >= 66  # every module of the port and chip_smoke, the chord chain's and the families' included
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
@@ -56,7 +56,7 @@ def test_every_port_module_imports_without_jax():
         "kernels.launch", "data._table", "data.tsv", "data.dlc_meta", "data.time_divided", "data.samplers",
         "data.features", "theory.encoders",
         "theory.roman", "theory.rules", "data.kern", "models.chord", "models.pooling", "models.mlp",
-        "inference.predict_chords",
+        "inference.predict_chords", "models.pitch_spelling", "models.cadence",
     )} <= names
 
 
@@ -67,12 +67,13 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 65 and {
+    assert len(files) >= 67 and {
         "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
         "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
         "halo.py", "partition.py", "partition_encoder.py", "launch.py", "_table.py", "tsv.py", "dlc_meta.py",
         "time_divided.py", "samplers.py",
         "roman.py", "rules.py", "kern.py", "chord.py", "pooling.py", "predict_chords.py",
+        "pitch_spelling.py", "cadence.py",
     } <= {f.name for f in files}
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
     assert not offenders, offenders

@@ -270,7 +270,7 @@ def _analysis_pair(cfg, feats, ps, ks, edges, seed):
 
 
 PORT_CFG = {"model": "HybridGNN", "num_layers": 2, "hidden_channels": 32, "out_channels": 16, "in_channels": 25,
-            "use_jk": True, "final_norm": True, "dropout": 0.0, "add_beats": False, "add_measures": False}
+            "use_jk": True, "final_norm": True, "plain_proj": True, "dropout": 0.0, "add_beats": False, "add_measures": False}
 HGT_CFG = {**PORT_CFG, "model": "HGT", "hidden_channels": 16, "out_channels": 8, "hgt_group_mode": "pair"}
 
 

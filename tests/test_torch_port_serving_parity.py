@@ -116,7 +116,7 @@ def test_trained_checkpoint_serves_as_in_jax(trained, notes):
 
 def _hgt_cfg(group_mode, bm):
     return {"model": "HGT", "num_layers": 2, "hidden_channels": 16, "out_channels": 8, "in_channels": 25,
-            "use_jk": True, "dropout": 0.0, "hgt_group_mode": group_mode, "add_beats": bm, "add_measures": bm,
+            "use_jk": True, "plain_proj": True, "dropout": 0.0, "hgt_group_mode": group_mode, "add_beats": bm, "add_measures": bm,
             "feature_type": "simple"}
 
 

@@ -148,7 +148,7 @@ def test_metrics_match_jax():
 
 STEP_SAMPLER = dict(subgraph_size=48, batch_size=2, num_neighbors=(3, 3), seed=0, sort_edges_by_src=True)
 STEP_MODEL = dict(num_layers=2, hidden_channels=32, out_channels=16, in_channels=25, use_jk=True, final_norm=True,
-                  dropout=0.0, conv_impl="edge-zxp", add_beats=True, add_measures=True)
+                  plain_proj=True, dropout=0.0, conv_impl="edge-zxp", add_beats=True, add_measures=True)
 
 
 def _assert_step_dicts_match(tout, jout, what):

@@ -61,7 +61,8 @@ LOSS_RTOL, PARAM_ATOL = 1e-5, 1e-4
 
 def _cfg(conv_impl):
     return {"num_layers": 2, "hidden_channels": 32, "out_channels": 16, "in_channels": 25, "use_jk": True,
-            "final_norm": True, "dropout": 0.0, "conv_impl": conv_impl, "add_beats": True, "add_measures": True}
+            "final_norm": True, "plain_proj": True, "dropout": 0.0, "conv_impl": conv_impl, "add_beats": True,
+            "add_measures": True}
 
 
 def _samples(cls):

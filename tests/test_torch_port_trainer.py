@@ -29,7 +29,7 @@ from analysisgnn_tpu.theory.vocab import TASK_DICT
 from analysisgnn_tpu.train import loop as jloop
 from analysisgnn_tpu_torch.cli import train as tcli
 from analysisgnn_tpu_torch.cli.predict import load_model
-from analysisgnn_tpu_torch.convert import state_dict_from_flax
+from analysisgnn_tpu_torch.convert import flax_tree_from_state_dict, state_dict_from_flax
 from analysisgnn_tpu_torch.data import corpus as tcorpus
 from analysisgnn_tpu_torch.data import datamodule as tdm
 from analysisgnn_tpu_torch.data.note_array import synthetic_score
@@ -151,8 +151,18 @@ def test_trainer_refuses_what_is_not_ported():
                {"logit_fusion": True}):
         with pytest.raises(NotImplementedError, match="item 11"):
             tloop.Trainer(tloop.TrainConfig(**TRAINER, **kw, device="cpu"), dm)
-    with pytest.raises(NotImplementedError):
-        tloop.Trainer(tloop.TrainConfig(**TRAINER, model="MetricalGNN", device="cpu"), dm)
+    # MetricalGNN with use_rnn is ported: the Trainer builds the JAX Trainer's parameter tree
+    metrical = dict(TRAINER, num_layers=2, model="MetricalGNN", use_rnn=True)
+    tt = tloop.Trainer(tloop.TrainConfig(**metrical, device="cpu"), dm)
+    jt = jloop.Trainer(jloop.TrainConfig(**metrical), _trainer_dm(True))
+    jb = next(iter(jt.dm.val_batches("all")))
+    a = jb.node_attrs["note"]
+    shapes = jax.eval_shape(jt.model.init, jax.random.PRNGKey(0), jb.x_dict(), jb.edge_index_dict(), jb.batch,
+                            a["pitch_spelling"], a["key_signature"], jb.num_target_nodes)["params"]
+    flat = lambda tree: {jax.tree_util.keystr(p): tuple(v.shape) for p, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    tt._init_state()  # the seeded init and the torch-style draw, as fit() starts
+    assert flat(flax_tree_from_state_dict(tt.model.state_dict())) == flat(shapes)
+    assert tt.model.encoder_type == "metricalgnn" and tt.model.use_rnn
     with pytest.raises(ValueError, match="lie on"):
         tloop.Trainer(tloop.TrainConfig(**TRAINER, device="meta"), dm)
     assert tloop.expand_main_task("rna", TASK_DICT) == jloop.expand_main_task("rna", TASK_DICT)
