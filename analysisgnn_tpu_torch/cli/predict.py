@@ -12,8 +12,8 @@ the Roman-numeral MusicXML (``--output_musicxml``; ``--export_musicxml`` in
 ``--conv_impl`` overrides the fused-SAGE layout of the checkpoint's HybridGNN
 or MetricalGNN (``edge-zxp`` runs K3; the parameters are the same in every
 layout), and
-``--hgt_stage_dtype`` the HGT staging dtype (``float32``; ``bfloat16`` is not
-ported yet and raises).
+``--hgt_stage_dtype`` the HGT staging dtype (``float32`` or ``bfloat16``; for
+an HGT checkpoint the saved one by default).
 
 ``--partition_devices N`` serves a long score through N graph partitions on
 a line, all on the one device (the overlap-region regime of
@@ -67,7 +67,9 @@ def load_model(checkpoint_dir: str, tag: str, device: "str | torch.device", conv
     """The checkpoint's model on ``device`` and its configuration, with the
     overrides applied: ``conv_impl`` replaces the saved layout; the staging
     dtype is ``hgt_stage_dtype`` when given, else the saved one for an HGT
-    checkpoint and float32 for any other (the JAX CLI's rule)."""
+    checkpoint and float32 for any other (the JAX CLI's rule).  The edge
+    decoder of a checkpoint trained with the edge-consistency loss serves no
+    prediction and is not loaded."""
     from analysisgnn_tpu_torch.models.analysis import model_from_config
 
     with open(os.path.join(checkpoint_dir, "model_config.json")) as f:
@@ -79,7 +81,7 @@ def load_model(checkpoint_dir: str, tag: str, device: "str | torch.device", conv
     cfg["hgt_stage_dtype"] = hgt_stage_dtype if hgt_stage_dtype is not None else saved
     model = model_from_config(cfg, device=device)
     state = torch.load(os.path.join(checkpoint_dir, f"{tag}.pt"), map_location=device, weights_only=True)
-    model.load_state_dict(state)
+    model.load_state_dict({k: v for k, v in state.items() if not k.startswith("edge_decoder.")})
     return model.eval(), cfg
 
 

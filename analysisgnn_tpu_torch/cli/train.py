@@ -362,6 +362,7 @@ def train_config(config: Dict):
         use_smote=config.get("use_smote", False),
         use_swa=config.get("use_swa", False),
         use_edge_loss=config.get("use_edge_loss", False),
+        lambda_edge=config.get("lambda_edge", 0.1),
         cl_training=config.get("cl_training", False),
         main_tasks=tuple(config["main_tasks"]),
         epochs_per_task=tuple(config.get("epochs_per_task", ())),

@@ -39,7 +39,10 @@ differences handled here:
   ``project_metrical_i`` and ``{t}_conv_i`` keep their names, and in a
   ``MetricalConv`` the ``LayerNorm_0`` is ``norm_0`` and an ``AssocBiGRU``'s
   ``AssocResetGRU_0`` / ``AssocResetGRU_1`` are ``fwd`` / ``bwd``;
-  ``StackedBiGRU``'s ``layer_i`` and ``proj_i`` keep their names.
+  ``StackedBiGRU``'s ``layer_i`` and ``proj_i`` keep their names;
+* the edge decoder's ``embed_{rel}_dense`` / ``embed_{rel}_norm`` are
+  ``embed_dense.{rel}`` / ``embed_norm.{rel}``; its ``fc_dense1``,
+  ``fc_norm`` and ``fc_dense2`` keep their names.
 """
 
 from __future__ import annotations
@@ -285,6 +288,10 @@ def state_dict_from_flax(params: Mapping, cfg: Mapping) -> Dict[str, torch.Tenso
             key, val = _dense(f"rnn.{path[1]}", path[2], v)
         elif top in ("rnn_norm", "rnn_proj") and len(path) == 2:
             key, val = _leaf(top, path[1], v)
+        elif top == "edge_decoder" and (m := re.fullmatch(r"embed_(\w+)_(dense|norm)", path[1])):
+            key, val = _leaf(f"edge_decoder.embed_{m.group(2)}.{m.group(1)}", path[2], v)
+        elif top == "edge_decoder" and path[1] in ("fc_dense1", "fc_norm", "fc_dense2"):
+            key, val = _leaf(f"edge_decoder.{path[1]}", path[2], v)
         else:
             raise KeyError(f"no port parameter for flax path {'/'.join(path)}")
         out[key] = val
@@ -366,6 +373,10 @@ def flax_tree_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[st
                     else v.reshape(XTASK_HEADS, -1))
         elif key.startswith("encoder."):
             put(("encoder", *_encoder_flax_path(key.split(".")[1:])), v)
+        elif m := re.fullmatch(r"edge_decoder\.embed_(dense|norm)\.(\w+)\.(weight|bias)", key):
+            put(("edge_decoder", f"embed_{m.group(2)}_{m.group(1)}", _flax_leaf(m.group(1), leaf, v)), v)
+        elif m := re.fullmatch(r"edge_decoder\.(fc_dense1|fc_norm|fc_dense2)\.(weight|bias)", key):
+            put(("edge_decoder", m.group(1), _flax_leaf(m.group(1), leaf, v)), v)
         else:
             raise KeyError(f"no flax path for port parameter {key}")
     return tree

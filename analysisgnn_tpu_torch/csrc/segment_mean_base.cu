@@ -19,22 +19,29 @@
 // In both, ids outside [0, num_segments) (padding) lie outside
 // row_ptr[0] .. row_ptr[S] and are never read.
 //
-// Bound on the H100: bytes.  The mean reads E*F*4 + E*4 + m*F*4 bytes and
-// writes S*F*4 + S*4 (the sum: E*F*4 + E*4 in, S*F*4 out), and does about one
-// add per message element, far below the card's 3.35 TB/s break-even
-// arithmetic intensity.
+// K1 reads its rows (msgs and x_base) as float32 or as bfloat16 (the row type
+// is a template parameter); it accumulates in f32 and writes f32 out and
+// counts either way, the dtype the JAX node layout gives at that point under
+// bf16 compute (a bf16 sum over an f32 count).  The sum (K4) takes f32 only.
+//
+// Bound on the H100: bytes.  The mean reads E*F*b + E*4 + m*F*b bytes (b = 4
+// for f32 rows, 2 for bf16) and writes S*F*4 + S*4 (the sum: E*F*4 + E*4
+// in, S*F*4 out), and does about one add per message element, far below the
+// card's 3.35 TB/s break-even arithmetic intensity.
 //
 // Design.  The TPU kernels contracted one-hot [128, 256] blocks on the MXU
 // because Mosaic has no in-kernel gather and needs (8, 128) DMA tiles; none
 // of that carries over.  Here the wrapper hands over CSR row pointers of the
 // sorted ids, each block owns WARPS_PER_BLOCK consecutive segments (one warp
 // per segment), and a warp walks its segment's contiguous edge range once
-// with its lanes across the feature axis, as 16-byte float4 loads when
-// F % 4 == 0 (two float4 per lane, so a 256-wide row is one pass).  Sums stay
+// with its lanes across the feature axis, four elements a load when
+// F % 4 == 0 (16-byte float4 loads of f32 rows, 8-byte loads of bf16 rows;
+// two such groups per lane, so a 256-wide row is one pass).  Sums stay
 // in f32 registers and every output row is written once, so disjoint rows
 // need no atomics.  The sum is a compile-time mode (MEAN = false) of the same
 // kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,11 +60,26 @@ __device__ __forceinline__ void add4(float4& a, const float4& b) {
 // (the hidden width of the trained models) with every edge's row loaded once
 constexpr int CHUNKS = 2;
 
-template <bool VEC, bool MEAN>
+// the c-th group of four elements of a row, as f32
+__device__ __forceinline__ float4 load4(const float* row, int c) {
+  return __ldg(reinterpret_cast<const float4*>(row) + c);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int c) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(row) + c);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+template <typename T, bool VEC, bool MEAN>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
-segment_mean_base_kernel(const float* __restrict__ msgs,
+segment_mean_base_kernel(const T* __restrict__ msgs,
                          const int* __restrict__ row_ptr,
-                         const float* __restrict__ x_base,
+                         const T* __restrict__ x_base,
                          float* __restrict__ out,
                          float* __restrict__ counts,
                          int64_t num_segments, int64_t base_rows, int F) {
@@ -69,11 +91,10 @@ segment_mean_base_kernel(const float* __restrict__ msgs,
   const int64_t e1 = row_ptr[s + 1];
   // the sum mode has no base row (x_base may be null) and divides by 1
   const float denom = MEAN ? fmaxf((float)(e1 - e0), 1.0f) : 1.0f;
-  const float* base = MEAN ? x_base + (s % base_rows) * (int64_t)F : nullptr;
+  const T* base = MEAN ? x_base + (s % base_rows) * (int64_t)F : nullptr;
   float* o = out + s * (int64_t)F;
   if (VEC) {
     const int F4 = F >> 2;
-    const float4* base4 = reinterpret_cast<const float4*>(base);
     float4* o4 = reinterpret_cast<float4*>(o);
     for (int c0 = lane; c0 < F4; c0 += 32 * CHUNKS) {
       float4 acc[CHUNKS], b[CHUNKS];
@@ -81,18 +102,18 @@ segment_mean_base_kernel(const float* __restrict__ msgs,
       for (int k = 0; k < CHUNKS; ++k) {
         acc[k] = make_float4(0.f, 0.f, 0.f, 0.f);
         const int c = c0 + 32 * k;
-        b[k] = (MEAN && c < F4) ? __ldg(base4 + c) : acc[k];
+        b[k] = (MEAN && c < F4) ? load4(base, c) : acc[k];
       }
-      const float4* row = reinterpret_cast<const float4*>(msgs) + e0 * F4;
+      const T* row = msgs + e0 * F;
       int64_t e = e0;
       // two edges per iteration: up to 2 * CHUNKS independent loads in flight
-      for (; e + 1 < e1; e += 2, row += 2 * F4) {
+      for (; e + 1 < e1; e += 2, row += 2 * F) {
 #pragma unroll
         for (int k = 0; k < CHUNKS; ++k) {
           const int c = c0 + 32 * k;
           if (c < F4) {
-            const float4 v0 = __ldg(row + c);
-            const float4 v1 = __ldg(row + F4 + c);
+            const float4 v0 = load4(row, c);
+            const float4 v1 = load4(row + F, c);
             add4(acc[k], v0);
             add4(acc[k], v1);
           }
@@ -102,7 +123,7 @@ segment_mean_base_kernel(const float* __restrict__ msgs,
 #pragma unroll
         for (int k = 0; k < CHUNKS; ++k) {
           const int c = c0 + 32 * k;
-          if (c < F4) add4(acc[k], __ldg(row + c));
+          if (c < F4) add4(acc[k], load4(row, c));
         }
       }
 #pragma unroll
@@ -121,11 +142,28 @@ segment_mean_base_kernel(const float* __restrict__ msgs,
   } else {
     for (int c = lane; c < F; c += 32) {
       float acc = 0.f;
-      for (int64_t e = e0; e < e1; ++e) acc += __ldg(msgs + e * F + c);
-      o[c] = MEAN ? (__ldg(base + c) + acc) / denom : acc;
+      for (int64_t e = e0; e < e1; ++e) acc += load1(msgs + e * F + c);
+      o[c] = MEAN ? (load1(base + c) + acc) / denom : acc;
     }
   }
   if (MEAN && lane == 0) counts[s] = (float)(e1 - e0);
+}
+
+template <typename T>
+int mean_launch(const T* msgs, const int* row_ptr, const T* x_base, float* out, float* counts,
+                long long num_segments, long long base_rows, int F, int vec, void* stream) {
+  if (num_segments <= 0) return (int)cudaSuccess;
+  const dim3 block(WARPS_PER_BLOCK * 32);
+  const dim3 grid((unsigned)((num_segments + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (vec) {
+    segment_mean_base_kernel<T, true, true><<<grid, block, 0, st>>>(
+        msgs, row_ptr, x_base, out, counts, num_segments, base_rows, F);
+  } else {
+    segment_mean_base_kernel<T, false, true><<<grid, block, 0, st>>>(
+        msgs, row_ptr, x_base, out, counts, num_segments, base_rows, F);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -137,18 +175,17 @@ extern "C" int segment_mean_base_launch(const float* msgs, const int* row_ptr,
                                         float* counts, long long num_segments,
                                         long long base_rows, int F, int vec,
                                         void* stream) {
-  if (num_segments <= 0) return (int)cudaSuccess;
-  const dim3 block(WARPS_PER_BLOCK * 32);
-  const dim3 grid((unsigned)((num_segments + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (vec) {
-    segment_mean_base_kernel<true, true><<<grid, block, 0, st>>>(
-        msgs, row_ptr, x_base, out, counts, num_segments, base_rows, F);
-  } else {
-    segment_mean_base_kernel<false, true><<<grid, block, 0, st>>>(
-        msgs, row_ptr, x_base, out, counts, num_segments, base_rows, F);
-  }
-  return (int)cudaGetLastError();
+  return mean_launch<float>(msgs, row_ptr, x_base, out, counts, num_segments, base_rows, F, vec, stream);
+}
+
+// K1 on bf16 rows: msgs and x_base bf16, out and counts f32.  vec != 0
+// requires F % 4 == 0, 8-byte aligned msgs and x_base and a 16-byte aligned out.
+extern "C" int segment_mean_base_bf16_launch(const __nv_bfloat16* msgs, const int* row_ptr,
+                                             const __nv_bfloat16* x_base, float* out,
+                                             float* counts, long long num_segments,
+                                             long long base_rows, int F, int vec,
+                                             void* stream) {
+  return mean_launch<__nv_bfloat16>(msgs, row_ptr, x_base, out, counts, num_segments, base_rows, F, vec, stream);
 }
 
 // K4: out[s] = sum of the msgs rows of segment s.  Launches on `stream` and
@@ -162,10 +199,10 @@ extern "C" int segment_sum_launch(const float* msgs, const int* row_ptr,
   const dim3 grid((unsigned)((num_segments + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK));
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (vec) {
-    segment_mean_base_kernel<true, false><<<grid, block, 0, st>>>(
+    segment_mean_base_kernel<float, true, false><<<grid, block, 0, st>>>(
         msgs, row_ptr, nullptr, out, nullptr, num_segments, 1, F);
   } else {
-    segment_mean_base_kernel<false, false><<<grid, block, 0, st>>>(
+    segment_mean_base_kernel<float, false, false><<<grid, block, 0, st>>>(
         msgs, row_ptr, nullptr, out, nullptr, num_segments, 1, F);
   }
   return (int)cudaGetLastError();

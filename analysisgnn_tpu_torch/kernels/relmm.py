@@ -25,8 +25,19 @@ every run.
 Bound on the H100: operations (``2*T*N*F*G`` multiply-adds per kernel, three
 times over on the tensor cores, against a few tens of MB moved).
 
-On a CPU tensor the wrapper computes the plain version (``torch.einsum``,
-gradients by autograd); on a CUDA tensor it launches the kernels or raises.
+Dtypes, as the Pallas kernel takes them: ``x`` and ``w`` float32 or
+bfloat16, ``alpha`` float32, the result float32.  With ``x`` and ``w`` both
+bf16 the forward is a kernel of its own (``rwm_bf16_forward_launch``): one
+bf16 tensor-core pass per product, accumulated in f32, exact products, so it
+differs from the f32 einsum of the upcast operands only in the order of its
+sums.  Where one of them is f32 the other is promoted to f32, as ``jnp.dot``
+promotes, and the f32 kernel runs.  The backward always runs in f32, on f32
+copies of ``x`` and ``w``, and returns each cotangent in its primal's dtype
+(autograd refuses any other).
+
+On a CPU tensor the wrapper computes the plain version (``torch.einsum`` of
+the f32 operands, gradients by autograd); on a CUDA tensor it launches the
+kernels or raises.
 """
 
 from __future__ import annotations
@@ -39,20 +50,25 @@ from analysisgnn_tpu_torch.kernels import launch
 
 _NAME = "relation_weighted_matmul"
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# rwm_forward_launch / rwm_dx_launch: a, w, alpha, out, N, F, G, T, stream
+# rwm_forward_launch / rwm_dx_launch / rwm_bf16_forward_launch: a, w, alpha, out, N, F, G, T, stream
 _MM_ARGS = [_P] * 4 + [_I64, _I32, _I32, _I32, _P]
 # rwm_dw_launch / rwm_dalpha_launch: a, b, c, out, scratch, N, F, G, T, S, stream
 _SPLIT_ARGS = [_P] * 5 + [_I64, _I32, _I32, _I32, _I32, _P]
 
 
 def relation_weighted_matmul_plain(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch version: one einsum, gradients by autograd."""
-    return torch.einsum("tn,nf,tfg->ng", alpha, x, w)
+    """The plain PyTorch version: one einsum of the f32 operands (bf16 ones
+    upcast), an f32 result, gradients by autograd in the primals' dtypes."""
+    return torch.einsum("tn,nf,tfg->ng", alpha, x.float(), w.float())
+
+
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> None:
-    if not (x.dtype == w.dtype == alpha.dtype == torch.float32):
-        raise TypeError(f"x, w and alpha must be float32, got {x.dtype}, {w.dtype}, {alpha.dtype}")
+    if x.dtype not in OPERAND_DTYPES or w.dtype not in OPERAND_DTYPES or alpha.dtype != torch.float32:
+        raise TypeError(f"x and w must be float32 or bfloat16 and alpha float32, got {x.dtype}, {w.dtype}, "
+                        f"{alpha.dtype}")
     if x.dim() != 2 or w.dim() != 3 or alpha.dim() != 2:
         raise ValueError("expected x [N, F], w [T, F, G], alpha [T, N]")
     n, f = x.shape
@@ -94,8 +110,18 @@ def _launch(symbol: str, out_shape, a: torch.Tensor, b: torch.Tensor, c: torch.T
     return out
 
 
+def rwm_forward_bf16(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward kernel: ``x`` and ``w`` bfloat16, ``alpha`` and the
+    ``[N, G]`` result float32."""
+    n, f = x.shape
+    t, _, g = w.shape
+    out = _launch("rwm_bf16_forward_launch", (n, g), x, w, alpha, n, f, g, t)
+    relation_weighted_matmul.bf16_launches += 1
+    return out
+
+
 def rwm_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """The forward kernel: ``[N, G]``."""
+    """The forward kernel (f32): ``[N, G]``."""
     n, f = x.shape
     t, _, g = w.shape
     out = _launch("rwm_forward_launch", (n, g), x, w, alpha, n, f, g, t)
@@ -134,21 +160,25 @@ class _RelationWeightedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, alpha):
         ctx.save_for_backward(x, w, alpha)
-        return rwm_forward(x, w, alpha)
+        if x.dtype == w.dtype == torch.bfloat16:
+            return rwm_forward_bf16(x, w, alpha)
+        return rwm_forward(x.float(), w.float(), alpha)
 
     @staticmethod
     def backward(ctx, gout):
         x, w, alpha = ctx.saved_tensors
-        dx = rwm_dx(gout, w, alpha) if ctx.needs_input_grad[0] else None
-        dw = rwm_dw(x, gout, alpha) if ctx.needs_input_grad[1] else None
-        dalpha = rwm_dalpha(x, w, gout) if ctx.needs_input_grad[2] else None
+        xf, wf, gout = x.float(), w.float(), gout.float()
+        dx = rwm_dx(gout, wf, alpha).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = rwm_dw(xf, gout, alpha).to(w.dtype) if ctx.needs_input_grad[1] else None
+        dalpha = rwm_dalpha(xf, wf, gout) if ctx.needs_input_grad[2] else None
         return dx, dw, dalpha
 
 
 def relation_weighted_matmul(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """``[N, G] = sum_t alpha[t, :, None] * (x @ w[t])`` without the
     ``[T, N, G]`` intermediate.  Counters: ``relation_weighted_matmul.launches``
-    (forward), ``.dx_launches``, ``.dw_launches``, ``.dalpha_launches``."""
+    (the f32 forward), ``.bf16_launches`` (the bf16 forward),
+    ``.dx_launches``, ``.dw_launches``, ``.dalpha_launches``."""
     _check(x, w, alpha)
     if x.device.type == "cpu":
         return relation_weighted_matmul_plain(x, w, alpha)
@@ -158,6 +188,7 @@ def relation_weighted_matmul(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tens
 
 
 relation_weighted_matmul.launches = 0
+relation_weighted_matmul.bf16_launches = 0
 relation_weighted_matmul.dx_launches = 0
 relation_weighted_matmul.dw_launches = 0
 relation_weighted_matmul.dalpha_launches = 0

@@ -10,8 +10,14 @@ messages of segment s) / max(count_s, 1)``; the base row is added but not
 counted, empty segments keep their base row, ids ``>= num_segments`` are
 padding and drop, as negative ids do.  The counts are returned too.
 
-Bound on the H100: bytes.  It reads ``E*F*4 + E*4 + m*F*4`` bytes and writes
-``S*F*4 + S*4``, with about one add per message element.  The kernel reads
+Rows (``msgs`` and ``x_base``) are float32 or bfloat16; the kernel loads
+bf16 rows as they are, accumulates in f32 and returns f32 ``out`` and
+``counts`` either way, as the JAX node layout gives an f32 mean of bf16
+rows under bf16 compute.  ``msgs`` and ``x_base`` share one dtype.
+
+Bound on the H100: bytes.  It reads ``E*F*b + E*4 + m*F*b`` bytes (``b`` = 4
+for f32 rows, 2 for bf16) and writes ``S*F*4 + S*4``, with about one add per
+message element.  The kernel reads
 each message once, walks contiguous edge ranges from CSR row pointers with
 16-byte loads, and writes each output row once, with no atomics.  A
 :class:`SegmentPlan` carries the row pointers, built once per graph; a call
@@ -20,8 +26,8 @@ without them builds them from the ids (``torch.searchsorted``).
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
 launches the kernel or raises.  Either way the result carries gradients
 through one ``torch.autograd.Function`` whose backward is plain PyTorch (a
-gather and a sum, as the JAX package's XLA backward); padding edges get a
-zero gradient.
+gather and a sum, as the JAX package's XLA backward), each gradient in its
+primal's dtype; padding edges get a zero gradient.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from analysisgnn_tpu_torch.kernels import launch
 from analysisgnn_tpu_torch.kernels.segment_ops import dummy_row_ids, segment_count, segment_sum
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# segment_mean_base_launch: msgs, row_ptr, x_base, out, counts, S, m, F, vec, stream
+# segment_mean_base_launch / segment_mean_base_bf16_launch: msgs, row_ptr, x_base, out, counts, S, m, F, vec, stream
 _ARGTYPES = [_P] * 5 + [_I64, _I64, _I32, _I32, _P]
+_SYMBOLS = {torch.float32: "segment_mean_base_launch", torch.bfloat16: "segment_mean_base_bf16_launch"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,16 +97,17 @@ def aggregate(plan: SegmentPlan, rows: torch.Tensor, x_base: torch.Tensor) -> to
 def segment_mean_base_plain(
     msgs: torch.Tensor, seg_sorted: torch.Tensor, x_base: torch.Tensor, num_segments: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the kernel (``index_add_`` sums and counts)."""
+    """The plain PyTorch version of the kernel (``index_add_`` sums and counts,
+    in f32 whatever the rows' dtype)."""
     counts = segment_count(seg_sorted, num_segments)
-    sums = segment_sum(msgs, seg_sorted, num_segments)
-    base = x_base.repeat(num_segments // x_base.shape[0], 1)
+    sums = segment_sum(msgs.float(), seg_sorted, num_segments)
+    base = x_base.float().repeat(num_segments // x_base.shape[0], 1)
     return (base + sums) / counts.clamp_min(1.0)[:, None], counts
 
 
 def _check(msgs, seg_sorted, x_base, num_segments, row_ptr) -> None:
-    if msgs.dtype != torch.float32 or x_base.dtype != torch.float32:
-        raise TypeError(f"msgs and x_base must be float32, got {msgs.dtype} and {x_base.dtype}")
+    if msgs.dtype not in _SYMBOLS or x_base.dtype != msgs.dtype:
+        raise TypeError(f"msgs and x_base must be both float32 or both bfloat16, got {msgs.dtype} and {x_base.dtype}")
     if seg_sorted.dtype != torch.int32:
         raise TypeError(f"seg_sorted must be int32, got {seg_sorted.dtype}")
     if msgs.dim() != 2 or x_base.dim() != 2 or seg_sorted.dim() != 1:
@@ -125,11 +133,15 @@ def _launch(msgs, seg_sorted, x_base, num_segments, row_ptr):
         row_ptr = row_pointers(seg_sorted, num_segments)
     out = torch.empty((num_segments, f), dtype=torch.float32, device=msgs.device)
     counts = torch.empty(num_segments, dtype=torch.float32, device=msgs.device)
-    vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, x_base, out))
-    fn = launch.bind("segment_mean_base", "segment_mean_base_launch", _ARGTYPES)
+    group = 4 * msgs.element_size()  # the bytes of the kernel's 4-element loads
+    vec = f % 4 == 0 and all(t.data_ptr() % group == 0 for t in (msgs, x_base)) and out.data_ptr() % 16 == 0
+    fn = launch.bind("segment_mean_base", _SYMBOLS[msgs.dtype], _ARGTYPES)
     launch.launch(fn, msgs.get_device(), msgs.data_ptr(), row_ptr.data_ptr(), x_base.data_ptr(), out.data_ptr(),
                   counts.data_ptr(), num_segments, x_base.shape[0], f, int(vec))
-    segment_mean_base.launches += 1
+    if msgs.dtype == torch.bfloat16:
+        segment_mean_base.bf16_launches += 1
+    else:
+        segment_mean_base.launches += 1
     return out, counts
 
 
@@ -142,6 +154,7 @@ class _SegmentMeanBase(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, msgs, seg_sorted, x_base, num_segments, row_ptr):
+        ctx.dtype = msgs.dtype
         if msgs.device.type == "cpu":
             out, counts = segment_mean_base_plain(msgs, seg_sorted, x_base, num_segments)
         else:
@@ -159,9 +172,9 @@ class _SegmentMeanBase(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             # a zero row past the end takes every padding edge (ids past the end or negative)
             padded = torch.cat([gd, gd.new_zeros((1, gd.shape[1]))])
-            d_msgs = padded[dummy_row_ids(seg, ctx.num_segments)]
+            d_msgs = padded[dummy_row_ids(seg, ctx.num_segments)].to(ctx.dtype)
         if ctx.needs_input_grad[2]:
-            d_base = gd.view(-1, ctx.base_rows, gd.shape[1]).sum(0)
+            d_base = gd.view(-1, ctx.base_rows, gd.shape[1]).sum(0).to(ctx.dtype)
         return d_msgs, None, d_base, None, None
 
 
@@ -173,7 +186,8 @@ def segment_mean_base(
     docstring.  ``row_ptr``, ``row_pointers(seg_sorted, num_segments)`` when
     given (a :class:`SegmentPlan`'s), spares the kernel's call building them.
     Differentiable in ``msgs`` and ``x_base`` on both devices.
-    ``segment_mean_base.launches`` counts kernel launches."""
+    ``segment_mean_base.launches`` counts the launches on f32 rows,
+    ``segment_mean_base.bf16_launches`` those on bf16 rows."""
     _check(msgs, seg_sorted, x_base, num_segments, row_ptr)
     if msgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"segment_mean_base runs on cpu or cuda tensors, got {msgs.device}")
@@ -181,3 +195,4 @@ def segment_mean_base(
 
 
 segment_mean_base.launches = 0
+segment_mean_base.bf16_launches = 0

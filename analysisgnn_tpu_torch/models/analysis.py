@@ -1,14 +1,16 @@
 """The multi-task score-analysis model (counterpart of
 ``analysisgnn_tpu/models/analysis.py::AnalysisGNN`` with the HybridGNN,
 HybridHGT or MetricalGNN encoder, single-Linear or deep projections, with or
-without logit fusion, with or without the stacked BiGRU of ``use_rnn``).
+without logit fusion, with or without the stacked BiGRU of ``use_rnn``, with
+or without the edge decoder of the edge-consistency loss).
 
 Pipeline: pitch-spelling (35 -> 64) and key-signature (15 -> 64) embeddings
 concatenated onto the note features; per-node-type projections; the encoder;
 onset pooling (K1 over target-restricted onset edges) concatenated onto the
 embeddings; a projection; with ``use_rnn`` a two-layer bidirectional reset
 GRU over each graph's notes, LayerNorm and a Linear; the fused task heads,
-optionally fused across tasks.
+optionally fused across tasks.  ``decode_edges`` gives the edge decoder's
+per-relation same-label logits (``use_edge_decoder``).
 
 ``encode`` and ``forward`` take the per-type graph ids of a packed batch
 (``HeteroGraph.batch``) as ``batch``, as the JAX ``encode`` takes
@@ -28,8 +30,8 @@ from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType, metadata, resolve_d
 from analysisgnn_tpu_torch.models.conv import sage_plan
 from analysisgnn_tpu_torch.kernels.segment_mean import aggregate
 from analysisgnn_tpu_torch.models.encoders import HybridGNN, HybridHGT, MetricalGNN, run_encoder
-from analysisgnn_tpu_torch.models.heads import TaskHeads
-from analysisgnn_tpu_torch.models.mlp import EncoderProjection, PlainProjection, ProjectionMLP, layer_norm
+from analysisgnn_tpu_torch.models.heads import EdgeDecoder, TaskHeads
+from analysisgnn_tpu_torch.models.mlp import EncoderProjection, Linear, PlainProjection, ProjectionMLP, layer_norm
 from analysisgnn_tpu_torch.models.rnn import StackedBiGRU, segment_starts
 from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
 
@@ -72,6 +74,8 @@ class AnalysisGNN(nn.Module):
         plain_proj: bool = True,
         logit_fusion: bool = False,
         use_rnn: bool = False,
+        hgt_stage_dtype: str = "float32",
+        use_edge_decoder: bool = False,
     ):
         super().__init__()
         encoder_type = encoder_type.lower()
@@ -79,6 +83,10 @@ class AnalysisGNN(nn.Module):
             raise NotImplementedError(f"encoder_type={encoder_type!r} is not ported (supported: {ENCODER_TYPES})")
         if encoder_type == "hgt" and conv_impl != "node":
             raise ValueError(f"conv_impl={conv_impl!r} is a fused-SAGE option; encoder_type='hgt' cannot honor it")
+        if hgt_stage_dtype != "float32" and encoder_type != "hgt":
+            raise ValueError(
+                f"hgt_stage_dtype={hgt_stage_dtype!r} only applies to encoder_type='hgt' (got {encoder_type!r})"
+            )
         self.conv_impl = conv_impl
         self.encoder_type = encoder_type
         self.node_types = tuple(node_types)
@@ -99,7 +107,7 @@ class AnalysisGNN(nn.Module):
             self.encoder = HybridHGT(
                 hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, dropout=dropout,
                 group_mode="emax" if use_pallas else hgt_group_mode, use_pallas=use_pallas,
-                softmax_stab=hgt_softmax_stab,
+                softmax_stab=hgt_softmax_stab, stage_dtype=hgt_stage_dtype,
             )
         elif encoder_type == "metricalgnn":
             self.encoder = MetricalGNN(
@@ -120,7 +128,12 @@ class AnalysisGNN(nn.Module):
         if use_rnn:
             self.rnn = StackedBiGRU(out_channels, out_channels, num_layers=2)
             self.rnn_norm = layer_norm(2 * out_channels)
-            self.rnn_proj = nn.Linear(2 * out_channels, out_channels)
+            self.rnn_proj = Linear(2 * out_channels, out_channels)
+        self.use_edge_decoder = use_edge_decoder
+        if use_edge_decoder:
+            # the note-to-note relation names, sorted, as the JAX model builds them
+            relations = sorted({et[1] for et in self.edge_types if et[0] == NOTE and et[2] == NOTE})
+            self.edge_decoder = EdgeDecoder(out_channels, relations, dropout)
 
     def encode(
         self,
@@ -165,6 +178,16 @@ class AnalysisGNN(nn.Module):
     def classify(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.heads(x)
 
+    def decode_edges(
+        self,
+        x: torch.Tensor,
+        edge_index_dict: Mapping[EdgeType, torch.Tensor],
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[EdgeType, torch.Tensor]:
+        """Per-relation same-label edge logits ``[E, 2]`` of the edge decoder."""
+        return self.edge_decoder(edge_index_dict, x, deterministic, generator)
+
     def forward(
         self,
         x_dict: Mapping[str, torch.Tensor],
@@ -203,6 +226,7 @@ _SUPPORTED = {
     "hgt_group_mode": ("pair", "emax"),
     "hgt_softmax_stab": ("global", "segment"),
     "use_pallas": (False, True),
+    "hgt_stage_dtype": ("float32", "bfloat16"),
 }
 
 
@@ -213,15 +237,12 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
     read as the JAX predict CLI reads them (``analysisgnn_tpu/cli/
     predict.py::load_model_and_params``): a config without ``final_norm``
     or ``plain_proj`` predates them and means the raw final conv and the
-    deep projections."""
+    deep projections.  ``use_edge_decoder`` is no key of a saved config: the
+    Trainer adds it for the edge-consistency loss, as the JAX Trainer builds
+    its model with ``use_edge_decoder=use_edge_loss``."""
     for key, allowed in _SUPPORTED.items():
         if key in cfg and cfg[key] not in allowed:
             raise NotImplementedError(f"model_config {key}={cfg[key]!r} is not ported (supported: {allowed})")
-    if cfg.get("hgt_stage_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"model_config hgt_stage_dtype={cfg['hgt_stage_dtype']!r} is not ported yet: bf16 staging feeds K2 bf16 "
-            "inputs and comes in a later slice with StepConfig's bf16 compute (ROADMAP queue 1 item 7.3)"
-        )
     encoder_type = cfg.get("model", "HybridGNN").lower()
     nodes, edges = metadata(cfg.get("add_beats", False), cfg.get("add_measures", False))
     with torch.device(resolve_device(device)):
@@ -244,6 +265,8 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
             plain_proj=cfg.get("plain_proj", False),
             logit_fusion=cfg.get("logit_fusion", False),
             use_rnn=cfg.get("use_rnn", False),
+            hgt_stage_dtype=cfg.get("hgt_stage_dtype", "float32"),
+            use_edge_decoder=cfg.get("use_edge_decoder", False),
         )
 
 

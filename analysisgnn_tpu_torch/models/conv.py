@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan, aggregate, plan_segments, spread_rows
+from analysisgnn_tpu_torch.models.mlp import Linear
 
 
 def sage_plan(edge_index: torch.Tensor, n_src: int, n_dst: int) -> SegmentPlan:
@@ -30,8 +31,8 @@ class SageConv(nn.Module):
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
-        self.neigh = nn.Linear(in_features, in_features)
-        self.out = nn.Linear(2 * in_features, out_features)
+        self.neigh = Linear(in_features, in_features)
+        self.out = Linear(2 * in_features, out_features)
 
     def forward(self, x_src: torch.Tensor, x_dst: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
         h = self.neigh(x_dst)

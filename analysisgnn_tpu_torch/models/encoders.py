@@ -25,23 +25,13 @@ from analysisgnn_tpu_torch.kernels.segment_ops import segment_max
 from analysisgnn_tpu_torch.kernels.softmax_agg import SoftmaxAggPlan, plan_softmax_agg, segment_softmax_agg
 from analysisgnn_tpu_torch.models.fused import PADDING_ROWS
 from analysisgnn_tpu_torch.models.hetero import HeteroConv, plan_hetero, present_relations
+from analysisgnn_tpu_torch.models.mlp import Linear, LayerNorm, dropout, promote
 from analysisgnn_tpu_torch.models.rnn import AssocBiGRU, BiResetGRU, LayerAttentionJK, segment_starts
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """Row-wise L2 normalization (``F.normalize`` semantics)."""
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(eps)
-
-
-def dropout(x: torch.Tensor, rate: float, deterministic: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout as flax ``nn.Dropout``: keep with probability
-    ``1 - rate`` and scale by ``1 / (1 - rate)``; the identity when
-    ``deterministic`` or ``rate == 0``.  The mask is drawn from ``generator``
-    (a generator on ``x``'s device; the default one when ``None``)."""
-    if deterministic or rate == 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class HybridGNN(nn.Module):
@@ -275,9 +265,12 @@ def hgt_groups(edge_types: Sequence[EdgeType], group_mode: str) -> Dict[str, Tup
     return {name: tuple(ets) for name, ets in groups.items()}
 
 
+STAGE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 class HGTLayer(nn.Module):
     """Heterogeneous Graph Transformer layer, relation-batched (the JAX
-    ``HGTLayer`` in float32).
+    ``HGTLayer``).
 
     Per node type one fused ``qkv_{t}`` Linear; q and (k | v) rows live in a
     union node space (all node types concatenated).  Per relation stack, the
@@ -297,6 +290,12 @@ class HGTLayer(nn.Module):
     layer embeds the same ``[H, D, D]`` blocks in a block-diagonal matrix (a
     TPU layout device, H times the operations), which gives the same values
     up to the order of f32 sums.
+
+    ``stage_dtype="bfloat16"`` stages the fused qkv output and the typed
+    transforms ``watt``, ``wmsg`` and ``prior`` in bfloat16, so the gathers,
+    the transforms and the logits run in bf16; the logits and messages are
+    cast back to float32 before the softmax and the weighted sum (K2 or its
+    plain version), as in the JAX layer, whatever the staging.
     """
 
     def __init__(
@@ -309,8 +308,12 @@ class HGTLayer(nn.Module):
         group_mode: str = "pair",
         use_pallas: bool = False,
         softmax_stab: str = "global",
+        stage_dtype: str = "float32",
     ):
         super().__init__()
+        if stage_dtype not in STAGE_DTYPES:
+            raise ValueError(f"stage_dtype must be one of {tuple(STAGE_DTYPES)}, got {stage_dtype!r}")
+        self.stage = STAGE_DTYPES[stage_dtype]
         if group_mode not in GROUP_MODES:
             raise ValueError(f"group_mode must be one of {GROUP_MODES}, got {group_mode!r}")
         if softmax_stab not in SOFTMAX_STABS:
@@ -323,14 +326,14 @@ class HGTLayer(nn.Module):
         self.use_pallas, self.softmax_stab = use_pallas, softmax_stab
         self.groups = hgt_groups(edge_types, group_mode)
         d = hidden // heads
-        self.qkv = nn.ModuleDict({t: nn.Linear(in_features, 3 * hidden) for t in node_types})
+        self.qkv = nn.ModuleDict({t: Linear(in_features, 3 * hidden) for t in node_types})
         per_stack = lambda make: nn.ParameterDict({g: nn.Parameter(make(len(r))) for g, r in self.groups.items()})
         self.watt = per_stack(lambda r: torch.empty(r, heads, d, d))
         self.wmsg = per_stack(lambda r: torch.empty(r, heads, d, d))
         self.prior = per_stack(lambda r: torch.ones(r, heads))
         aggregating = [t for t in node_types if any(et[0] == t for r in self.groups.values() for et in r)]
-        self.out = nn.ModuleDict({t: nn.Linear(hidden, hidden) for t in aggregating})
-        self.res = nn.ModuleDict({t: nn.Linear(in_features, hidden) for t in aggregating if in_features != hidden})
+        self.out = nn.ModuleDict({t: Linear(hidden, hidden) for t in aggregating})
+        self.res = nn.ModuleDict({t: Linear(in_features, hidden) for t in aggregating if in_features != hidden})
         self.skip = nn.ParameterDict({t: nn.Parameter(torch.ones(())) for t in aggregating})
 
     def _edges(self, q_u: torch.Tensor, kv_u: torch.Tensor, group: HGTGroup) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -342,11 +345,14 @@ class HGTLayer(nn.Module):
             )
         r, e, h = group.num_relations, group.e_max, self.heads
         d = self.hidden // h
+        watt, wmsg, prior = self.watt[group.name], self.wmsg[group.name], self.prior[group.name]
+        if self.stage is not None:
+            watt, wmsg, prior = watt.to(self.stage), wmsg.to(self.stage), prior.to(self.stage)
         q_e = q_u.index_select(0, group.q_rows).view(r, e, h, d)
         kv_e = kv_u.index_select(0, group.kv_rows).view(r, e, 2, h, d)
-        k_t = torch.einsum("rehd,rhdf->rehf", kv_e[:, :, 0], self.watt[group.name])
-        msg = torch.einsum("rehd,rhdf->rehf", kv_e[:, :, 1], self.wmsg[group.name])
-        logits = (q_e * k_t).sum(-1) * self.prior[group.name][:, None, :] / math.sqrt(d)
+        k_t = torch.einsum("rehd,rhdf->rehf", *promote(kv_e[:, :, 0], watt))
+        msg = torch.einsum("rehd,rhdf->rehf", *promote(kv_e[:, :, 1], wmsg))
+        logits = (q_e * k_t).sum(-1) * prior[:, None, :] / math.sqrt(d)
         return logits.reshape(r * e, h), msg.reshape(r * e, h * d)
 
     def _softmax_sum(self, logits: torch.Tensor, msgs: torch.Tensor, plan: HGTPlan) -> torch.Tensor:
@@ -371,13 +377,16 @@ class HGTLayer(nn.Module):
 
     def forward(self, x_dict: Mapping[str, torch.Tensor], plan: HGTPlan) -> Dict[str, torch.Tensor]:
         qkv = [self.qkv[t](x_dict[t]) for t in plan.node_types]
+        if self.stage is not None:
+            qkv = [v.to(self.stage) for v in qkv]
         q_u = torch.cat([v[:, : self.hidden] for v in qkv])
         kv_u = torch.cat([v[:, self.hidden :] for v in qkv])
         out: Dict[str, torch.Tensor] = {}
         if plan.groups:
             parts = [self._edges(q_u, kv_u, g) for g in plan.groups]
-            logits = torch.cat([p[0] for p in parts])
-            msgs = torch.cat([p[1] for p in parts])
+            # the softmax and the weighted sum run in float32 whatever the staging
+            logits = torch.cat([p[0] for p in parts]).float()
+            msgs = torch.cat([p[1] for p in parts]).float()
             if self.use_pallas:
                 agg_u = segment_softmax_agg(logits, msgs, plan.k2)
             else:
@@ -412,13 +421,14 @@ class HybridHGT(nn.Module):
         group_mode: str = "pair",
         use_pallas: bool = False,
         softmax_stab: str = "global",
+        stage_dtype: str = "float32",
     ):
         super().__init__()
         self.dropout = dropout
         self.edge_types = tuple(edge_types)
         self.group_mode = group_mode
         self.layers = nn.ModuleList(
-            HGTLayer(hidden, hidden, node_types, edge_types, heads, group_mode, use_pallas, softmax_stab)
+            HGTLayer(hidden, hidden, node_types, edge_types, heads, group_mode, use_pallas, softmax_stab, stage_dtype)
             for _ in range(num_layers)
         )
         self.jk = LayerAttentionJK(hidden, num_layers) if use_jk else None
@@ -509,10 +519,10 @@ class MetricalConv(nn.Module):
         if seq_impl not in SEQ_IMPLS:
             raise ValueError(f"seq_impl must be one of {SEQ_IMPLS}, got {seq_impl!r}")
         self.dropout = dropout
-        self.neigh = nn.Linear(features, features)
+        self.neigh = Linear(features, features)
         self.seq = (AssocBiGRU if seq_impl == "assoc" else BiResetGRU)(features, features)
-        self.out = nn.Linear(4 * features, out)
-        self.norm_0 = nn.LayerNorm(out, eps=LN_EPS)
+        self.out = Linear(4 * features, out)
+        self.norm_0 = LayerNorm(out, eps=LN_EPS)
 
     def forward(
         self,
@@ -573,12 +583,12 @@ class MetricalGNN(nn.Module):
             HeteroConv(widths[i], hidden, (NOTE,), self.note_edge_types, conv_impl) for i in range(num_layers)
         )
         for t in self.metrical:
-            self.add_module(f"emb_{t}s", nn.Linear(widths[0], hidden))
+            self.add_module(f"emb_{t}s", Linear(widths[0], hidden))
         for i in range(1, num_layers):
             for t in self.metrical:
                 self.add_module(f"{t}_conv_{i}", MetricalConv(hidden, hidden, dropout, seq_impl))
             if self.metrical:
-                self.add_module(f"project_metrical_{i}", nn.Linear((1 + len(self.metrical)) * hidden, hidden))
+                self.add_module(f"project_metrical_{i}", Linear((1 + len(self.metrical)) * hidden, hidden))
         self.jk = LayerAttentionJK(hidden, num_layers) if use_jk else None
         self.final = HeteroConv(widths[-1], hidden, (NOTE,), self.note_edge_types, conv_impl)
 

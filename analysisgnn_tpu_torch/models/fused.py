@@ -39,6 +39,7 @@ from torch import nn
 from analysisgnn_tpu_torch.kernels.relmm import relation_weighted_matmul
 from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan, aggregate, plan_segments, spread_rows
 from analysisgnn_tpu_torch.kernels.segment_ops import segment_count
+from analysisgnn_tpu_torch.models.mlp import promote
 
 CONV_IMPLS = ("node", "edge", "edge-zxp")
 
@@ -137,13 +138,17 @@ class FusedHeteroSage(nn.Module):
             return self._edge_forward(x, plan)
         n, f = x.shape
         t = self.w_neigh.shape[0]
-        h = torch.einsum("nf,tfg->tng", x, self.w_neigh) + self.b_neigh  # [T, N, F]
-        agg = aggregate(plan, h.reshape(t * n, f), x).reshape(t, n, f)
+        h = torch.einsum("nf,tfg->tng", *promote(x, self.w_neigh)) + self.b_neigh  # [T, N, F]
+        agg = aggregate(plan, h.reshape(t * n, f), x).reshape(t, n, f)  # float32 (K1 accumulates in f32)
         if self.reduce == "sum":
-            return x @ self.w_self.sum(0) + torch.einsum("tnf,tfg->ng", agg, self.w_agg) + self.b_out.sum(0)
+            return (
+                torch.matmul(*promote(x, self.w_self.sum(0)))
+                + torch.einsum("tnf,tfg->ng", *promote(agg, self.w_agg))
+                + self.b_out.sum(0)
+            )
         return (
-            torch.einsum("nf,tfg->tng", x, self.w_self)
-            + torch.einsum("tnf,tfg->tng", agg, self.w_agg)
+            torch.einsum("nf,tfg->tng", *promote(x, self.w_self))
+            + torch.einsum("tnf,tfg->tng", *promote(agg, self.w_agg))
             + self.b_out
         )
 
@@ -153,12 +158,12 @@ class FusedHeteroSage(nn.Module):
         g = self.w_agg.shape[2]
         w_na = torch.bmm(self.w_neigh, self.w_agg)  # [T, F, G], tiny
         x_e = x.index_select(0, plan.dst).reshape(t, e_max, f)
-        y_e = torch.bmm(x_e, w_na) * plan.alpha_e[..., None]  # [T, E_max, G]
+        y_e = torch.bmm(*promote(x_e, w_na)) * plan.alpha_e[..., None]  # [T, E_max, G], float32 at least
         z_msg = y_e.new_zeros((n + PADDING_ROWS, g)).index_add_(0, plan.src, y_e.reshape(t * e_max, g))[:n]
         if self.impl == "edge-zxp":
             z_x = relation_weighted_matmul(x, self.w_agg, plan.inv_c)
         else:
-            z_x = torch.einsum("tn,nf,tfg->ng", plan.inv_c, x, self.w_agg)
+            z_x = torch.einsum("tn,nf,tfg->ng", *promote(plan.inv_c, x, self.w_agg))
         bw = torch.bmm(self.b_neigh, self.w_agg)[:, 0, :]  # [T, G]
-        z_b = plan.has_edge.t() @ bw
-        return x @ self.w_self.sum(0) + z_msg + z_x + z_b + self.b_out.sum(0)
+        z_b = torch.matmul(*promote(plan.has_edge.t(), bw))
+        return torch.matmul(*promote(x, self.w_self.sum(0))) + z_msg + z_x + z_b + self.b_out.sum(0)

@@ -1,16 +1,18 @@
-"""Per-task classification heads and cross-task logit fusion (counterpart of
-``analysisgnn_tpu/models/heads.py``: ``FusedTaskHeads``,
-``CrossTaskTransformer`` and ``TaskHeads``)."""
+"""Per-task classification heads, cross-task logit fusion and the edge
+decoder (counterpart of ``analysisgnn_tpu/models/heads.py``:
+``FusedTaskHeads``, ``CrossTaskTransformer``, ``TaskHeads`` and
+``EdgeDecoder``)."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from analysisgnn_tpu_torch.models.mlp import LN_EPS, layer_norm
+from analysisgnn_tpu_torch.core.graph import EdgeType
+from analysisgnn_tpu_torch.models.mlp import LN_EPS, Linear, dropout, layer_norm, promote
 
 # heads of the cross-task attention (flax CrossTaskTransformer's default)
 XTASK_HEADS = 4
@@ -34,11 +36,11 @@ class FusedTaskHeads(nn.Module):
         self.b2 = nn.Parameter(torch.zeros(t, 1, c_max))
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        z = torch.relu(torch.einsum("nf,tfh->tnh", x, self.w1) + self.b1)
+        z = torch.relu(torch.einsum("nf,tfh->tnh", *promote(x, self.w1)) + self.b1)
         mean = z.mean(-1, keepdim=True)
         var = ((z - mean) ** 2).mean(-1, keepdim=True)
         z = (z - mean) * torch.rsqrt(var + LN_EPS) * self.ln_scale + self.ln_bias
-        logits = torch.einsum("tnh,thc->tnc", z, self.w2) + self.b2
+        logits = torch.einsum("tnh,thc->tnc", *promote(z, self.w2)) + self.b2
         return {task: logits[i, :, :n_cls] for i, (task, n_cls) in enumerate(self.task_dict)}
 
 
@@ -53,10 +55,10 @@ class CrossTaskTransformer(nn.Module):
     def __init__(self, proj_dim: int, num_heads: int = XTASK_HEADS):
         super().__init__()
         self.num_heads = num_heads
-        self.query = nn.Linear(proj_dim, proj_dim)
-        self.key = nn.Linear(proj_dim, proj_dim)
-        self.value = nn.Linear(proj_dim, proj_dim)
-        self.out = nn.Linear(proj_dim, proj_dim)
+        self.query = Linear(proj_dim, proj_dim)
+        self.key = Linear(proj_dim, proj_dim)
+        self.value = Linear(proj_dim, proj_dim)
+        self.out = Linear(proj_dim, proj_dim)
         self.norm = layer_norm(proj_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -64,8 +66,8 @@ class CrossTaskTransformer(nn.Module):
         split = lambda y: y.reshape(n, t, self.num_heads, f // self.num_heads)
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
         q = q / math.sqrt(q.shape[-1])
-        w = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", q, k), dim=-1)
-        attended = self.out(torch.einsum("nhqk,nkhd->nqhd", w, v).reshape(n, t, f))
+        w = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", *promote(q, k)), dim=-1)
+        attended = self.out(torch.einsum("nhqk,nkhd->nqhd", *promote(w, v)).reshape(n, t, f))
         return self.norm(x + attended)
 
 
@@ -83,10 +85,10 @@ class TaskHeads(nn.Module):
         self.logit_fusion = logit_fusion
         self.clf = FusedTaskHeads(task_dict, out_channels, half)
         if logit_fusion:
-            self.proj = nn.ModuleDict({task: nn.Linear(n_cls, half) for task, n_cls in self.task_dict})
+            self.proj = nn.ModuleDict({task: Linear(n_cls, half) for task, n_cls in self.task_dict})
             self.projnorm = nn.ModuleDict({task: layer_norm(half) for task, _ in self.task_dict})
             self.xtask = CrossTaskTransformer(half)
-            self.fusion = nn.ModuleDict({task: nn.Linear(half, n_cls) for task, n_cls in self.task_dict})
+            self.fusion = nn.ModuleDict({task: Linear(half, n_cls) for task, n_cls in self.task_dict})
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         raw = self.clf(x)
@@ -97,3 +99,45 @@ class TaskHeads(nn.Module):
         )
         enhanced = self.xtask(stack)  # [N, T, half]
         return {task: self.fusion[task](enhanced[:, i]) for i, (task, _) in enumerate(self.task_dict)}
+
+
+class EdgeDecoder(nn.Module):
+    """Binary same-label edge classifier of the edge-consistency loss (the
+    JAX ``EdgeDecoder``): per relation an embedding of each endpoint
+    (``embed_dense[rel]`` -> ReLU -> ``embed_norm[rel]`` -> dropout), their
+    elementwise product, then the shared ``fc`` (``fc_dense1`` -> ReLU ->
+    ``fc_norm`` -> ``fc_dense2``, 2 classes).  Endpoint ids are clamped into
+    the node set, so padding edges read the last row (the loss masks them);
+    relations the decoder was not built for are skipped."""
+
+    def __init__(self, channels: int, relations: Sequence[str], dropout: float = 0.0):
+        super().__init__()
+        self.relations = tuple(relations)
+        self.rate = dropout
+        self.embed_dense = nn.ModuleDict({rel: Linear(channels, channels) for rel in self.relations})
+        self.embed_norm = nn.ModuleDict({rel: layer_norm(channels) for rel in self.relations})
+        self.fc_dense1 = Linear(channels, channels)
+        self.fc_norm = layer_norm(channels)
+        self.fc_dense2 = Linear(channels, 2)
+
+    def forward(
+        self,
+        edge_index_dict: Mapping[EdgeType, torch.Tensor],
+        x: torch.Tensor,
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[EdgeType, torch.Tensor]:
+        def embed(rel: str, h: torch.Tensor) -> torch.Tensor:
+            h = self.embed_norm[rel](torch.relu(self.embed_dense[rel](h)))
+            return dropout(h, self.rate, deterministic, generator)
+
+        n = x.shape[0]
+        out: Dict[EdgeType, torch.Tensor] = {}
+        for et, ei in edge_index_dict.items():
+            rel = et[1]
+            if rel not in self.relations:
+                continue
+            src = embed(rel, x[ei[0].clamp(max=n - 1)])
+            dst = embed(rel, x[ei[1].clamp(max=n - 1)])
+            out[et] = self.fc_dense2(self.fc_norm(torch.relu(self.fc_dense1(src * dst))))
+        return out

@@ -30,6 +30,7 @@ from analysisgnn_tpu_torch.core.graph import EdgeType, edge_type_key
 from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan
 from analysisgnn_tpu_torch.models.conv import SageConv, sage_plan
 from analysisgnn_tpu_torch.models.fused import EdgePlan, FusedHeteroSage, edge_plan, fused_plan
+from analysisgnn_tpu_torch.models.mlp import Linear
 
 
 def fusion_groups(edge_types: Sequence[EdgeType]) -> Tuple[Dict[str, List[EdgeType]], List[EdgeType]]:
@@ -99,7 +100,7 @@ class HeteroConv(nn.Module):
         })
         self.convs = nn.ModuleDict({edge_type_key(et): SageConv(in_features, out_features) for et in self.singles})
         sources = set(self.groups) | {et[0] for et in self.singles}
-        self.selfs = nn.ModuleDict({t: nn.Linear(in_features, out_features) for t in node_types if t not in sources})
+        self.selfs = nn.ModuleDict({t: Linear(in_features, out_features) for t in node_types if t not in sources})
 
     def forward(self, x_dict: Dict[str, torch.Tensor], plans: Mapping[object, object]) -> Dict[str, torch.Tensor]:
         contributions: Dict[str, list] = {t: [] for t in x_dict}

@@ -29,6 +29,8 @@ import torch
 from torch import nn
 from torch.nn.utils.rnn import pack_sequence, pad_packed_sequence
 
+from analysisgnn_tpu_torch.models.mlp import Linear, promote
+
 
 def _zero_rz(features: int, grad: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(grad[: 2 * features]), grad[2 * features :]])
@@ -83,11 +85,19 @@ def _reversed_within_segments(lengths: Sequence[int], device) -> torch.Tensor:
 def _run_packed(rnn: nn.GRU, xs: torch.Tensor, lengths: Sequence[int]) -> torch.Tensor:
     """``rnn`` over each segment of ``xs`` from a zero state, packed into one
     call; the outputs back in ``xs``'s row order.  f32 throughout: TF32 is
-    off for the call (cuDNN would take it for f32 RNNs by default)."""
+    off for the call (cuDNN would take it for f32 RNNs by default).  Input
+    and weights meet in their promoted dtype, as in flax's ``GRUCell``: the
+    bfloat16 weights of the bf16 compute read a float32 input in float32."""
+    weights = rnn._flat_weights
+    xs, *cast = promote(xs, *weights)
     packed = pack_sequence(list(xs.split(list(lengths))), enforce_sorted=False)
     b = torch.backends.cudnn
     with b.flags(enabled=b.enabled, benchmark=b.benchmark, deterministic=b.deterministic, allow_tf32=False):
-        out, _ = rnn(packed)
+        rnn._flat_weights = cast
+        try:
+            out, _ = rnn(packed)
+        finally:
+            rnn._flat_weights = weights
     padded, lens = pad_packed_sequence(out, batch_first=True)  # [B, L_max, D], segments in input order
     keep = torch.arange(padded.shape[1])[None, :] < lens[:, None]
     return padded[keep.to(padded.device)]
@@ -152,7 +162,7 @@ class AssocResetGRU(nn.Module):
         super().__init__()
         self.features = features
         self.reverse = reverse
-        self.gates = nn.Linear(in_features, 2 * features)
+        self.gates = Linear(in_features, 2 * features)
 
     def coefficients(self, xs: torch.Tensor, starts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(keep, b)`` of the recurrence in scan order (flipped when
@@ -201,7 +211,7 @@ class StackedBiGRU(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer_{i}", BiResetGRU(in_features if i == 0 else features, features))
             if i < num_layers - 1:
-                self.add_module(f"proj_{i}", nn.Linear(2 * features, features))
+                self.add_module(f"proj_{i}", Linear(2 * features, features))
 
     def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
         h = xs
@@ -218,8 +228,8 @@ class LSTMCell(nn.Module):
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
-        self.ih = nn.Linear(in_features, 4 * features, bias=False)
-        self.hh = nn.Linear(features, 4 * features)
+        self.ih = Linear(in_features, 4 * features, bias=False)
+        self.hh = Linear(features, 4 * features)
 
     def forward(self, c: torch.Tensor, h: torch.Tensor, x: torch.Tensor):
         i, f, g, o = (self.hh(h) + self.ih(x)).chunk(4, dim=-1)
@@ -237,14 +247,15 @@ class LayerAttentionJK(nn.Module):
         feats = max((num_layers * hidden) // 2, 1)
         self.fwd = LSTMCell(hidden, feats)
         self.bwd = LSTMCell(hidden, feats)
-        self.attn = nn.Linear(2 * feats, 1)
+        self.attn = Linear(2 * feats, 1)
 
     @staticmethod
     def _run(cell: LSTMCell, steps: Sequence[torch.Tensor]):
         n = steps[0].shape[0]
         feats = cell.hh.in_features
-        c = steps[0].new_zeros((n, feats))
-        h = steps[0].new_zeros((n, feats))
+        # flax's zero carry is float32 whatever the input's dtype
+        c = steps[0].new_zeros((n, feats), dtype=torch.float32)
+        h = steps[0].new_zeros((n, feats), dtype=torch.float32)
         ys = []
         for x in steps:
             c, h = cell(c, h, x)

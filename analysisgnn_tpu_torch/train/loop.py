@@ -8,7 +8,10 @@ over the tasks seen so far and, with ``use_ewc``, the EWC anchor is taken and
 the fisher filled from one validation batch of every seen task), note-weighted
 validation after every epoch, best/last/``{task}_model`` checkpoints,
 stochastic weight averaging, the periodic test-split curve, and the test-split
-evaluation.  FAMO (``mt_strategy="famo"``) weighs the tasks in either mode.
+evaluation.  FAMO (``mt_strategy="famo"``) weighs the tasks in either mode;
+``use_edge_loss`` adds the edge-consistency term (the model then has the edge
+decoder), ``use_smote`` oversamples single-task cadence training, and
+``hgt_stage_dtype="bfloat16"`` stages the HGT layers' attention in bf16.
 
 ``torch.save`` replaces Orbax: ``<checkpoint_dir>/<tag>.pt`` is the model's
 state dict (what ``cli/predict.py::load_model`` reads), and ``full.pt`` holds
@@ -16,9 +19,9 @@ the whole training state (parameters, ``mt_params``, both Adam moments with
 their count, the step, the dropout generator, the teacher, the EWC fisher
 and means, and FAMO's state) for ``resume``.
 
-Not ported yet, and refused: SMOTE, the edge-consistency loss, bf16 staging
-and W&B logging (ROADMAP queue 1 item 7.3); ``remat``, ``final_dropout`` and
-the Dense-only torch-style init (item 11).
+Not ported, and refused: W&B logging (ROADMAP queue 1 item 7.3: it needs the
+network); ``remat``, ``final_dropout`` and the Dense-only torch-style init
+(item 11).
 """
 
 from __future__ import annotations
@@ -100,6 +103,7 @@ class TrainConfig:
     lambda_ewc: float = 2.0
     use_ewc: bool = False
     use_edge_loss: bool = False
+    lambda_edge: float = 0.1
     use_smote: bool = False
     use_swa: bool = False  # stochastic weight averaging over the tail of training
     swa_start_frac: float = 0.75  # fraction of the epochs before averaging starts
@@ -126,16 +130,13 @@ class TrainConfig:
     device: str = "cuda"  # the GPU unless the caller asks for the CPU
 
 
-_ITEM7 = "is not ported yet (ROADMAP queue 1 item 7.3)"
+_ITEM7 = "is not ported (ROADMAP queue 1 item 7.3: W&B needs the network)"
 _ITEM11 = "is not ported yet: it comes with the remaining HybridGNN knobs (ROADMAP queue 1 item 11)"
 _SERVE_ONLY = "is not ported for training yet: the port serves such checkpoints (ROADMAP queue 1 item 11)"
 
 
 def _refuse(cfg: TrainConfig) -> None:
     refused = {
-        "use_smote": (cfg.use_smote, _ITEM7),
-        "use_edge_loss": (cfg.use_edge_loss, _ITEM7),
-        f"hgt_stage_dtype={cfg.hgt_stage_dtype!r} (bf16 staging)": (cfg.hgt_stage_dtype != "float32", _ITEM7),
         "use_wandb": (cfg.use_wandb, _ITEM7),
         "remat": (cfg.remat, _ITEM11),
         "final_dropout": (cfg.final_dropout, _ITEM11),
@@ -166,7 +167,9 @@ class Trainer:
             "hgt_softmax_stab": config.hgt_softmax_stab, "hgt_stage_dtype": config.hgt_stage_dtype,
             "add_beats": config.add_beats, "add_measures": config.add_measures,
         }
-        self.model = model_from_config(self.model_config, device=self.device)
+        # the edge decoder is the Trainer's addition (no key of model_config.json), as in the JAX Trainer
+        self.model = model_from_config({**self.model_config, "use_edge_decoder": config.use_edge_loss},
+                                       device=self.device)
         self.history: List[Dict] = []
         self.best_val = float("inf")
         # host seconds of each train step call (each step ends in a host sync)
@@ -220,6 +223,9 @@ class Trainer:
                 lambda_featl=cfg.lambda_featl,
                 lambda_ewc=cfg.lambda_ewc,
                 use_ewc=cfg.use_ewc,
+                use_edge_loss=cfg.use_edge_loss,
+                lambda_edge=cfg.lambda_edge,
+                use_smote=cfg.use_smote,
             )
             self._step_cache[key] = (
                 make_train_step(self.model, self.optimizer, sc),

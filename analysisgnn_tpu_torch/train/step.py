@@ -5,23 +5,37 @@ frozen teacher over the previous tasks, the step body with the EWC penalty,
 FAMO's post-step update and the NaN/Inf skip, ``make_train_step``, the K-step
 ``make_train_step_multi`` as a plain loop over a list of batches
 (``stack_batches``), ``make_eval_step`` and ``make_test_step`` with their
-``__w`` weight keys, and ``make_fisher_step`` for EWC's replay).
+``__w`` weight keys, and ``make_fisher_step`` for EWC's replay), with the
+edge-consistency loss (``use_edge_loss``), SMOTE oversampling of single-task
+cadence training (``use_smote``) and bf16 compute (``compute_dtype``).
 
 The eval and fisher steps take no teacher and no FAMO state: the JAX steps
 compute a memory loss there and throw it away, and their total is the plain
-combiner's.  The edge-consistency loss, SMOTE and bf16 compute are not ported
-(ROADMAP queue 1 item 7.3); a config asking for one of them is refused.
+combiner's.
+
+bf16 compute (``compute_dtype="bfloat16"``) is the JAX step's: at apply time
+every float32 parameter of the model and of the teacher, and the node
+features, are cast to bfloat16 (:func:`cast_parameters`), and every module
+computes in its operands' promoted dtype (``models/mlp.py``).  The casts are
+nodes of autograd's graph, so the gradients reach the float32 master
+parameters, which the optimizer keeps in float32 with its moments.  The
+feature loss is taken on the f32 embeddings.  ``torch.autocast`` is not
+used: its op-by-op dtype policy is not the JAX cast.  The train, eval and
+fisher steps cast; the test step runs in float32, as the JAX test step does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import weakref
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph
+from analysisgnn_tpu_torch.models.analysis import restrict_edges_to_targets
 from analysisgnn_tpu_torch.train.losses import (
     FAMOState,
     distillation_loss,
@@ -40,6 +54,7 @@ from analysisgnn_tpu_torch.train.metrics import (
     nct_rna_accuracy,
     onsetwise_rna_accuracy,
 )
+from analysisgnn_tpu_torch.train.smote import smote_draws, smote_feature_penalty, smote_oversample
 from analysisgnn_tpu_torch.train.state import ClippedAdamW, TrainState, accumulate_fisher
 
 # task -> its extra validity-mask attribute
@@ -50,7 +65,10 @@ TASK_MASK_ATTRS: Dict[str, str] = {
     "section": "valid_section_start_label",
 }
 
-_LATER = "is not ported yet (ROADMAP queue 1 item 7.3)"
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# the RNA labels whose agreement at both endpoints makes an edge "same"
+EDGE_LOSS_RNA_KEYS = ("quality", "inversion", "degree1", "degree2", "localkey")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,19 +82,46 @@ class StepConfig:
     lambda_ewc: float = 2.0
     use_ewc: bool = False
     label_smoothing: float = 0.1
-    use_edge_loss: bool = False  # refused
-    use_smote: bool = False  # refused
-    compute_dtype: str = "float32"  # "bfloat16" refused
+    use_edge_loss: bool = False  # needs a model with the edge decoder
+    lambda_edge: float = 0.1
+    use_smote: bool = False  # single-task cadence training only
+    smote_synthetic: int = 256
+    compute_dtype: str = "float32"  # or "bfloat16": the forward and backward; masters and optimizer stay f32
 
     def __post_init__(self):
-        refused = {
-            "use_edge_loss": self.use_edge_loss,
-            "use_smote": self.use_smote,
-            f"compute_dtype={self.compute_dtype!r}": self.compute_dtype != "float32",
-        }
-        for name, on in refused.items():
-            if on:
-                raise NotImplementedError(f"StepConfig {name} {_LATER}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got {self.compute_dtype!r}")
+
+
+@contextlib.contextmanager
+def cast_parameters(model: Optional[nn.Module], dtype: torch.dtype) -> Iterator[None]:
+    """Inside the block every float32 parameter of ``model`` reads as a
+    ``dtype`` cast of itself (the JAX step's cast of the parameter tree at
+    apply time); the parameters themselves are untouched, and gradients
+    reach them through the casts.  A GRU's flat weight list follows its
+    parameters.  A no-op for float32 or no model."""
+    if model is None or dtype == torch.float32:
+        yield
+        return
+    swapped, rnns = [], []
+    for mod in model.modules():
+        for name, p in mod._parameters.items():
+            if p is not None and p.dtype == torch.float32:
+                swapped.append((mod, name, p))
+                mod._parameters[name] = p.to(dtype)
+        if isinstance(mod, nn.RNNBase):
+            # the casts become the flat weights, with references that tell
+            # RNNBase.forward they are current (it would flatten them again)
+            rnns.append((mod, mod._flat_weights, mod._flat_weight_refs))
+            mod._flat_weights = [getattr(mod, n) for n in mod._flat_weights_names]
+            mod._flat_weight_refs = [weakref.ref(w) for w in mod._flat_weights]
+    try:
+        yield
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p
+        for mod, weights, refs in rnns:
+            mod._flat_weights, mod._flat_weight_refs = weights, refs
 
 
 def _task_weights(batch: HeteroGraph, cfg: StepConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -106,17 +151,34 @@ def compute_losses(
     """Forward and loss assembly: ``(task total, feature loss, memory loss,
     task losses, metrics)``.  The memory loss needs ``teacher`` (else it is
     0); the FAMO surrogate needs ``famo`` (else the total is the plain
-    combiner's)."""
+    combiner's).  SMOTE runs in training only (``deterministic`` False), its
+    draws from ``generator``, as the JAX step draws from its dropout key."""
+    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    with cast_parameters(model, dtype), cast_parameters(teacher, dtype):
+        return _compute_losses(model, mt_params, batch, cfg, deterministic, generator, teacher, famo, dtype)
+
+
+def _compute_losses(model, mt_params, batch, cfg, deterministic, generator, teacher, famo, dtype):
     task_sizes = dict(cfg.task_dict)
     attrs = batch.node_attrs[NOTE]
     base_w, task_w = _task_weights(batch, cfg)
-    args = (batch.node_features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"],
-            batch.num_target_nodes)
+    features = {t: v.to(dtype) if v.dtype == torch.float32 else v for t, v in batch.node_features.items()}
+    args = (features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"], batch.num_target_nodes)
     x = model.encode(*args, deterministic, generator, batch.batch)
     # feature-norm regularizer over the valid target rows
     fw = base_w.float()
     feature_loss = ((x.float() ** 2).sum(-1) * fw).sum() / (fw.sum() * x.shape[-1]).clamp_min(1.0)
     logits = model.classify(x)
+    # SMOTE in embedding space for single-task cadence training: synthetic
+    # minority rows add a CE term, and their distance penalty joins the feature loss
+    smote = None
+    if cfg.use_smote and cfg.active_tasks == ("cadence",) and not deterministic and "cadence" in attrs:
+        n_cls = task_sizes["cadence"]
+        y = torch.where(attrs["cadence"] < n_cls, attrs["cadence"], 0)
+        draws = smote_draws(y, base_w, n_cls, cfg.smote_synthetic, x.shape[1], generator)
+        x_syn, y_syn, w_syn = smote_oversample(x, y, base_w, n_cls, draws)
+        feature_loss = feature_loss + smote_feature_penalty(x_syn, w_syn, x, y, y_syn, base_w)
+        smote = x_syn, y_syn, w_syn
     task_losses: Dict[str, torch.Tensor] = {}
     metrics: Dict[str, torch.Tensor] = {}
     for task in cfg.active_tasks:
@@ -125,6 +187,11 @@ def compute_losses(
         labels = torch.where(labels < n_cls, labels, 0)  # out-of-range labels -> 0
         w = task_w[task]
         task_losses[task] = masked_cross_entropy(logits[task], labels, w, cfg.label_smoothing)
+        if task == "cadence" and smote is not None:
+            x_syn, y_syn, w_syn = smote
+            syn_logits = model.classify(x_syn)["cadence"]
+            task_losses[task] = 0.5 * task_losses[task] + 0.5 * masked_cross_entropy(
+                syn_logits, y_syn, w_syn, cfg.label_smoothing)
         metrics[f"{task}_acc"] = masked_accuracy(logits[task], labels, w)
         metrics[f"{task}_acc__w"] = w.sum().float()
     task_order = tuple(t for t, _ in cfg.task_dict)
@@ -136,7 +203,12 @@ def compute_losses(
     else:
         # the weighted task losses are summed, NOT divided by the task count
         total = multi_task_loss(task_losses, mt_params, task_order, cfg.mt_strategy)
-    memory_loss = x.new_zeros(())
+    if cfg.use_edge_loss and all(k in attrs for k in EDGE_LOSS_RNA_KEYS):
+        edge_loss = _edge_loss(model, x, batch, cfg, deterministic, generator)
+        if edge_loss is not None:
+            total = total + edge_loss
+            metrics["edge_loss"] = edge_loss
+    memory_loss = x.new_zeros((), dtype=torch.float32)
     if teacher is not None and cfg.previous_tasks and cfg.lambda_dctn > 0:
         # the student's heads read the TEACHER's embedding, so the memory
         # loss reaches the heads and never the encoder
@@ -147,6 +219,30 @@ def compute_losses(
             model.classify(x_t), teacher_logits, base_w, cfg.previous_tasks
         )
     return total, feature_loss, memory_loss, task_losses, metrics
+
+
+def _edge_loss(model, x, batch, cfg, deterministic, generator) -> Optional[torch.Tensor]:
+    """The edge-consistency term: on the note-to-note edges between target
+    notes (self loops kept), an edge is "same" when every label of
+    ``EDGE_LOSS_RNA_KEYS`` agrees at its endpoints; ``lambda_edge`` times the
+    mean over the relations of the decoder's label-smoothed CE (None when the
+    graph has no such relation)."""
+    attrs = batch.node_attrs[NOTE]
+    n_cap = x.shape[0]
+    note_note = {
+        et: restrict_edges_to_targets(ei, batch.num_target_nodes, n_cap, drop_self_loops=False)
+        for et, ei in batch.edge_index.items() if et[0] == NOTE and et[2] == NOTE
+    }
+    losses = []
+    for et, logits in model.decode_edges(x, note_note, deterministic, generator).items():
+        ei = note_note[et]
+        valid = (ei[0] < n_cap) & (ei[1] < n_cap)
+        src, dst = ei[0].clamp(max=n_cap - 1), ei[1].clamp(max=n_cap - 1)
+        same = torch.ones_like(valid)
+        for k in EDGE_LOSS_RNA_KEYS:
+            same = same & (attrs[k][src] == attrs[k][dst])
+        losses.append(masked_cross_entropy(logits, same.long(), valid, cfg.label_smoothing))
+    return cfg.lambda_edge * torch.stack(losses).mean() if losses else None
 
 
 def make_train_step(

@@ -43,7 +43,7 @@ Phases, each on its own line with elapsed seconds:
      with conv_impl "edge-zxp" (K3 base term) and "node" (K1), and the same
      step of the MetricalGNN 3 x 256 -> 128 with use_rnn and edge-zxp: ms
      per step, valid message edges per second, K3 and K1 launches per step
-     against the code's prediction, a finite loss that falls over 20 steps
+     against the code's prediction, a finite loss that falls over 8 steps
      on one batch (edge-zxp, HGT); then one step on the GPU against the
      same step on the CPU (plain versions, same weights and batch, dropout
      0; edge-zxp, HGT, MetricalGNN);
@@ -61,7 +61,7 @@ Phases, each on its own line with elapsed seconds:
  11. HGT train: the same train step with the "HGT-emax-pallas" model of
      scripts/bench_encoders.py (HybridHGT 3 x 256 -> 128, 4 heads, K2):
      ms per step, K2 and K1 launches per step against the code's
-     prediction, a loss that falls over 20 steps on one batch, one GPU step
+     prediction, a loss that falls over 8 steps on one batch, one GPU step
      against the CPU step, and one traced step;
  12. K4 and K5 check: segment_sum_sorted (K4, the sum mode of K1's kernel)
      and segment_softmax_sorted (K5, csrc/segment_softmax.cu) against their
@@ -78,8 +78,8 @@ Phases, each on its own line with elapsed seconds:
      launches them;
  13. trainer: the training entry point, analysisgnn_tpu_torch.cli.train.main,
      at full width (HybridGNN 3 x 256 -> 128, JK, final norm) on the demo
-     corpus with --use_metrical --use_pallas --conv_impl edge-zxp, three
-     epochs of 12 steps, validation after each and the test split at the
+     corpus with --use_metrical --use_pallas --conv_impl edge-zxp, one
+     epoch of 12 steps, validation after it and the test split at the
      end: seconds per epoch, median ms per train step, K1 and K3 launches
      against the code's prediction, the log.jsonl keys, finite losses; then
      last.pt served once through cli/predict.py's load_model (a 2,000-note
@@ -90,7 +90,7 @@ Phases, each on its own line with elapsed seconds:
      scripts/parity_experiment.py's recipe at full width (HybridGNN 3 x 256
      -> 128, subgraph 500, batch 80, --main_tasks all --use_transpositions,
      conv_impl node) on a temporary copy of data_synth/ and its split file,
-     three epochs: the corpus build's seconds and its 227 samples per
+     two epochs: the corpus build's seconds and its 227 samples per
      interval (the JAX corpus's list), steps per epoch, median ms per train
      step, K1 launches against the code's prediction, finite losses and
      --do_eval metrics, whether pandas is importable on the host (the port
@@ -101,7 +101,7 @@ Phases, each on its own line with elapsed seconds:
  15. CL trainer: cli.train.main on configs/example_config.json as the file
      stands (continual learning over all, cadence and rna, HybridGNN 3 x
      256 -> 128, conv_impl node, batch 100, transpositions) with --num_epochs
-     3 --max_steps_per_epoch 6 --do_train --do_eval, on the raw-dir phase's
+     3 --max_steps_per_epoch 4 --do_train --do_eval, on the raw-dir phase's
      copy of data_synth/ (all/ read from its .npz cache) with cadence/ and
      rna/ made of its first 8 TSVs (rna/ with the AugmentedNet labels), the
      CLI's 5 sampler threads: each corpus's build seconds, seconds per epoch,
@@ -166,6 +166,23 @@ Phases, each on its own line with elapsed seconds:
      log-depth scan) against BiResetGRU (cuDNN) at a train batch's beat rows
      and F = 256, forward and backward, in turns, with each one's device time
      and launches, and AssocBiGRU on the card against the CPU.
+ 23. bf16 compute (StepConfig compute_dtype="bfloat16", the JAX step's cast
+     of the parameters and node features at apply time): K3's bf16 forward
+     (mma.sync on bf16 operands, f32 accumulation) against its plain
+     version at the bench shape and edge cases, timed beside its bound and
+     a torch.einsum yardstick on the same bf16 operands in turns, and its
+     backward's cotangent dtypes; K1 on bf16 rows at the fused note layer of
+     the 20,000-note request and of a bench batch (phase 3's and 7's
+     shapes), beside its bf16 bytes bound; the bench train step in the node
+     and edge-zxp layouts at bf16 (phase 8's arms node-bf16 and
+     edge-zxp-bf16: launches against the prediction, bf16 forward and K1
+     launches counted apart, ms per step in turns with the f32 arm of the
+     same layout, one traced step, one step against the CPU at a bf16
+     tolerance, a falling loss); and the Trainer with the edge-consistency
+     loss (phase 12's run with --use_edge_loss: its edge decoder trains),
+     the HGT epoch with --hgt_stage_dtype bfloat16 (its last.pt served by
+     cli/predict.py) and a single-task cadence run with --use_smote
+     (--cl_training --main_tasks cadence: SMOTE oversamples every step).
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -199,7 +216,7 @@ K1_RTOL = 1e-5  # kernel vs plain: f32 sums of the same terms in another order
 LOGIT_ATOL = 1e-3  # GPU vs CPU logits of the whole model at full width
 REQUEST_NOTES = (2000, 8000, 20000)
 BUCKET_FACTOR = 1.25
-REPEATS = 3
+REPEATS = 2
 PROFILER_ATTEMPTS = 5  # profiler windows taken before a short one fails (device_ms, trace_forward)
 # K3 kernel vs plain, elementwise, relative to the same contraction of the
 # absolute values (the sum of |terms|, which bounds f32 rounding): sums of
@@ -224,10 +241,29 @@ HGT_CFG = {**TRAIN_CFG, "model": "HGT", "use_pallas": True}
 # and K3's layout
 ARMS = {"edge-zxp": {**TRAIN_CFG, "conv_impl": "edge-zxp"}, "node": {**TRAIN_CFG, "conv_impl": "node"},
         "hgt": HGT_CFG, "metrical": {**TRAIN_CFG, "model": "MetricalGNN", "use_rnn": True, "conv_impl": "edge-zxp"}}
-TIMED_STEPS = {"edge-zxp": 6, "node": 3, "hgt": 4, "metrical": 3}
-FALL_ARMS = ("edge-zxp", "hgt")  # the metrical Trainer runs of phase 22 show its loss falling
-PARITY_ARMS = ("edge-zxp", "hgt", "metrical")  # one step on the GPU against the CPU, and one traced step
-FALL_STEPS = 20
+# bf16 compute (phase 23): the bench step of both HybridGNN layouts with StepConfig compute_dtype="bfloat16"
+ARMS.update({"node-bf16": ARMS["node"], "edge-zxp-bf16": ARMS["edge-zxp"]})
+# each bf16 arm (compute_dtype="bfloat16"; every other arm float32) and the f32 arm of its layout, timed in turns
+BF16_PAIRS = {"node-bf16": "node", "edge-zxp-bf16": "edge-zxp"}
+BF16_TURNS = 2
+TIMED_STEPS = {"edge-zxp": 3, "node": 2, "hgt": 2, "metrical": 2, "node-bf16": 2, "edge-zxp-bf16": 2}
+FALL_ARMS = ("edge-zxp", "hgt", "edge-zxp-bf16")  # the metrical Trainer runs of phase 22 show its loss falling
+# one step on the GPU against the CPU, and one traced step
+PARITY_ARMS = ("edge-zxp", "hgt", "metrical", "node-bf16", "edge-zxp-bf16")
+FALL_STEPS = 8
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
+# K3's bf16 forward vs its plain version (the f32 einsum of the upcast
+# operands), elementwise, relative to the sum of |terms|: products of bf16
+# values are exact in f32, so the two differ only in the order of f32 sums
+K3_BF16_RTOL = 1e-5
+# one bf16 step on the GPU against the same bf16 step on the CPU (same
+# weights and batch, dropout 0, PARITY_LR and PARITY_EPS): bf16 rounds
+# products and sums at other places on each device (cuBLAS and the CPU's
+# kernels, the kernels' f32 accumulation against index_add_), so the loss
+# within 1e-2 relative and every parameter's update (lr g / (|g| + 1)) within
+# 1e-1 relative L2 over all parameters: the port's CPU tests find bf16
+# gradients 3.4e-2 from the JAX step's in that norm
+BF16_PARITY_LOSS_RTOL, BF16_PARITY_UPDATE_RTOL = 1e-2, 1e-1
 # GPU vs CPU after one train step at the constant rate PARITY_LR, with the
 # optimizer's eps raised to PARITY_EPS: Adam's first step moves every
 # coordinate by +-lr whatever its gradient's size, so a coordinate whose true
@@ -247,11 +283,19 @@ K4_RTOL = 1e-5
 # equal ids sum to 1 within K5_SUM_ATOL
 K5_ATOL, K5_SUM_ATOL = 1e-6, 1e-5
 # the training entry point at full width: three main tasks (the CLI's
-# default), --num_epochs 9 = 3 epochs of combined mode, 4 steps per task each
+# default), --num_epochs 3 = 1 epoch of combined mode, 4 steps per task, with
+# the edge-consistency loss
 TRAINER_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--do_train", "--do_eval",
-                 "--num_epochs", "9", "--max_steps_per_epoch", "4", "--main_tasks", "all,cadence,rna"]
+                 "--num_epochs", "3", "--max_steps_per_epoch", "4", "--main_tasks", "all,cadence,rna",
+                 "--use_edge_loss"]
 HGT_TRAINER_FLAGS = ["--demo", "--use_metrical", "--model", "HGT", "--use_pallas", "--do_train",
-                     "--num_epochs", "3", "--max_steps_per_epoch", "4", "--main_tasks", "all,cadence,rna"]
+                     "--num_epochs", "3", "--max_steps_per_epoch", "4", "--main_tasks", "all,cadence,rna",
+                     "--hgt_stage_dtype", "bfloat16"]
+# single-task cadence training with SMOTE: continual-learning mode with one
+# task makes "cadence" the only active head, where the step oversamples
+SMOTE_TRAINER_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--do_train",
+                       "--cl_training", "--main_tasks", "cadence", "--use_smote", "--num_epochs", "2",
+                       "--max_steps_per_epoch", "4"]
 # one fit epoch on the GPU against the CPU: losses of the same f32 model in another summation order
 TRAINER_PARITY_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--dropout", "0",
                         "--num_epochs", "1", "--main_tasks", "all"]
@@ -263,20 +307,20 @@ TRAINER_PARITY_RTOL = 1e-5
 RAW_DIR_FLAGS = ["--model", "HybridGNN", "--num_layers", "3", "--hidden_channels", "256", "--out_channels", "128",
                  "--subgraph_size", "500", "--batch_size", "80", "--main_tasks", "all", "--use_transpositions",
                  "--seed", "0"]
-RAW_DIR_EPOCHS = 3
+RAW_DIR_EPOCHS = 2
 # data_synth/'s samples per interval under transposition: 227 in all, the
 # JAX corpus's list (tests/test_torch_port_corpora.py)
 RAW_DIR_COUNTS = {"P1": 24, "M2": 20, "m3": 20, "P4": 20, "P5": 20, "m6": 20, "M6": 20, "m7": 20, "M3": 18,
                   "M7": 18, "m2": 15, "A4": 12}
 # configs/example_config.json as the file stands (HybridGNN 3 x 256 -> 128,
 # continual learning over all, cadence and rna, batch 100, 500-note
-# subgraphs, transpositions), one epoch per task of 6 steps, on the raw-dir
+# subgraphs, transpositions), one epoch per task of 4 steps, on the raw-dir
 # phase's copy of data_synth/ with cadence/ and rna/ of its first 8 TSVs;
 # the CLI's default 5 sampler threads
 CL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "example_config.json")
 CL_TASKS = ("all", "cadence", "rna")
 CL_TSVS = 8
-CL_TRAINER_FLAGS = ["--num_epochs", "3", "--max_steps_per_epoch", "6", "--do_train", "--do_eval"]
+CL_TRAINER_FLAGS = ["--num_epochs", "3", "--max_steps_per_epoch", "4", "--do_train", "--do_eval"]
 # the CL path with EWC and FAMO at full width on the edge-zxp arm (K3), GPU
 # against CPU over two tasks of one epoch each, with the optimizer's eps at
 # PARITY_EPS: from the second step on the rate is nonzero, and Adam would
@@ -290,7 +334,7 @@ CL_PARITY_FLAGS = ["--demo", "--cl_training", "--main_tasks", "all,cadence", "--
                    "--conv_impl", "edge-zxp", "--dropout", "0", "--num_epochs", "2", "--num_workers", "0"]
 CL_FAMO_W_ATOL, CL_FISHER_RTOL = 1e-5, 1e-6
 # the teacher's cost alone: rounds of (without, with, with, without) over the same batches
-CL_TURNS, CL_TURN_BATCHES = 3, 2
+CL_TURNS, CL_TURN_BATCHES = 2, 2
 # partitioned against full-graph embeddings: 2e-4 of the largest |full| plus
 # 2e-5 (__graft_entry__.py:341-344; the JAX partition tests' tolerance)
 PART_RTOL, PART_ATOL = 2e-4, 2e-5
@@ -439,11 +483,12 @@ def build_kernels() -> None:
     phase(f"build: {len(built)} sources in {time.perf_counter() - t:.2f}s wall")
 
 
-def k1_bound_ms(e_valid: int, f: int, m: int, s: int) -> tuple:
+def k1_bound_ms(e_valid: int, f: int, m: int, s: int, row_bytes: int = 4) -> tuple:
     """Least time for K1's work on this data: the valid edges' messages and ids
     read once (padding edges are neither read nor needed), the base rows read
-    once, the rows and counts written once."""
-    bytes_moved = e_valid * f * 4 + e_valid * 4 + m * f * 4 + s * f * 4 + s * 4
+    once (``row_bytes`` an element: 4 for f32 rows, 2 for bf16), the f32 rows
+    and counts written once."""
+    bytes_moved = e_valid * f * row_bytes + e_valid * 4 + m * f * row_bytes + s * f * 4 + s * 4
     ops = e_valid * f + 2 * s * f  # one add per message element; base add + divide per output
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -470,8 +515,9 @@ def check_k1(name: str, msgs, seg, x_base, num_segments, timed: bool, row_ptr=No
     e, f = msgs.shape
     m = x_base.shape[0]
     e_valid = int((seg.long() < num_segments).sum())
-    row = {"case": name, "E": e, "E_valid": e_valid, "F": f, "m": m, "S": num_segments, "max_abs_err": max_abs}
-    line = (f"kernel check: K1 {name}: E={e} (valid {e_valid}) F={f} m={m} S={num_segments} "
+    row = {"case": name, "E": e, "E_valid": e_valid, "F": f, "m": m, "S": num_segments, "max_abs_err": max_abs,
+           "rows": str(msgs.dtype).replace("torch.", "")}
+    line = (f"kernel check: K1 {name}: E={e} (valid {e_valid}) F={f} m={m} S={num_segments} {row['rows']} rows "
             f"max|d|={max_abs:.3e} (tol {K1_RTOL} rel)")
     if timed:
         valid = seg.long() < num_segments
@@ -487,7 +533,7 @@ def check_k1(name: str, msgs, seg, x_base, num_segments, timed: bool, row_ptr=No
         row["unplanned_ms"] = cuda_ms(lambda: segment_mean_base(msgs, seg, x_base, num_segments))
         row["plain_ms"] = cuda_ms(lambda: segment_mean_base_plain(msgs, seg, x_base, num_segments))
         row["library_ms"] = cuda_ms(library)
-        row["bound_ms"], row["bound_by"] = k1_bound_ms(e_valid, f, m, num_segments)
+        row["bound_ms"], row["bound_by"] = k1_bound_ms(e_valid, f, m, num_segments, msgs.element_size())
         line += (f" | kernel {row['ms']:.4f} ms with the plan's row pointers ({row['unplanned_ms']:.4f} ms a "
                  f"call without them), plain {row['plain_ms']:.4f} ms, index_add_ yardstick "
                  f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
@@ -522,6 +568,9 @@ def kernel_checks(model, largest_notes: int) -> list:
         msgs = torch.randn(e, f, generator=g).to(dev)
         x_base = torch.randn(plan.base_rows, f, generator=g).to(dev)
         rows.append(check_k1(name, msgs, plan.seg, x_base, plan.num_segments, timed=True, row_ptr=plan.row_ptr))
+        if plan is fused:  # phase 23: the same layer on bf16 rows, as layer 0 reads them under bf16 compute
+            bf16_row = check_k1(f"{name} of a {largest_notes}-note request", msgs.bfloat16(), plan.seg,
+                                x_base.bfloat16(), plan.num_segments, timed=True, row_ptr=plan.row_ptr)
     # edge cases: padding ids past the end, empty segments, the scalar path, no edges
     for name, e, f_, m, t in (("padding+empty F=256", 5000, 256, 1000, 3), ("F=25", 3000, 25, 500, 7),
                               ("F=6 scalar path", 700, 6, 64, 2), ("no edges", 0, 256, 128, 2)):
@@ -530,7 +579,7 @@ def kernel_checks(model, largest_notes: int) -> list:
         msgs = torch.randn(e, f_, generator=g)
         x_base = torch.randn(m, f_, generator=g)
         rows.append(check_k1(name, msgs.to(dev), seg.to(dev), x_base.to(dev), s, timed=False))
-    return rows
+    return rows + [bf16_row]
 
 
 def serve(model) -> dict:
@@ -976,14 +1025,15 @@ def _train_model(arm: str, dropout: float, device: str):
     return model
 
 
-def _trainer(model, opt):
+def _trainer(model, opt, compute_dtype: str = "float32"):
     from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
     from analysisgnn_tpu_torch.train.state import create_train_state
     from analysisgnn_tpu_torch.train.step import StepConfig, make_train_step
 
     tasks = tuple(TASK_DICT.items())
     state = create_train_state(model, len(tasks), opt, seed=1)
-    return state, make_train_step(model, opt, StepConfig(task_dict=tasks, active_tasks=tuple(t for t, _ in tasks)))
+    cfg = StepConfig(task_dict=tasks, active_tasks=tuple(t for t, _ in tasks), compute_dtype=compute_dtype)
+    return state, make_train_step(model, opt, cfg)
 
 
 def _launch_counters():
@@ -999,14 +1049,15 @@ def _launch_counters():
 
 def _reset_counts() -> None:
     k1, k2, k3, k4, k5, k6 = _launch_counters()
-    k1.launches = k2.launches = k4.launches = k5.launches = k6.launches = 0
-    k3.launches = k3.dx_launches = k3.dw_launches = k3.dalpha_launches = 0
+    k1.launches = k1.bf16_launches = k2.launches = k4.launches = k5.launches = k6.launches = 0
+    k3.launches = k3.bf16_launches = k3.dx_launches = k3.dw_launches = k3.dalpha_launches = 0
 
 
 def _counts() -> dict:
     k1, k2, k3, k4, k5, k6 = _launch_counters()
-    return {"segment_mean_base": k1.launches, "segment_softmax_agg": k2.launches,
-            "relation_weighted_matmul": k3.launches, "relation_weighted_matmul.dx": k3.dx_launches,
+    return {"segment_mean_base": k1.launches, "segment_mean_base.bf16": k1.bf16_launches,
+            "segment_softmax_agg": k2.launches, "relation_weighted_matmul": k3.launches,
+            "relation_weighted_matmul.bf16": k3.bf16_launches, "relation_weighted_matmul.dx": k3.dx_launches,
             "relation_weighted_matmul.dw": k3.dw_launches, "relation_weighted_matmul.dalpha": k3.dalpha_launches,
             "segment_sum_sorted": k4.launches, "segment_softmax_sorted": k5.launches, "halo_pull": k6.launches}
 
@@ -1018,25 +1069,34 @@ def _conv_edge_types(model) -> tuple:
     return model.encoder.note_edge_types if model.encoder_type == "metricalgnn" else model.edge_types
 
 
-def predicted_launches(model) -> dict:
+def predicted_launches(model, compute_dtype: str = "float32") -> dict:
     """Launches per train step the code predicts.  HybridGNN and MetricalGNN:
     every hetero conv (the layers and the final one) runs one K1 per single
     relation, plus one per fused group under "node" or one K3 forward, dx and
     dw per fused group under "edge-zxp"; no d alpha (the edge layout's alpha
     = 1 / max(count, 1) carries no gradient).  HybridHGT with K2: one K2 per
     layer (its backward is plain PyTorch).  All: onset pooling runs one K1;
-    the GRUs of use_rnn launch none of the hand-written kernels."""
+    the GRUs of use_rnn launch none of the hand-written kernels.  Under bf16
+    compute the first conv reads the bf16 projections: its K1 launches read
+    bf16 rows and its K3 forwards take bf16 operands (the ``.bf16``
+    counters); every later conv reads f32 states (a mean over f32 counts),
+    and so does onset pooling."""
     from analysisgnn_tpu_torch.models.hetero import fusion_groups
 
-    k1, k2, k3 = 1, 0, 0
+    k1, k2, k3, k1_bf16, k3_bf16 = 1, 0, 0, 0, 0
     if model.encoder_type == "hgt":
         k2 = len(model.encoder.layers) if model.encoder.layers[0].use_pallas else 0
     else:
         groups, singles = fusion_groups(_conv_edge_types(model))
         convs = len(model.encoder.layers) + 1
-        k1 += convs * (len(singles) + (len(groups) if model.conv_impl == "node" else 0))
-        k3 = convs * len(groups) if model.conv_impl == "edge-zxp" else 0
-    return {"segment_mean_base": k1, "segment_softmax_agg": k2, "relation_weighted_matmul": k3,
+        per_conv_k1 = len(singles) + (len(groups) if model.conv_impl == "node" else 0)
+        per_conv_k3 = len(groups) if model.conv_impl == "edge-zxp" else 0
+        k1 += convs * per_conv_k1
+        k3 = convs * per_conv_k3
+        if compute_dtype == "bfloat16":
+            k1, k1_bf16, k3_bf16 = k1 - per_conv_k1, per_conv_k1, per_conv_k3
+    return {"segment_mean_base": k1, "segment_mean_base.bf16": k1_bf16, "segment_softmax_agg": k2,
+            "relation_weighted_matmul": k3 - k3_bf16, "relation_weighted_matmul.bf16": k3_bf16,
             "relation_weighted_matmul.dx": k3, "relation_weighted_matmul.dw": k3,
             "relation_weighted_matmul.dalpha": 0, "segment_sum_sorted": 0, "segment_softmax_sorted": 0,
             "halo_pull": 0}
@@ -1051,7 +1111,8 @@ def train(arm: str, batches: list) -> dict:
     from analysisgnn_tpu_torch.train.state import make_optimizer
 
     model = _train_model(arm, TRAIN_CFG["dropout"], "cuda")
-    state, step = _trainer(model, make_optimizer(warmup_cosine_schedule(5e-3, total_steps=1000)))
+    compute = "bfloat16" if arm in BF16_PAIRS else "float32"
+    state, step = _trainer(model, make_optimizer(warmup_cosine_schedule(5e-3, total_steps=1000)), compute)
     state, aux = step(state, batches[0])
     torch.cuda.synchronize()
     k = TIMED_STEPS[arm]
@@ -1066,7 +1127,7 @@ def train(arm: str, batches: list) -> dict:
         losses.append(float(aux["total_loss"]))
         skipped += float(aux["skipped_nonfinite"])
     counts = _counts()
-    expected = predicted_launches(model)
+    expected = predicted_launches(model, compute)
     per_step = {name: c / k for name, c in counts.items()}
     if per_step != expected:
         raise AssertionError(f"{arm}: launches per step {per_step}, the code predicts {expected}")
@@ -1075,7 +1136,9 @@ def train(arm: str, batches: list) -> dict:
     # bench.py:191-194: valid message edges per step, every edge type once
     edges = statistics.mean(sum(b.num_edges.values()) for b in timed)
     ms = statistics.median(times) * 1e3
-    row = {"arm": arm, "steps": k, "median_ms": ms, "step_ms": [t * 1e3 for t in times],
+    if compute != "float32" and not all(p.dtype == torch.float32 for p in model.parameters()):
+        raise AssertionError(f"{arm}: a master parameter left float32")
+    row = {"arm": arm, "compute_dtype": compute, "steps": k, "median_ms": ms, "step_ms": [t * 1e3 for t in times],
            "edges_per_step": edges, "edges_per_s": edges / (ms / 1e3), "launches": counts,
            "launches_per_step": per_step, "losses": losses, "notes": batches[0].capacity(NOTE)}
     phase(f"train {arm}: {k} steps after one warm-up: median {ms:.2f} ms/step "
@@ -1117,9 +1180,11 @@ def step_parity(arm: str, batch) -> dict:
     model = _train_model(arm, 0.0, "cpu")
     gpu_model = _train_model(arm, 0.0, "cuda")
     gpu_model.load_state_dict(model.state_dict())
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    compute = "bfloat16" if arm in BF16_PAIRS else "float32"
     out = {}
     for dev, m, b in (("cuda", gpu_model, batch), ("cpu", model, _graph_to(batch, "cpu"))):
-        state, step = _trainer(m, ClippedAdamW(lambda _step: PARITY_LR, eps=PARITY_EPS))
+        state, step = _trainer(m, ClippedAdamW(lambda _step: PARITY_LR, eps=PARITY_EPS), compute)
         t = time.perf_counter()
         state, aux = step(state, b)
         out[dev] = (float(aux["total_loss"]), {k: v.detach().cpu() for k, v in m.state_dict().items()},
@@ -1127,6 +1192,20 @@ def step_parity(arm: str, batch) -> dict:
     loss_g, params_g, mt_g, _ = out["cuda"]
     loss_c, params_c, mt_c, cpu_s = out["cpu"]
     rel = abs(loss_g - loss_c) / abs(loss_c)
+    if compute != "float32":
+        # the updates of all parameters, GPU against CPU, in relative L2
+        d_g = torch.cat([(params_g[k] - start[k]).flatten() for k in start])
+        d_c = torch.cat([(params_c[k] - start[k]).flatten() for k in start])
+        upd = float((d_g - d_c).norm() / d_c.norm())
+        if not (np.isfinite(loss_g) and rel <= BF16_PARITY_LOSS_RTOL and upd <= BF16_PARITY_UPDATE_RTOL):
+            raise AssertionError(f"GPU vs CPU {arm} step: loss {loss_g} vs {loss_c} (rel {rel:.2e}, tol "
+                                 f"{BF16_PARITY_LOSS_RTOL}), updates {upd:.3e} relative L2 (tol "
+                                 f"{BF16_PARITY_UPDATE_RTOL})")
+        phase(f"train: one {arm} step, GPU vs CPU ({compute} compute, same weights and batch, dropout 0, lr "
+              f"{PARITY_LR}, eps {PARITY_EPS}): loss {loss_g:.6f} vs {loss_c:.6f} (rel {rel:.2e}, tol "
+              f"{BF16_PARITY_LOSS_RTOL}); parameter updates {upd:.3e} relative L2 (tol {BF16_PARITY_UPDATE_RTOL}); "
+              f"CPU step {cpu_s:.1f} s")
+        return {"loss_rel": rel, "update_rel_l2": upd}
     worst = max(float((params_g[k] - params_c[k]).abs().max()) for k in params_c)
     worst = max(worst, float((mt_g - mt_c).abs().max()))
     if not (np.isfinite(loss_g) and rel <= PARITY_LOSS_RTOL and worst <= PARITY_PARAM_ATOL):
@@ -1468,14 +1547,35 @@ def trainer_phase(ckpt_dir: str) -> dict:
     from analysisgnn_tpu_torch.data.note_array import synthetic_score
     from analysisgnn_tpu_torch.inference.predict import predict_score_ids
 
+    import analysisgnn_tpu_torch.train.step as step_mod
+
+    edge_terms = []  # every edge-consistency term the run computes (train steps and validation batches)
+    edge_loss = step_mod._edge_loss
+
+    def counted(*args):
+        term = edge_loss(*args)
+        edge_terms.append(float("nan") if term is None else float(term.detach()))
+        return term
+
     printed = io.StringIO()
+    step_mod._edge_loss = counted
     t = time.perf_counter()
-    _reset_counts()  # the Trainer path's run starts here
-    with contextlib.redirect_stdout(printed):  # --do_eval prints the test metrics as JSON
-        trainer = train_main([*TRAINER_FLAGS, "--checkpoint_dir", ckpt_dir])
-    torch.cuda.synchronize()
-    counts = _counts()
+    try:
+        _reset_counts()  # the Trainer path's run starts here
+        with contextlib.redirect_stdout(printed):  # --do_eval prints the test metrics as JSON
+            trainer = train_main([*TRAINER_FLAGS, "--checkpoint_dir", ckpt_dir])
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        step_mod._edge_loss = edge_loss
     wall = time.perf_counter() - t
+    n_steps = len(trainer.step_seconds)
+    if not trainer.model.use_edge_decoder or len(edge_terms) < n_steps or not all(np.isfinite(edge_terms)):
+        raise AssertionError(f"trainer: {len(edge_terms)} edge-consistency terms in {n_steps} train steps: "
+                             f"{edge_terms[:8]}")
+    phase(f"trainer: --use_edge_loss: the edge decoder's term ran {len(edge_terms)} times ({n_steps} train steps "
+          f"and the validation batches), lambda_edge x its mean CE {edge_terms[0]:.4f} at the first step, "
+          f"{edge_terms[n_steps - 1]:.4f} at the last")
     text = printed.getvalue()
     test_metrics = json.loads(text[text.index("{"):])
     if not test_metrics or not all(np.isfinite(v) for v in test_metrics.values()):
@@ -1521,7 +1621,7 @@ def trainer_phase(ckpt_dir: str) -> dict:
           f"(first call), {len(ids)} id columns, launches {', '.join(f'{k} {v}' for k, v in served.items() if v)}")
     return {"epochs": epochs, "secs": [r["secs"] for r in hist], "median_step_ms": median_ms,
             "train_loss": [r["train_loss"] for r in hist], "val_total_loss": [r["val/total_loss"] for r in hist],
-            "launches": launches, "serve_ms": serve_ms, "wall_s": wall}
+            "launches": launches, "serve_ms": serve_ms, "wall_s": wall, "edge_terms": len(edge_terms)}
 
 
 def hgt_trainer_phase(ckpt_dir: str) -> dict:
@@ -1540,10 +1640,13 @@ def hgt_trainer_phase(ckpt_dir: str) -> dict:
         raise AssertionError(f"trainer HGT: non-finite loss {rec['train_loss']}, {rec['val/total_loss']}")
     steps_ms = [x * 1e3 for x in trainer.step_seconds]
     median_ms = statistics.median(steps_ms[1:] or steps_ms)
-    phase(f"trainer HGT: cli.train.main {' '.join(HGT_TRAINER_FLAGS)}: {len(trainer.history)} epoch of "
+    phase(f"trainer HGT: cli.train.main {' '.join(HGT_TRAINER_FLAGS)} (q, k, v and the typed transforms staged in "
+          f"bf16): {len(trainer.history)} epoch of "
           f"{len(steps_ms)} train steps in {wall:.2f} s, {rec['secs']} s for the epoch; median {median_ms:.2f} ms "
           f"per train step after the first; train_loss {rec['train_loss']:.4f}, val/total_loss "
           f"{rec['val/total_loss']:.4f}")
+    if any(layer.stage != torch.bfloat16 for layer in trainer.model.encoder.layers):
+        raise AssertionError("trainer HGT: the layers do not stage in bf16")
     return {"secs": rec["secs"], "median_step_ms": median_ms, "launches": launches, "wall_s": wall}
 
 
@@ -2530,6 +2633,203 @@ def metrical_phase(tmp: str, batch) -> dict:
     return out
 
 
+# ------------------------------------------------------------- bf16 compute (phase 23)
+
+
+def k3_bf16_bound_ms(n: int, f: int, g: int, t: int) -> tuple:
+    """Least time for the bf16 forward's work: 2*T*N*F*G operations on the
+    bf16 tensor cores, or x and w (bf16) and alpha (f32) read once and the
+    f32 output written once."""
+    ops = 2 * t * n * f * g
+    bytes_moved = 2 * (n * f + t * f * g) + 4 * (t * n + n * g)
+    t_ops, t_bytes = ops / BF16_OPS_PER_S * 1e3, bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_k3_bf16(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dict:
+    """K3's bf16 forward against its plain version (the f32 einsum of the
+    upcast operands); through the wrapper with autograd, the cotangents in
+    the primals' dtypes against the plain version's.  With ``timed``, the
+    kernel's call and device time, the plain version, and a torch.einsum
+    yardstick on the same bf16 operands timed in turns with the kernel."""
+    from analysisgnn_tpu_torch.kernels import relmm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(n * 11 + t)
+    x = torch.randn(n, f, generator=gen).to(dev).bfloat16()
+    w = (torch.randn(t, f, g, generator=gen) / f**0.5).to(dev).bfloat16()
+    alpha = torch.rand(t, n, generator=gen).to(dev)
+    before = relmm.relation_weighted_matmul.bf16_launches
+    out = relmm.relation_weighted_matmul(x, w, alpha)  # the wrapper takes the bf16 kernel for bf16 x and w
+    if relmm.relation_weighted_matmul.bf16_launches != before + 1:
+        raise AssertionError(f"K3 bf16 {name}: the wrapper did not launch the bf16 forward")
+    ref = relmm.relation_weighted_matmul_plain(x, w, alpha)
+    scale = relmm.relation_weighted_matmul_plain(x.abs(), w.abs(), alpha)  # the sum of |terms|
+    torch.cuda.synchronize()
+    if out.dtype != torch.float32 or out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"K3 bf16 {name}: {out.dtype} {tuple(out.shape)} or non-finite values")
+    err = (out - ref).abs()
+    if not bool((err <= K3_BF16_RTOL * scale).all()):
+        worst = float((err / scale.clamp_min(1e-30)).max())
+        raise AssertionError(f"K3 bf16 {name}: |kernel - plain| reaches {worst:.3e} of the sum of |terms| "
+                             f"(tol {K3_BF16_RTOL})")
+    row = {"case": name, "N": n, "F": f, "G": g, "T": t, "max_abs_err": float(err.max()) if err.numel() else 0.0}
+    line = (f"kernel check: K3 bf16 forward {name}: N={n} F={f} G={g} T={t} max|d| {row['max_abs_err']:.2e} "
+            f"(tol {K3_BF16_RTOL} of the sum of |terms|)")
+    if timed:
+        gout = torch.randn(n, g, generator=gen).to(dev)
+        leaves = [v.clone().requires_grad_(True) for v in (x, w, alpha)]
+        grads = torch.autograd.grad(relmm.relation_weighted_matmul(*leaves), leaves, gout)
+        plain_leaves = [v.clone().requires_grad_(True) for v in (x, w, alpha)]
+        want = torch.autograd.grad(relmm.relation_weighted_matmul_plain(*plain_leaves), plain_leaves, gout)
+        if tuple(gr.dtype for gr in grads) != (torch.bfloat16, torch.bfloat16, torch.float32):
+            raise AssertionError(f"K3 bf16 {name}: cotangent dtypes {[gr.dtype for gr in grads]}")
+        for part, a, b in zip(("dx", "dw", "dalpha"), grads, want):
+            # the f32 backward kernels against the plain f32 gradients, both rounded to the primal's dtype
+            tol = (2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4) * float(b.float().abs().max())
+            if float((a.float() - b.float()).abs().max()) > tol:
+                raise AssertionError(f"K3 bf16 {name} backward {part}: max|d| above {tol:.3e}")
+        a16 = alpha.bfloat16()
+        turns = cuda_ms_turns({"kernel": lambda: relmm.rwm_forward_bf16(x, w, alpha),
+                               "einsum": lambda: torch.einsum("tn,nf,tfg->ng", a16, x, w)})
+        row.update({"ms": turns["kernel"], "library_ms": turns["einsum"],
+                    "device_ms": device_ms(lambda: relmm.rwm_forward_bf16(x, w, alpha), "rwm_bf16"),
+                    "plain_ms": cuda_ms(lambda: relmm.relation_weighted_matmul_plain(x, w, alpha))})
+        row["bound_ms"], row["bound_by"] = k3_bf16_bound_ms(n, f, g, t)
+        line += (f" | kernel {row['ms']:.4f} ms a call, {row['device_ms']:.4f} ms on the device, plain "
+                 f"{row['plain_ms']:.4f} ms, torch.einsum on the bf16 operands {row['library_ms']:.4f} ms (in turns "
+                 f"with the kernel); bound {row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 at "
+                 f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), {100 * row['bound_ms'] / row['device_ms']:.1f}% of it on "
+                 f"the device; backward: cotangents bf16, bf16, f32 through the f32 kernels")
+    phase(line)
+    return row
+
+
+def k3_bf16_checks(n_train: int) -> list:
+    rows = [check_k3_bf16("train shape", n_train, 256, 256, 7, timed=True)]
+    # N not a multiple of the 64-row tile, one row, T=1; F and G not multiples of 8 (the element-wise copies)
+    for name, n, f, g, t in (("N=300", 300, 256, 256, 7), ("T=1", 1000, 256, 256, 1), ("N=1", 1, 256, 256, 7),
+                             ("F=64 G=96", 300, 64, 96, 3), ("F=40 G=24", 77, 40, 24, 2), ("F=25 G=20", 65, 25, 20, 3)):
+        rows.append(check_k3_bf16(name, n, f, g, t, timed=False))
+    return rows
+
+
+def k1_bf16_batch_check(batch) -> dict:
+    """K1 on bf16 rows at the fused note layer of a bench train batch (the
+    shape of check_k1_backward), timed."""
+    from analysisgnn_tpu_torch.core.graph import NOTE, NOTE_EDGE_TYPES
+    from analysisgnn_tpu_torch.models.fused import fused_plan
+
+    n = batch.capacity(NOTE)
+    plan = fused_plan([batch.edges(et) for et in NOTE_EDGE_TYPES], n)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    f = TRAIN_CFG["hidden_channels"]
+    msgs = torch.randn(plan.seg.shape[0], f, generator=gen).cuda().bfloat16()
+    x_base = torch.randn(n, f, generator=gen).cuda().bfloat16()
+    return check_k1("fused note layer T=7 of a bench batch", msgs, plan.seg, x_base, plan.num_segments, timed=True,
+                    row_ptr=plan.row_ptr)
+
+
+def bf16_turns(trained: dict, batches: list) -> dict:
+    """Each bf16 arm's train step against the f32 arm of its layout, in turns
+    (f32, bf16, bf16, f32; BF16_TURNS times) on the same batches: host ms per
+    step, each ending in a synchronize."""
+    out = {}
+    for arm, f32_arm in BF16_PAIRS.items():
+        times = {arm: [], f32_arm: []}
+        i = 0
+        for _ in range(BF16_TURNS):
+            for a in (f32_arm, arm, arm, f32_arm):
+                row = trained[a]
+                t = time.perf_counter()
+                row["state"], _aux = row["step"](row["state"], batches[1 + i % (len(batches) - 1)])
+                torch.cuda.synchronize()
+                times[a].append((time.perf_counter() - t) * 1e3)
+                i += 1
+        out[arm] = {"bf16_ms": statistics.median(times[arm]), "f32_ms": statistics.median(times[f32_arm])}
+        phase(f"train {arm}: in turns with {f32_arm} ({BF16_TURNS} x f32, bf16, bf16, f32): median "
+              f"{out[arm]['bf16_ms']:.2f} ms per bf16 step, {out[arm]['f32_ms']:.2f} ms per f32 step "
+              f"(bf16 / f32 = {out[arm]['bf16_ms'] / out[arm]['f32_ms']:.3f})")
+    return out
+
+
+def smote_trainer_phase(ckpt_dir: str) -> dict:
+    """Single-task cadence training with SMOTE through the training entry
+    point at full width: every train step oversamples (counted around
+    smote_oversample), finite losses, launches against the prediction."""
+    import analysisgnn_tpu_torch.train.step as step_mod
+    from analysisgnn_tpu_torch.cli.train import main as train_main
+
+    calls = []
+    oversample = step_mod.smote_oversample
+
+    def counted(*args, **kwargs):
+        out = oversample(*args, **kwargs)
+        calls.append(int(out[2].sum()))  # the valid synthetic rows
+        return out
+
+    step_mod.smote_oversample = counted
+    t = time.perf_counter()
+    try:
+        _reset_counts()  # the SMOTE Trainer path's run starts here
+        trainer = train_main([*SMOTE_TRAINER_FLAGS, "--checkpoint_dir", ckpt_dir])
+        torch.cuda.synchronize()
+        counts = _counts()
+    finally:
+        step_mod.smote_oversample = oversample
+    wall = time.perf_counter() - t
+    launches = _check_trainer_launches("trainer SMOTE", trainer, counts, len(trainer.history), evaluated=False)
+    steps = len(trainer.step_seconds)
+    losses = [r["train_loss"] for r in trainer.history] + [r["val/total_loss"] for r in trainer.history]
+    if len(calls) != steps or not all(calls) or not all(np.isfinite(losses)):
+        raise AssertionError(f"trainer SMOTE: {len(calls)} oversamplings ({calls} valid rows) in {steps} steps, "
+                             f"losses {losses}")
+    steps_ms = [x * 1e3 for x in trainer.step_seconds]
+    median_ms = statistics.median(steps_ms[1:] or steps_ms)
+    phase(f"trainer SMOTE: cli.train.main {' '.join(SMOTE_TRAINER_FLAGS)}: {len(trainer.history)} epochs of "
+          f"{steps // len(trainer.history)} train steps in {wall:.2f} s, seconds per epoch "
+          + ", ".join(f"{r['secs']}" for r in trainer.history)
+          + f"; every step oversampled ({', '.join(map(str, calls))} valid synthetic rows of 256); median {median_ms:.2f} ms per train step after the "
+          f"first; train_loss " + ", ".join(f"{r['train_loss']:.4f}" for r in trainer.history))
+    return {"secs": [r["secs"] for r in trainer.history], "median_step_ms": median_ms, "launches": launches,
+            "synthetic_rows": calls, "wall_s": wall}
+
+
+def hgt_staged_serve(ckpt_dir: str, tmp: str) -> dict:
+    """The bf16-staged HGT checkpoint of the HGT Trainer run served by
+    cli/predict.py on a generated MusicXML score: the staging read back from
+    model_config.json, the CSV written, launches against the prediction."""
+    from analysisgnn_tpu_torch.cli.predict import load_model
+    from analysisgnn_tpu_torch.cli.predict import main as predict_main
+
+    model, cfg = load_model(ckpt_dir, "last", "cuda")
+    if cfg.get("hgt_stage_dtype") != "bfloat16" or any(layer.stage != torch.bfloat16 for layer in model.encoder.layers):
+        raise AssertionError(f"the HGT checkpoint's staging was not served: {cfg.get('hgt_stage_dtype')}")
+    score = f"{tmp}/hgt_score.musicxml"
+    with open(score, "w") as fh:
+        fh.write(synthetic_score_xml(RNA_NOTES, seed=5))
+    out = f"{tmp}/hgt.csv"
+    _reset_counts()  # this CLI request starts here
+    t = time.perf_counter()
+    predict_main(["--checkpoint_dir", ckpt_dir, "--checkpoint", "last", "--score", score, "--output_csv", out])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = _counts()
+    per = predicted_launches(model)
+    expected = {k: v if k in ("segment_mean_base", "segment_softmax_agg") else 0 for k, v in per.items()}
+    if counts != expected:
+        raise AssertionError(f"serving the staged HGT checkpoint launched {counts}, the code predicts {expected}")
+    with open(out) as fh:
+        rows = list(csv.reader(fh))
+    if len(rows) < RNA_NOTES // 2:
+        raise AssertionError(f"the staged HGT CSV has {len(rows)} rows")
+    phase(f"trainer HGT serve: cli.predict.main on the bf16-staged last.pt ({cfg['hgt_group_mode']} stacks) and a "
+          f"MusicXML score: {len(rows) - 1} rows in {seconds:.3f} s (first call), launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v) + " (the code predicts the same)")
+    return {"seconds": seconds, "rows": len(rows) - 1, "launches": counts}
+
+
+
 def main() -> None:
     smi = environment()
     from analysisgnn_tpu_torch.core.graph import NOTE
@@ -2560,7 +2860,11 @@ def main() -> None:
     k1_backward = check_k1_backward(batches[0])
     k2_rows = k2_checks(batches[0])
     phase("kernel check: K3, K1 backward and K2 done")
+    k3_bf16_rows = k3_bf16_checks(n_train)
+    k1_bf16_rows = [r for r in rows if r["rows"] == "bfloat16"] + [k1_bf16_batch_check(batches[0])]
+    phase("kernel check: K3's bf16 forward and K1 on bf16 rows done")
     trained = {arm: train(arm, batches) for arm in ARMS}
+    turns = bf16_turns(trained, batches)
     parity = {arm: step_parity(arm, batches[0]) for arm in PARITY_ARMS}
     traced = {arm: trace_train(trained[arm], batches[1]) for arm in PARITY_ARMS}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2577,9 +2881,12 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         trainer = trainer_phase(f"{tmp}/trainer")
         hgt_trainer = hgt_trainer_phase(f"{tmp}/trainer_hgt")
+        hgt_served = hgt_staged_serve(f"{tmp}/trainer_hgt", tmp)
+        smote = smote_trainer_phase(f"{tmp}/trainer_smote")
         trainer_rels = trainer_parity(f"{tmp}/parity")["rels"]
-        phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step, "
-              f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step; GPU vs CPU {trainer_rels}")
+        phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step (with the edge loss), "
+              f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step (bf16 staging), "
+              f"{smote['median_step_ms']:.2f} ms per SMOTE cadence step; GPU vs CPU {trainer_rels}")
         raw_dir = raw_dir_trainer_phase(f"{tmp}/raw_dir")
         raw_dir_rels = trainer_parity(f"{tmp}/raw_dir_parity", [*raw_dir["flags"], "--dropout", "0", "--num_epochs",
                                                                 "1"], "raw-dir trainer")["rels"]
@@ -2733,7 +3040,37 @@ def main() -> None:
                  f"call with out, the form regime 2 uses",
         "per_forward": {d: r["k6_launches"] for d, r in partitioned["regime2"].items()},
     })
+    # phase 23: K3's bf16 forward and K1 on bf16 rows, launched by the bf16 arms' timed steps
+    k3b = k3_bf16_rows[0]
+    bf16_arms = tuple(BF16_PAIRS)
+    kernels[1]["bf16_launches"] = sum(trained[a]["launches"]["relation_weighted_matmul.bf16"] for a in bf16_arms)
+    kernels.append({
+        "name": "relation_weighted_matmul.bf16", "route": "cuda",
+        "source": "analysisgnn_tpu_torch/csrc/relation_weighted_matmul.cu",
+        "replaces": "analysisgnn_tpu/kernels/pallas_relmm.py:93",
+        "launches": kernels[1]["bf16_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3_bf16_rows), "ms": k3b["ms"], "plain_ms": k3b["plain_ms"],
+        "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
+        "device_ms": k3b["device_ms"],
+        "shape": f"train step: N={k3b['N']} F={k3b['F']} G={k3b['G']} T={k3b['T']}, x and w bf16, alpha and out f32",
+        "per_step": {a: trained[a]["launches_per_step"]["relation_weighted_matmul.bf16"] for a in bf16_arms},
+    })
+    k1b = k1_bf16_rows[0]
+    kernels.append({
+        "name": "segment_mean_base.bf16", "route": "cuda", "source": "analysisgnn_tpu_torch/csrc/segment_mean_base.cu",
+        "replaces": "analysisgnn_tpu/kernels/pallas_segment.py:263",
+        "launches": sum(trained[a]["launches"]["segment_mean_base.bf16"] for a in bf16_arms),
+        "max_abs_err": max(r["max_abs_err"] for r in k1_bf16_rows), "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
+        "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": k1b["library_ms"],
+        "shape": f"{k1b['case']}: E={k1b['E']} (valid {k1b['E_valid']}) F={k1b['F']} S={k1b['S']}, bf16 rows",
+        "bench_batch": {k: k1_bf16_rows[1][k] for k in ("case", "E", "E_valid", "S", "ms", "plain_ms", "library_ms",
+                                                          "bound_ms", "bound_by")},
+        "f32_rows_ms": main_row["ms"], "f32_rows_bound_ms": main_row["bound_ms"],
+        "per_step": {a: trained[a]["launches_per_step"]["segment_mean_base.bf16"] for a in bf16_arms},
+    })
     per_step = ", ".join(f"{arm} {r['median_ms']:.2f}" for arm, r in trained.items())
+    phase("train: bf16 against f32 in turns: " + ", ".join(
+        f"{arm} {r['bf16_ms']:.2f} ms vs {BF16_PAIRS[arm]} {r['f32_ms']:.2f} ms" for arm, r in turns.items()))
     busy = ", ".join(f"{arm} {r['busy_ms']:.2f} of {r['wall_ms']:.2f} ms" for arm, r in traced.items())
     phase(f"train: done; ms per step {per_step}; traced steps busy {busy}; K3 in the traced edge-zxp step "
           f"{traced['edge-zxp']['group_ms']:.3f} ms of device time; parity {parity}")

@@ -373,8 +373,11 @@ def test_three_hgt_train_steps_match_jax_with_k2(batches):
 
 
 def test_hgt_configs_refused():
-    with pytest.raises(NotImplementedError, match="later slice|Trainer slice"):
-        model_from_config(_cfg(hgt_stage_dtype="bfloat16"), device="cpu")
+    # bf16 staging is served (tests/test_torch_port_bf16.py holds it against JAX)
+    staged = model_from_config(_cfg(hgt_stage_dtype="bfloat16"), device="cpu")
+    assert all(layer.stage == torch.bfloat16 for layer in staged.encoder.layers)
+    with pytest.raises(NotImplementedError, match="hgt_stage_dtype"):
+        model_from_config(_cfg(hgt_stage_dtype="float16"), device="cpu")
     with pytest.raises(ValueError, match="conv_impl"):
         model_from_config(_cfg(conv_impl="edge-zxp"), device="cpu")
     with pytest.raises(NotImplementedError, match="hgt_group_mode"):

@@ -32,6 +32,33 @@ probs, onsets = predict_chord_tasks(synthetic_score(30), hidden=8, device="cpu")
 decode_chord_predictions(probs)
 model_from_config({{"num_layers": 1, "hidden_channels": 8, "out_channels": 4, "in_channels": 25,
                    "plain_proj": False, "logit_fusion": True}}, device="cpu")
+# one bf16 train step with SMOTE (single-task cadence), the edge decoder's loss and smote_oversample
+import torch
+from analysisgnn_tpu_torch.core.graph import NOTE
+from analysisgnn_tpu_torch.inference.predict import graph_from_note_array
+from analysisgnn_tpu_torch.models.analysis import init_parameters
+from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
+from analysisgnn_tpu_torch.train.schedules import warmup_cosine_schedule
+from analysisgnn_tpu_torch.train.smote import smote_draws, smote_oversample
+from analysisgnn_tpu_torch.train.state import create_train_state, make_optimizer
+from analysisgnn_tpu_torch.train.step import StepConfig, make_train_step
+graph = graph_from_note_array(synthetic_score(40), feature_type="simple", add_beats=False, add_measures=False,
+                              device="cpu")
+n = graph.node_features[NOTE].shape[0]
+for task in ("cadence", "quality", "inversion", "degree1", "degree2", "localkey"):
+    graph.node_attrs[NOTE][task] = torch.arange(n) % 4
+model = model_from_config({{"num_layers": 1, "hidden_channels": 8, "out_channels": 4, "in_channels": 25,
+                           "use_edge_decoder": True}}, device="cpu")
+init_parameters(model, torch.Generator().manual_seed(0))
+opt = make_optimizer(warmup_cosine_schedule(1e-3, total_steps=10))
+state = create_train_state(model, len(TASK_DICT), opt, seed=1)
+cfg = StepConfig(task_dict=tuple(TASK_DICT.items()), active_tasks=("cadence",), compute_dtype="bfloat16",
+                 use_smote=True, smote_synthetic=8, use_edge_loss=True)
+state, aux = make_train_step(model, opt, cfg)(state, graph)
+assert torch.isfinite(aux["total_loss"]) and "edge_loss" in aux and state.opt_state.count == 1
+x, y, w = torch.randn(n, 4), torch.arange(n) % 3, torch.ones(n, dtype=torch.bool)
+x_syn, y_syn, w_syn = smote_oversample(x, y, w, 3, smote_draws(y, w, 3, 8, 4, torch.Generator().manual_seed(0)))
+assert x_syn.shape == (8, 4) and w_syn.shape == (8,)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None and m.split(".")[0] in {FORBIDDEN!r})
 assert not loaded, loaded
 print(",".join(names + [chip_smoke.__name__]))
@@ -45,7 +72,7 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
-    assert len(names) >= 66  # every module of the port and chip_smoke, the chord chain's and the families' included
+    assert len(names) >= 68  # every module of the port and chip_smoke, the chord chain's, the families' and SMOTE's
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
@@ -56,7 +83,7 @@ def test_every_port_module_imports_without_jax():
         "kernels.launch", "data._table", "data.tsv", "data.dlc_meta", "data.time_divided", "data.samplers",
         "data.features", "theory.encoders",
         "theory.roman", "theory.rules", "data.kern", "models.chord", "models.pooling", "models.mlp",
-        "inference.predict_chords", "models.pitch_spelling", "models.cadence",
+        "inference.predict_chords", "models.pitch_spelling", "models.cadence", "train.smote", "train.cadence",
     )} <= names
 
 
@@ -67,14 +94,15 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 67 and {
+    assert len(files) >= 69 and {
         "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
         "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
         "halo.py", "partition.py", "partition_encoder.py", "launch.py", "_table.py", "tsv.py", "dlc_meta.py",
         "time_divided.py", "samplers.py",
         "roman.py", "rules.py", "kern.py", "chord.py", "pooling.py", "predict_chords.py",
-        "pitch_spelling.py", "cadence.py",
+        "pitch_spelling.py", "cadence.py", "smote.py",
     } <= {f.name for f in files}
+    assert (PORT / "train" / "cadence.py").is_file()
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}
     assert not offenders, offenders
 

@@ -199,13 +199,18 @@ def test_cli_overrides_refuse_what_the_model_cannot_honor(tmp_path):
     assert loaded["hgt_stage_dtype"] == "float32"
     assert loaded["conv_impl"] == "node" and tcli.load_model(str(ckpt), "best", "cpu", "edge-zxp")[1][
         "conv_impl"] == "edge-zxp"
-    with pytest.raises(NotImplementedError, match="item 7.3"):
+    with pytest.raises(ValueError, match="hgt_stage_dtype"):  # staging is an HGT option, as in the JAX model
         tcli.load_model(str(ckpt), "best", "cpu", hgt_stage_dtype="bfloat16")
     hgt = tmp_path / "hgt"
     hgt.mkdir()
-    (hgt / "model_config.json").write_text(json.dumps({**cfg, "model": "HGT", "hgt_stage_dtype": "bfloat16"}))
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        tcli.load_model(str(hgt), "best", "cpu")
+    hgt_cfg = {**cfg, "model": "HGT", "hgt_stage_dtype": "bfloat16"}
+    (hgt / "model_config.json").write_text(json.dumps(hgt_cfg))
+    torch.save(model_from_config(hgt_cfg, device="cpu").state_dict(), hgt / "best.pt")
+    # a saved staging dtype is served for an HGT checkpoint, and an override wins
+    staged, loaded = tcli.load_model(str(hgt), "best", "cpu")
+    assert loaded["hgt_stage_dtype"] == "bfloat16" and staged.encoder.layers[0].stage == torch.bfloat16
+    plain, loaded = tcli.load_model(str(hgt), "best", "cpu", hgt_stage_dtype="float32")
+    assert loaded["hgt_stage_dtype"] == "float32" and plain.encoder.layers[0].stage is None
     with pytest.raises(ValueError, match="conv_impl"):
         tcli.load_model(str(hgt), "best", "cpu", conv_impl="edge-zxp", hgt_stage_dtype="float32")
 

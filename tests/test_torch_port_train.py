@@ -300,8 +300,12 @@ def test_dropout_follows_flax_and_its_generator():
 
 
 def test_step_config_refuses_what_is_not_ported():
+    # the edge-consistency loss, SMOTE and bf16 compute are ported (tests/test_torch_port_bf16.py,
+    # tests/test_torch_port_edge_smote.py); a compute dtype the JAX step does not cast to is refused
     for kwargs in ({"use_edge_loss": True}, {"use_smote": True}, {"compute_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="item 7.3"):
-            StepConfig(task_dict=TASKS, active_tasks=ACTIVE, **kwargs)
+        cfg = StepConfig(task_dict=TASKS, active_tasks=ACTIVE, **kwargs)
+        assert all(getattr(cfg, k) == v for k, v in kwargs.items())
+    with pytest.raises(ValueError, match="compute_dtype"):
+        StepConfig(task_dict=TASKS, active_tasks=ACTIVE, compute_dtype="float16")
     with pytest.raises(NotImplementedError, match="conv_impl"):
         model_from_config(dict(_cfg("edge-zxp"), conv_impl="unified"), device="cpu")

@@ -144,9 +144,16 @@ def test_full_state_round_trip_and_resume(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported():
     dm = _trainer_dm(False)
-    for kw in ({"use_smote": True}, {"use_edge_loss": True}, {"hgt_stage_dtype": "bfloat16"}, {"use_wandb": True}):
-        with pytest.raises(NotImplementedError, match="item 7.3"):
-            tloop.Trainer(tloop.TrainConfig(**TRAINER, **kw, device="cpu"), dm)
+    with pytest.raises(NotImplementedError, match="item 7.3"):
+        tloop.Trainer(tloop.TrainConfig(**TRAINER, use_wandb=True, device="cpu"), dm)
+    # SMOTE, the edge-consistency loss (with the edge decoder) and HGT bf16 staging are ported
+    assert not hasattr(tloop.Trainer(tloop.TrainConfig(**TRAINER, use_smote=True, device="cpu"), dm).model,
+                       "edge_decoder")
+    assert tloop.Trainer(tloop.TrainConfig(**TRAINER, use_edge_loss=True, device="cpu"), dm).model.use_edge_decoder
+    hgt = tloop.Trainer(tloop.TrainConfig(**dict(TRAINER, model="HGT"), hgt_stage_dtype="bfloat16", device="cpu"), dm)
+    assert all(layer.stage == torch.bfloat16 for layer in hgt.model.encoder.layers)
+    with pytest.raises(ValueError, match="hgt_stage_dtype"):  # a HybridGNN cannot stage, as in the JAX model
+        tloop.Trainer(tloop.TrainConfig(**TRAINER, hgt_stage_dtype="bfloat16", device="cpu"), dm)
     for kw in ({"remat": True}, {"final_dropout": True}, {"fused_torch_init": False}, {"plain_proj": False},
                {"logit_fusion": True}):
         with pytest.raises(NotImplementedError, match="item 11"):
