@@ -61,27 +61,41 @@
 //     [T, N] into a scratch [S, T, N], and rwm_sum_splits_kernel adds the S
 //     partials in a fixed order: no atomics, the same bits on every run.  It
 //     has no launch on the model's path (alpha carries no gradient there).
-//   * bf16 forward (rwm_bf16_forward_kernel<VEC>): x [N, F] and w [T, F, G] in
-//     bf16, alpha [T, N] and out [N, G] in f32, as the Pallas forward takes
-//     bf16 operands with preferred_element_type=f32.  One bf16 tensor-core
-//     pass per product (mma.sync m16n8k16, f32 accumulation): a product of
-//     two bf16 values is exact in f32, so the kernel differs from the f32
-//     einsum of the upcast operands only in the order of its sums.  Bound on
-//     the H100 at the train shape: operations, 4.93 GFLOP at 989 TFLOP/s is
-//     5.0 us (x, w, alpha in and out in f32 move 9.3 MB, 2.8 us).  A block of
-//     four warps owns a 64 x 64 tile of out; for each relation it walks K in
-//     32-deep chunks, staging the x chunk as stored (K contiguous: the A
-//     fragments read pairs of K) and the w chunk transposed to [G, K] (the
-//     B fragments read pairs of K for one column), each warp accumulating a
-//     32 x 32 quarter; after a relation's K loop each thread adds
-//     alpha[t, row] times its per-relation accumulator into a second one, so
-//     the [T, N, G] intermediate never exists.  The x chunk is read again for
-//     every relation (from L2: x is 2.75 MB at the train shape).  A simple
-//     kernel with one chunk in flight; its time stands in PERF.md beside the
-//     bound.  The backward of a bf16 forward runs the f32 kernels above on
-//     f32 copies of x and w (kernels/relmm.py), as the Pallas backward
-//     upcasts.
+//   * bf16 forward: x [N, F] and w [T, F, G] in bf16, alpha [T, N] and out
+//     [N, G] in f32, as the Pallas forward takes bf16 operands with
+//     preferred_element_type=f32.  One bf16 tensor-core pass per product, f32
+//     accumulation: a product of two bf16 values is exact in f32, so the
+//     kernels differ from the f32 einsum of the upcast operands only in the
+//     order of their sums.  Bound on the H100 at the train shape: operations,
+//     4.93 GFLOP at 989 TFLOP/s is 5.0 us (x, w, alpha in and out in f32 move
+//     9.3 MB, 2.8 us).  Two kernels, chosen by the shapes and pointers alone
+//     (kernels/relmm.py::forward_kernel; no failure switches kernels):
+//     - rwm_bf16_wgmma_kernel<WIDTH>, wherever TMA can describe the operands
+//       (F and G multiples of 8, x and w 16-byte aligned).  A block owns a
+//       128 x WIDTH tile of out (WIDTH from pick_width, as the f32 forward):
+//       one producer warp issues TMA copies, two consumer warpgroups run
+//       wgmma m64nWIDTHk16 bf16 on 64 rows each.  The block's rows of x are
+//       copied once, a panel of up to 8 chunks of 64 K at a time (all of F
+//       up to 512), K-major with the 128-byte swizzle, and reused for every
+//       relation.  w[t] streams through a ring of 4 chunks of 64 K x WIDTH
+//       behind full and empty mbarriers, in the order (panel, relation, K
+//       chunk), read by wgmma MN-major as stored (G contiguous: the
+//       transpose flag of a 16-bit B), in boxes of 32 columns with the
+//       64-byte swizzle, so nothing is transposed anywhere.  TMA zero-fills
+//       the N, F and G tails; a 3-D map over [T, F, G] keeps a chunk's K
+//       tail out of the next relation.  After a relation's K loop over a
+//       panel each warpgroup adds alpha[t, row] times its per-relation
+//       accumulator into a second register tile, so the [T, N, G]
+//       intermediate never exists.
+//     - rwm_bf16_forward_kernel<VEC> (mma.sync m16n8k16), for the rest: a
+//       block of four warps owns a 64 x 64 tile; for each relation it walks K
+//       in 32-deep chunks, staging the x chunk as stored and the w chunk
+//       transposed to [G, K] (the B fragments read pairs of K), one chunk in
+//       flight, then the same alpha epilogue.
+//     The backward of a bf16 forward runs the f32 kernels above on f32 copies
+//     of x and w (kernels/relmm.py), as the Pallas backward upcasts.
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is reached through the runtime (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -178,7 +192,7 @@ __device__ __forceinline__ void pin(float (&d)[R]) {
 // 1,024 bytes (>> 4 = 64), layout 1 (128B swizzle).  The tile starts on a
 // 1,024-byte boundary; the k-th 8-deep slice of its 32-deep rows starts
 // 32*k bytes in, which the hardware swizzles as the stores did.
-__device__ __forceinline__ uint64_t smem_desc(const float* tile) {
+__device__ __forceinline__ uint64_t smem_desc(const void* tile) {
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
@@ -848,6 +862,332 @@ rwm_bf16_forward_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16
   }
 }
 
+// ------------------------------------------------------------------ bf16 forward on wgmma
+
+constexpr int BW_BK = 64;                        // K depth of a chunk: one 128-byte swizzled row of bf16
+constexpr int BW_BOX_N = 32;                     // columns of a w box: 64 bytes, the 64-byte swizzle
+constexpr int BW_STAGES = 4;                     // w chunks in flight
+constexpr int BW_PANEL = 8;                      // x chunks resident at once (all of F up to 512)
+constexpr int BW_THREADS = NT + 32;              // two consumer warpgroups, then the producer warp
+constexpr int BW_X_TILE = FWD_BM * BW_BK * 2;    // bytes of one x chunk, 128 rows (16 KB)
+constexpr int BW_BOX = BW_BK * BW_BOX_N * 2;     // bytes of one w box, 64 K x 32 columns (4 KB)
+constexpr int BW_BARRIERS = BW_PANEL + 1 + 2 * BW_STAGES;
+
+template <int WIDTH>
+struct Bf16Tile {
+  static_assert(WIDTH % BW_BOX_N == 0, "whole boxes per chunk");
+  static constexpr int BOXES = WIDTH / BW_BOX_N;
+  static constexpr int STAGE = BOXES * BW_BOX;  // bytes of one w chunk
+  static constexpr size_t smem_bytes(int panel) {
+    return (size_t)panel * BW_X_TILE + (size_t)BW_STAGES * STAGE + BW_BARRIERS * sizeof(uint64_t) + ALIGN;
+  }
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// the producer's arrival, announcing `bytes` that TMA copies will complete
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
+}
+
+// until the phase of parity `parity` has completed (a fresh barrier counts
+// the phase before its first, of parity 1, as completed)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+      "[%5];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of an MN-major w chunk (WIDTH columns
+// contiguous, as stored) in 32-column boxes of 64 K rows with the 64-byte
+// swizzle: start address >> 4, leading offset = the stride between the
+// 32-column boxes along MN (4,096 bytes >> 4), stride offset = the stride
+// between 8-deep groups of K (8 rows of 64 bytes: 512 >> 4), layout 2 (64B
+// swizzle).  The k-th 16-deep slice starts 16 * 64 = 1,024 bytes further.
+__device__ __forceinline__ uint64_t smem_desc_mn64(const void* tile) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)(BW_BOX >> 4) << 16) |
+         ((uint64_t)((8 * BW_BOX_N * 2) >> 4) << 32) | (2ull << 62);
+}
+
+// d[64 x 64] (+)= a[64 x 16] * b[16 x 64], bf16 in, f32 accumulate: A
+// K-major, B MN-major (transpose flag 1); d's layout as wgmma_tf32's
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// the same as m64n96k16: d[64 x 96]
+__device__ __forceinline__ void wgmma_bf16(float (&d)[48], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47},"
+      " %48, %49, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// the same as m64n128k16: d[64 x 128]
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// out[n, g] = sum_t alpha[t, n] * sum_f x[n, f] * w[t, f, g]; grid (ceil(N/128),
+// ceil(G/WIDTH)).  x_map: x [N, F] in boxes of 128 rows x 64 K (128-byte
+// swizzle); w_map: w [T, F, G] in boxes of 1 x 64 K x 32 columns (64-byte
+// swizzle).  Threads 0-255 are the consumer warpgroups (warpgroup h owns rows
+// 64h .. 64h+63 of the tile), thread 256 issues every copy.
+template <int WIDTH>
+__global__ void __launch_bounds__(BW_THREADS, 1)
+rwm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+                      const float* __restrict__ alpha, float* __restrict__ out, int64_t N, int F, int G, int T) {
+  using Tile = Bf16Tile<WIDTH>;
+  extern __shared__ unsigned char smem_bytes[];
+  const int nkb = (int)cdiv(F, BW_BK), panel = nkb < BW_PANEL ? nkb : BW_PANEL;
+  unsigned char* xs = reinterpret_cast<unsigned char*>(align_smem(smem_bytes));  // [panel][BW_X_TILE]
+  unsigned char* ws = xs + panel * BW_X_TILE;                                     // [BW_STAGES][Tile::STAGE]
+  uint64_t* x_full = reinterpret_cast<uint64_t*>(ws + BW_STAGES * Tile::STAGE);  // [BW_PANEL]: x chunk landed
+  uint64_t* x_empty = x_full + BW_PANEL;                                          // the panel's wgmmas are done
+  uint64_t* w_full = x_empty + 1;                                                 // [BW_STAGES]: w chunk landed
+  uint64_t* w_empty = w_full + BW_STAGES;                                         // [BW_STAGES]: its wgmmas are done
+  const int tid = threadIdx.x;
+  const int64_t m0 = (int64_t)blockIdx.x * FWD_BM;
+  const int n0 = blockIdx.y * WIDTH;
+  constexpr int CONSUMER_WARPS = NT / 32;  // each arrives once on an empty barrier
+
+  if (tid == 0) {
+    for (int i = 0; i < BW_PANEL; ++i) mbar_init(&x_full[i], 1);
+    mbar_init(x_empty, CONSUMER_WARPS);
+    for (int s = 0; s < BW_STAGES; ++s) {
+      mbar_init(&w_full[s], 1);
+      mbar_init(&w_empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= NT) {  // the producer warp
+    if (tid == NT) {
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&x_map)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&w_map)) : "memory");
+      int stage = 0, parity = 0;
+      for (int kb0 = 0, p = 0; kb0 < nkb; kb0 += panel, ++p) {
+        const int width = nkb - kb0 < panel ? nkb - kb0 : panel;
+        if (p > 0) mbar_wait(x_empty, (p - 1) & 1);  // both warpgroups are done with the previous panel
+        for (int kc = 0; kc < width; ++kc) {
+          mbar_expect_tx(&x_full[kc], BW_X_TILE);
+          tma_load_2d(xs + kc * BW_X_TILE, &x_map, &x_full[kc], (kb0 + kc) * BW_BK, (int)m0);
+        }
+        for (int t = 0; t < T; ++t) {
+          for (int kc = 0; kc < width; ++kc) {
+            mbar_wait(&w_empty[stage], parity ^ 1);
+            mbar_expect_tx(&w_full[stage], Tile::STAGE);
+#pragma unroll
+            for (int b = 0; b < Tile::BOXES; ++b) {
+              tma_load_3d(ws + stage * Tile::STAGE + b * BW_BOX, &w_map, &w_full[stage], n0 + b * BW_BOX_N,
+                          (kb0 + kc) * BW_BK, t);
+            }
+            if (++stage == BW_STAGES) {
+              stage = 0;
+              parity ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int half = tid / WG, wtid = tid % WG, warp = wtid / 32, lane = tid % 32;
+  const int64_t r0 = m0 + half * TBM + warp * 16 + lane / 4, r1 = r0 + 8;
+  float acc[WIDTH / 2], res[WIDTH / 2];
+  zero(res);
+  zero(acc);
+  pin(acc);
+  int stage = 0, parity = 0;
+  for (int kb0 = 0, p = 0; kb0 < nkb; kb0 += panel, ++p) {
+    const int width = nkb - kb0 < panel ? nkb - kb0 : panel;
+    for (int t = 0; t < T; ++t) {
+      const float a0 = r0 < N ? __ldg(alpha + (int64_t)t * N + r0) : 0.f;
+      const float a1 = r1 < N ? __ldg(alpha + (int64_t)t * N + r1) : 0.f;
+      int held = 0;  // the stage of the chunk whose wgmmas may still run
+      for (int kc = 0; kc < width; ++kc) {
+        if (t == 0) mbar_wait(&x_full[kc], p & 1);
+        mbar_wait(&w_full[stage], parity);
+        __syncwarp();  // the lanes leave their waits apart; the wgmmas below are warp-aligned
+        const uint64_t da = smem_desc(xs + kc * BW_X_TILE + half * (BW_X_TILE / 2));
+        const uint64_t db = smem_desc_mn64(ws + stage * Tile::STAGE);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BW_BK / 16; ++ks) {
+          // 16 K further: 32 bytes along x's rows, 16 rows of w's 64-byte rows
+          wgmma_bf16(acc, da + 2 * ks, db + 64 * ks, kc > 0 || ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's wgmmas are done: its stage may be refilled
+        if (kc > 0 && lane == 0) mbar_arrive(&w_empty[held]);
+        held = stage;
+        if (++stage == BW_STAGES) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+      // the relation's K loop over this panel is done
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(&w_empty[held]);
+      pin(acc);
+#pragma unroll
+      for (int j = 0; j < WIDTH / 8; ++j) {  // res += alpha[t] (.) acc
+        res[4 * j] = fmaf(a0, acc[4 * j], res[4 * j]);
+        res[4 * j + 1] = fmaf(a0, acc[4 * j + 1], res[4 * j + 1]);
+        res[4 * j + 2] = fmaf(a1, acc[4 * j + 2], res[4 * j + 2]);
+        res[4 * j + 3] = fmaf(a1, acc[4 * j + 3], res[4 * j + 3]);
+      }
+      pin(acc);
+    }
+    if (lane == 0) mbar_arrive(x_empty);  // this warp's wgmmas of the panel are done
+  }
+  store_tile(out, res, N, G, m0 + half * TBM, n0, wtid);
+}
+
+// cuTensorMapEncodeTiled of the driver API, reached through the runtime so
+// that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// TMA can describe x [N, F] and w [T, F, G] in bf16: 16-byte aligned bases and
+// row pitches (F and G multiples of 8)
+bool bf16_tma_fits(const void* x, const void* w, int F, int G) {
+  return F % 8 == 0 && G % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+}
+
+// The tensor map of a contiguous bf16 tensor, dims innermost first, elements
+// copied in boxes of `box` with `swizzle`, zeros past every edge; encoded on
+// the host for every launch, since x is a new tensor every step
+bool bf16_map(CUtensorMap* map, cuuint32_t rank, const void* base, const cuuint64_t* dim, const cuuint32_t* box,
+              CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t stride[2];  // bytes, of every dim but the innermost
+  stride[0] = dim[0] * 2;
+  if (rank > 2) stride[1] = stride[0] * dim[1];
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dim, stride, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int WIDTH>
+int bf16_wgmma_launch_bn(const CUtensorMap& x_map, const CUtensorMap& w_map, const float* alpha, float* out,
+                         long long N, int F, int G, int T, cudaStream_t st) {
+  const int nkb = (int)cdiv(F, BW_BK);
+  const size_t smem = Bf16Tile<WIDTH>::smem_bytes(nkb < BW_PANEL ? nkb : BW_PANEL);
+  cudaError_t err = cudaFuncSetAttribute(rwm_bf16_wgmma_kernel<WIDTH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(cdiv(N, FWD_BM), cdiv(G, WIDTH));
+  rwm_bf16_wgmma_kernel<WIDTH><<<grid, BW_THREADS, smem, st>>>(x_map, w_map, alpha, out, N, F, G, T);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Each launcher runs on `stream` and returns cudaGetLastError() (0 on success).
@@ -914,7 +1254,33 @@ extern "C" int rwm_dalpha_launch(const float* x, const float* w, const float* go
   return sum_splits(partial, da, (long long)T * N, S, st);
 }
 
-// out [N, G] f32 from x [N, F] bf16, w [T, F, G] bf16 and alpha [T, N] f32
+// out [N, G] f32 from x [N, F] bf16, w [T, F, G] bf16 and alpha [T, N] f32, on
+// wgmma; refuses (cudaErrorInvalidValue) operands that TMA cannot describe
+extern "C" int rwm_bf16_wgmma_launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* alpha, float* out,
+                                     long long N, int F, int G, int T, void* stream) {
+  if (N <= 0 || G <= 0) return (int)cudaSuccess;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (F <= 0 || T <= 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * N * G, st);
+  if (!bf16_tma_fits(x, w, F, G)) return (int)cudaErrorInvalidValue;
+  // x [N, F] in boxes of 128 rows x 64 K, 128-byte swizzle; w [T, F, G] in
+  // boxes of 1 x 64 K x 32 columns, 64-byte swizzle
+  const cuuint64_t x_dim[2] = {(cuuint64_t)F, (cuuint64_t)N};
+  const cuuint32_t x_box[2] = {BW_BK, FWD_BM};
+  const cuuint64_t w_dim[3] = {(cuuint64_t)G, (cuuint64_t)F, (cuuint64_t)T};
+  const cuuint32_t w_box[3] = {BW_BOX_N, BW_BK, 1};
+  CUtensorMap x_map, w_map;
+  if (!bf16_map(&x_map, 2, x, x_dim, x_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !bf16_map(&w_map, 3, w, w_dim, w_box, CU_TENSOR_MAP_SWIZZLE_64B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (pick_width(N, G)) {
+    case 128: return bf16_wgmma_launch_bn<128>(x_map, w_map, alpha, out, N, F, G, T, st);
+    case 96: return bf16_wgmma_launch_bn<96>(x_map, w_map, alpha, out, N, F, G, T, st);
+    default: return bf16_wgmma_launch_bn<64>(x_map, w_map, alpha, out, N, F, G, T, st);
+  }
+}
+
+// the same on mma.sync, for any F, G and alignment
 extern "C" int rwm_bf16_forward_launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* alpha,
                                        float* out, long long N, int F, int G, int T, void* stream) {
   if (N <= 0 || G <= 0) return (int)cudaSuccess;

@@ -27,13 +27,22 @@ times over on the tensor cores, against a few tens of MB moved).
 
 Dtypes, as the Pallas kernel takes them: ``x`` and ``w`` float32 or
 bfloat16, ``alpha`` float32, the result float32.  With ``x`` and ``w`` both
-bf16 the forward is a kernel of its own (``rwm_bf16_forward_launch``): one
-bf16 tensor-core pass per product, accumulated in f32, exact products, so it
-differs from the f32 einsum of the upcast operands only in the order of its
-sums.  Where one of them is f32 the other is promoted to f32, as ``jnp.dot``
-promotes, and the f32 kernel runs.  The backward always runs in f32, on f32
-copies of ``x`` and ``w``, and returns each cotangent in its primal's dtype
-(autograd refuses any other).
+bf16 the forward is one bf16 tensor-core pass per product, accumulated in
+f32, exact products, so it differs from the f32 einsum of the upcast operands
+only in the order of its sums; :func:`forward_kernel` says which kernel takes
+the operands, from their dtypes, shapes and pointers alone:
+
+* ``"wgmma"`` (``rwm_bf16_wgmma_launch``): TMA copies into a ring, ``wgmma``
+  reading ``w`` as stored, ``x`` resident across relations; wherever TMA can
+  describe the operands;
+* ``"mma.sync"`` (``rwm_bf16_forward_launch``): the rest (F or G not a
+  multiple of 8, a base not 16-byte aligned);
+* ``"f32"``: where one of them is f32 the other is promoted to f32, as
+  ``jnp.dot`` promotes, and the f32 kernel runs.
+
+No build or launch failure switches kernels: it raises.  The backward always
+runs in f32, on f32 copies of ``x`` and ``w``, and returns each cotangent in
+its primal's dtype (autograd refuses any other).
 
 On a CPU tensor the wrapper computes the plain version (``torch.einsum`` of
 the f32 operands, gradients by autograd); on a CUDA tensor it launches the
@@ -110,14 +119,44 @@ def _launch(symbol: str, out_shape, a: torch.Tensor, b: torch.Tensor, c: torch.T
     return out
 
 
-def rwm_forward_bf16(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """The bf16 forward kernel: ``x`` and ``w`` bfloat16, ``alpha`` and the
-    ``[N, G]`` result float32."""
+def forward_kernel(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The forward kernel that contiguous ``x [N, F]`` and ``w [T, F, G]``
+    take: for two bf16 operands ``"wgmma"`` where TMA can describe them as
+    stored (16-byte row pitches, i.e. F and G multiples of 8, and 16-byte
+    aligned bases; the launcher refuses anything else), else ``"mma.sync"``;
+    ``"f32"`` for any other pair."""
+    if x.dtype == w.dtype == torch.bfloat16:
+        f, g = w.shape[1], w.shape[2]
+        tma = f % 8 == 0 and g % 8 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+        return "wgmma" if tma else "mma.sync"
+    return "f32"
+
+
+def rwm_forward_bf16_wgmma(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward on ``wgmma``: ``x`` and ``w`` bfloat16 that TMA can
+    describe, ``alpha`` and the ``[N, G]`` result float32."""
+    n, f = x.shape
+    t, _, g = w.shape
+    out = _launch("rwm_bf16_wgmma_launch", (n, g), x, w, alpha, n, f, g, t)
+    relation_weighted_matmul.bf16_launches += 1
+    return out
+
+
+def rwm_forward_bf16_mma(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward on ``mma.sync``, for any F, G and alignment."""
     n, f = x.shape
     t, _, g = w.shape
     out = _launch("rwm_bf16_forward_launch", (n, g), x, w, alpha, n, f, g, t)
-    relation_weighted_matmul.bf16_launches += 1
+    relation_weighted_matmul.bf16_mma_launches += 1
     return out
+
+
+def rwm_forward_bf16(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """The bf16 forward kernel that :func:`forward_kernel` picks."""
+    x, w = x.contiguous(), w.contiguous()
+    if forward_kernel(x, w) == "wgmma":
+        return rwm_forward_bf16_wgmma(x, w, alpha)
+    return rwm_forward_bf16_mma(x, w, alpha)
 
 
 def rwm_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -177,7 +216,8 @@ class _RelationWeightedMatmul(torch.autograd.Function):
 def relation_weighted_matmul(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """``[N, G] = sum_t alpha[t, :, None] * (x @ w[t])`` without the
     ``[T, N, G]`` intermediate.  Counters: ``relation_weighted_matmul.launches``
-    (the f32 forward), ``.bf16_launches`` (the bf16 forward),
+    (the f32 forward), ``.bf16_launches`` (the bf16 forward on ``wgmma``),
+    ``.bf16_mma_launches`` (the bf16 forward on ``mma.sync``),
     ``.dx_launches``, ``.dw_launches``, ``.dalpha_launches``."""
     _check(x, w, alpha)
     if x.device.type == "cpu":
@@ -189,6 +229,7 @@ def relation_weighted_matmul(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tens
 
 relation_weighted_matmul.launches = 0
 relation_weighted_matmul.bf16_launches = 0
+relation_weighted_matmul.bf16_mma_launches = 0
 relation_weighted_matmul.dx_launches = 0
 relation_weighted_matmul.dw_launches = 0
 relation_weighted_matmul.dalpha_launches = 0

@@ -168,12 +168,15 @@ Phases, each on its own line with elapsed seconds:
      and launches, and AssocBiGRU on the card against the CPU.
  23. bf16 compute (StepConfig compute_dtype="bfloat16", the JAX step's cast
      of the parameters and node features at apply time): K3's bf16 forward
-     (mma.sync on bf16 operands, f32 accumulation) against its plain
-     version at the bench shape and edge cases, timed beside its bound and
-     a torch.einsum yardstick on the same bf16 operands in turns, and its
-     backward's cotangent dtypes; K1 on bf16 rows at the fused note layer of
-     the 20,000-note request and of a bench batch (phase 3's and 7's
-     shapes), beside its bf16 bytes bound; the bench train step in the node
+     (wgmma fed by TMA where TMA can describe the operands, mma.sync for
+     the rest; f32 accumulation) against its plain version at the bench
+     shape and edge cases, each case naming the kernel it launched, the
+     wgmma kernel, the mma.sync kernel and a torch.einsum yardstick on the
+     same bf16 operands timed in turns beside the bound, each kernel's
+     device time, and the backward's cotangent dtypes; K1 on f32 and bf16
+     rows at the fused note layer of the 20,000-note request and of a bench
+     batch (phase 3's and 7's shapes), call and device time beside its
+     bytes bound; the bench train step in the node
      and edge-zxp layouts at bf16 (phase 8's arms node-bf16 and
      edge-zxp-bf16: launches against the prediction, bf16 forward and K1
      launches counted apart, ms per step in turns with the f32 arm of the
@@ -498,7 +501,8 @@ def check_k1(name: str, msgs, seg, x_base, num_segments, timed: bool, row_ptr=No
     """K1's kernel against its plain version; ``row_ptr``, a plan's, is passed
     as ``aggregate`` passes it.  With ``timed``, medians of the call (with the
     plan's row pointers, and without them: the call builds its own), the
-    plain version and an index_add_ yardstick."""
+    plain version and an index_add_ yardstick, and the profiler's device
+    time of the kernel with the plan's row pointers."""
     from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base, segment_mean_base_plain
 
     out, cnt = segment_mean_base(msgs, seg, x_base, num_segments, row_ptr)
@@ -533,11 +537,14 @@ def check_k1(name: str, msgs, seg, x_base, num_segments, timed: bool, row_ptr=No
         row["unplanned_ms"] = cuda_ms(lambda: segment_mean_base(msgs, seg, x_base, num_segments))
         row["plain_ms"] = cuda_ms(lambda: segment_mean_base_plain(msgs, seg, x_base, num_segments))
         row["library_ms"] = cuda_ms(library)
+        row["device_ms"] = device_ms(lambda: segment_mean_base(msgs, seg, x_base, num_segments, row_ptr),
+                                     "segment_mean_base_kernel")
         row["bound_ms"], row["bound_by"] = k1_bound_ms(e_valid, f, m, num_segments, msgs.element_size())
-        line += (f" | kernel {row['ms']:.4f} ms with the plan's row pointers ({row['unplanned_ms']:.4f} ms a "
-                 f"call without them), plain {row['plain_ms']:.4f} ms, index_add_ yardstick "
-                 f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                 f"{100 * row['bound_ms'] / row['ms']:.1f}% of the kernel's time)")
+        line += (f" | kernel {row['ms']:.4f} ms a call with the plan's row pointers ({row['unplanned_ms']:.4f} ms "
+                 f"without them), {row['device_ms']:.4f} ms on the device, plain {row['plain_ms']:.4f} ms, "
+                 f"index_add_ yardstick {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                 f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}% of the call, "
+                 f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of the device time)")
     phase(line)
     return row
 
@@ -1050,14 +1057,16 @@ def _launch_counters():
 def _reset_counts() -> None:
     k1, k2, k3, k4, k5, k6 = _launch_counters()
     k1.launches = k1.bf16_launches = k2.launches = k4.launches = k5.launches = k6.launches = 0
-    k3.launches = k3.bf16_launches = k3.dx_launches = k3.dw_launches = k3.dalpha_launches = 0
+    k3.launches = k3.bf16_launches = k3.bf16_mma_launches = k3.dx_launches = k3.dw_launches = 0
+    k3.dalpha_launches = 0
 
 
 def _counts() -> dict:
     k1, k2, k3, k4, k5, k6 = _launch_counters()
     return {"segment_mean_base": k1.launches, "segment_mean_base.bf16": k1.bf16_launches,
             "segment_softmax_agg": k2.launches, "relation_weighted_matmul": k3.launches,
-            "relation_weighted_matmul.bf16": k3.bf16_launches, "relation_weighted_matmul.dx": k3.dx_launches,
+            "relation_weighted_matmul.bf16": k3.bf16_launches,
+            "relation_weighted_matmul.bf16_mma": k3.bf16_mma_launches, "relation_weighted_matmul.dx": k3.dx_launches,
             "relation_weighted_matmul.dw": k3.dw_launches, "relation_weighted_matmul.dalpha": k3.dalpha_launches,
             "segment_sum_sorted": k4.launches, "segment_softmax_sorted": k5.launches, "halo_pull": k6.launches}
 
@@ -1079,8 +1088,10 @@ def predicted_launches(model, compute_dtype: str = "float32") -> dict:
     the GRUs of use_rnn launch none of the hand-written kernels.  Under bf16
     compute the first conv reads the bf16 projections: its K1 launches read
     bf16 rows and its K3 forwards take bf16 operands (the ``.bf16``
-    counters); every later conv reads f32 states (a mean over f32 counts),
-    and so does onset pooling."""
+    counters: the wgmma kernel, since the model's widths are multiples of 8
+    and its tensors aligned; the mma.sync kernel's ``.bf16_mma`` stays 0);
+    every later conv reads f32 states (a mean over f32 counts), and so does
+    onset pooling."""
     from analysisgnn_tpu_torch.models.hetero import fusion_groups
 
     k1, k2, k3, k1_bf16, k3_bf16 = 1, 0, 0, 0, 0
@@ -1097,6 +1108,7 @@ def predicted_launches(model, compute_dtype: str = "float32") -> dict:
             k1, k1_bf16, k3_bf16 = k1 - per_conv_k1, per_conv_k1, per_conv_k3
     return {"segment_mean_base": k1, "segment_mean_base.bf16": k1_bf16, "segment_softmax_agg": k2,
             "relation_weighted_matmul": k3 - k3_bf16, "relation_weighted_matmul.bf16": k3_bf16,
+            "relation_weighted_matmul.bf16_mma": 0,
             "relation_weighted_matmul.dx": k3, "relation_weighted_matmul.dw": k3,
             "relation_weighted_matmul.dalpha": 0, "segment_sum_sorted": 0, "segment_softmax_sorted": 0,
             "halo_pull": 0}
@@ -1978,6 +1990,20 @@ def cuda_ms_turns(fns: dict, iters: int = 20, trials: int = 7) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def device_ms_turns(fns: dict, rounds: int = 2) -> dict:
+    """``device_ms`` of several ``(fn, kernel)`` pairs measured in turns (each
+    round takes every pair in order, then in reverse), so that a drift of the
+    card's clocks reaches them all alike; the median of each.  Where a call's
+    host work outlasts its kernel, back-to-back calls (``cuda_ms_turns``)
+    time the host, and this times the kernels."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for order in (list(fns), list(fns)[::-1]):
+            for k in order:
+                times[k].append(device_ms(*fns[k]))
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def check_k6(name: str, x, halo: int, timed: bool) -> dict:
     """K6's kernel bit-equal to its plain version (it copies), in the
     allocating form and in the planned form with ``out`` that regime 2 uses
@@ -2646,40 +2672,56 @@ def k3_bf16_bound_ms(n: int, f: int, g: int, t: int) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_k3_bf16(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dict:
+def check_k3_bf16(name: str, n: int, f: int, g: int, t: int, timed: bool, expect: str = "wgmma",
+                  misalign: bool = False) -> dict:
     """K3's bf16 forward against its plain version (the f32 einsum of the
-    upcast operands); through the wrapper with autograd, the cotangents in
-    the primals' dtypes against the plain version's.  With ``timed``, the
-    kernel's call and device time, the plain version, and a torch.einsum
-    yardstick on the same bf16 operands timed in turns with the kernel."""
+    upcast operands), through the wrapper, which must launch the ``expect``
+    kernel (``relmm.forward_kernel``; ``misalign`` puts x 2 bytes off a
+    16-byte boundary).  With ``timed``: through the wrapper with autograd,
+    the cotangents in the primals' dtypes against the plain version's; the
+    mma.sync kernel on the same operands against the plain version; the
+    wgmma kernel, the mma.sync kernel and a torch.einsum yardstick on the
+    same bf16 operands timed in turns (calls back to back), the two kernels'
+    device times in turns, the plain version."""
     from analysisgnn_tpu_torch.kernels import relmm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(n * 11 + t)
     x = torch.randn(n, f, generator=gen).to(dev).bfloat16()
+    if misalign:
+        x = torch.empty(n * f + 1, dtype=torch.bfloat16, device=dev)[1:].view(n, f).copy_(x)
     w = (torch.randn(t, f, g, generator=gen) / f**0.5).to(dev).bfloat16()
     alpha = torch.rand(t, n, generator=gen).to(dev)
-    before = relmm.relation_weighted_matmul.bf16_launches
-    out = relmm.relation_weighted_matmul(x, w, alpha)  # the wrapper takes the bf16 kernel for bf16 x and w
-    if relmm.relation_weighted_matmul.bf16_launches != before + 1:
-        raise AssertionError(f"K3 bf16 {name}: the wrapper did not launch the bf16 forward")
+    k3 = relmm.relation_weighted_matmul
+    kernel = relmm.forward_kernel(x, w)
+    if kernel != expect:
+        raise AssertionError(f"K3 bf16 {name}: the wrapper picks the {kernel} kernel, not {expect}")
+    before = (k3.bf16_launches, k3.bf16_mma_launches)
+    out = k3(x, w, alpha)  # the wrapper takes a bf16 kernel for bf16 x and w
+    launched = (k3.bf16_launches - before[0], k3.bf16_mma_launches - before[1])
+    if launched != ((1, 0) if expect == "wgmma" else (0, 1)):
+        raise AssertionError(f"K3 bf16 {name}: the wrapper launched {launched} (wgmma, mma.sync), not one {expect}")
     ref = relmm.relation_weighted_matmul_plain(x, w, alpha)
     scale = relmm.relation_weighted_matmul_plain(x.abs(), w.abs(), alpha)  # the sum of |terms|
-    torch.cuda.synchronize()
-    if out.dtype != torch.float32 or out.shape != ref.shape or not torch.isfinite(out).all():
-        raise AssertionError(f"K3 bf16 {name}: {out.dtype} {tuple(out.shape)} or non-finite values")
-    err = (out - ref).abs()
-    if not bool((err <= K3_BF16_RTOL * scale).all()):
-        worst = float((err / scale.clamp_min(1e-30)).max())
-        raise AssertionError(f"K3 bf16 {name}: |kernel - plain| reaches {worst:.3e} of the sum of |terms| "
-                             f"(tol {K3_BF16_RTOL})")
-    row = {"case": name, "N": n, "F": f, "G": g, "T": t, "max_abs_err": float(err.max()) if err.numel() else 0.0}
-    line = (f"kernel check: K3 bf16 forward {name}: N={n} F={f} G={g} T={t} max|d| {row['max_abs_err']:.2e} "
-            f"(tol {K3_BF16_RTOL} of the sum of |terms|)")
+
+    def held(got, which: str) -> float:
+        torch.cuda.synchronize()
+        if got.dtype != torch.float32 or got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"K3 bf16 {name} ({which}): {got.dtype} {tuple(got.shape)} or non-finite values")
+        err = (got - ref).abs()
+        if not bool((err <= K3_BF16_RTOL * scale).all()):
+            worst = float((err / scale.clamp_min(1e-30)).max())
+            raise AssertionError(f"K3 bf16 {name} ({which}): |kernel - plain| reaches {worst:.3e} of the sum of "
+                                 f"|terms| (tol {K3_BF16_RTOL})")
+        return float(err.max()) if err.numel() else 0.0
+
+    row = {"case": name, "N": n, "F": f, "G": g, "T": t, "kernel": kernel, "max_abs_err": held(out, kernel)}
+    line = (f"kernel check: K3 bf16 forward {name}: N={n} F={f} G={g} T={t}{' x misaligned' if misalign else ''} "
+            f"-> {kernel} kernel, max|d| {row['max_abs_err']:.2e} (tol {K3_BF16_RTOL} of the sum of |terms|)")
     if timed:
         gout = torch.randn(n, g, generator=gen).to(dev)
         leaves = [v.clone().requires_grad_(True) for v in (x, w, alpha)]
-        grads = torch.autograd.grad(relmm.relation_weighted_matmul(*leaves), leaves, gout)
+        grads = torch.autograd.grad(k3(*leaves), leaves, gout)
         plain_leaves = [v.clone().requires_grad_(True) for v in (x, w, alpha)]
         want = torch.autograd.grad(relmm.relation_weighted_matmul_plain(*plain_leaves), plain_leaves, gout)
         if tuple(gr.dtype for gr in grads) != (torch.bfloat16, torch.bfloat16, torch.float32):
@@ -2689,34 +2731,47 @@ def check_k3_bf16(name: str, n: int, f: int, g: int, t: int, timed: bool) -> dic
             tol = (2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4) * float(b.float().abs().max())
             if float((a.float() - b.float()).abs().max()) > tol:
                 raise AssertionError(f"K3 bf16 {name} backward {part}: max|d| above {tol:.3e}")
+        row["mma_sync_max_abs_err"] = held(relmm.rwm_forward_bf16_mma(x, w, alpha), "mma.sync")
         a16 = alpha.bfloat16()
-        turns = cuda_ms_turns({"kernel": lambda: relmm.rwm_forward_bf16(x, w, alpha),
+        turns = cuda_ms_turns({"wgmma": lambda: relmm.rwm_forward_bf16_wgmma(x, w, alpha),
+                               "mma.sync": lambda: relmm.rwm_forward_bf16_mma(x, w, alpha),
                                "einsum": lambda: torch.einsum("tn,nf,tfg->ng", a16, x, w)})
-        row.update({"ms": turns["kernel"], "library_ms": turns["einsum"],
-                    "device_ms": device_ms(lambda: relmm.rwm_forward_bf16(x, w, alpha), "rwm_bf16"),
+        on_device = device_ms_turns({
+            "wgmma": (lambda: relmm.rwm_forward_bf16_wgmma(x, w, alpha), "rwm_bf16_wgmma"),
+            "mma.sync": (lambda: relmm.rwm_forward_bf16_mma(x, w, alpha), "rwm_bf16_forward_kernel")})
+        row.update({"ms": turns["wgmma"], "mma_sync_ms": turns["mma.sync"], "library_ms": turns["einsum"],
+                    "device_ms": on_device["wgmma"], "mma_sync_device_ms": on_device["mma.sync"],
                     "plain_ms": cuda_ms(lambda: relmm.relation_weighted_matmul_plain(x, w, alpha))})
         row["bound_ms"], row["bound_by"] = k3_bf16_bound_ms(n, f, g, t)
-        line += (f" | kernel {row['ms']:.4f} ms a call, {row['device_ms']:.4f} ms on the device, plain "
-                 f"{row['plain_ms']:.4f} ms, torch.einsum on the bf16 operands {row['library_ms']:.4f} ms (in turns "
-                 f"with the kernel); bound {row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 at "
+        line += (f" | calls in turns: wgmma {row['ms']:.4f} ms a call, mma.sync {row['mma_sync_ms']:.4f} ms "
+                 f"({row['mma_sync_ms'] / row['ms']:.2f}x), torch.einsum on the bf16 operands "
+                 f"{row['library_ms']:.4f} ms; on the device in turns wgmma {row['device_ms']:.4f} ms, mma.sync "
+                 f"{row['mma_sync_device_ms']:.4f} ms ({row['mma_sync_device_ms'] / row['device_ms']:.2f}x); plain "
+                 f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 at "
                  f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s), {100 * row['bound_ms'] / row['device_ms']:.1f}% of it on "
-                 f"the device; backward: cotangents bf16, bf16, f32 through the f32 kernels")
+                 f"the device (mma.sync {100 * row['bound_ms'] / row['mma_sync_device_ms']:.1f}%); mma.sync max|d| "
+                 f"{row['mma_sync_max_abs_err']:.2e}; backward: cotangents bf16, bf16, f32 through the f32 kernels")
     phase(line)
     return row
 
 
 def k3_bf16_checks(n_train: int) -> list:
     rows = [check_k3_bf16("train shape", n_train, 256, 256, 7, timed=True)]
-    # N not a multiple of the 64-row tile, one row, T=1; F and G not multiples of 8 (the element-wise copies)
-    for name, n, f, g, t in (("N=300", 300, 256, 256, 7), ("T=1", 1000, 256, 256, 1), ("N=1", 1, 256, 256, 7),
-                             ("F=64 G=96", 300, 64, 96, 3), ("F=40 G=24", 77, 40, 24, 2), ("F=25 G=20", 65, 25, 20, 3)):
-        rows.append(check_k3_bf16(name, n, f, g, t, timed=False))
+    # the wgmma kernel's tails: N not a multiple of the 128-row tile, one row, T=1, F short of or past the
+    # 64-deep chunk, G not a multiple of WIDTH or of a 32-column box; then the mma.sync kernel: F and G not
+    # multiples of 8, and an x whose base is not 16-byte aligned
+    for name, n, f, g, t, expect, misalign in (
+            ("N=300", 300, 256, 256, 7, "wgmma", False), ("T=1", 1000, 256, 256, 1, "wgmma", False),
+            ("N=1", 1, 256, 256, 7, "wgmma", False), ("F=64 G=96", 300, 64, 96, 3, "wgmma", False),
+            ("F=40 G=24", 77, 40, 24, 2, "wgmma", False), ("F=72 G=200", 300, 72, 200, 7, "wgmma", False),
+            ("F=25 G=20", 65, 25, 20, 3, "mma.sync", False), ("x misaligned", 300, 256, 256, 7, "mma.sync", True)):
+        rows.append(check_k3_bf16(name, n, f, g, t, timed=False, expect=expect, misalign=misalign))
     return rows
 
 
-def k1_bf16_batch_check(batch) -> dict:
-    """K1 on bf16 rows at the fused note layer of a bench train batch (the
-    shape of check_k1_backward), timed."""
+def k1_batch_checks(batch) -> list:
+    """K1 on f32 and on bf16 rows at the fused note layer of a bench train
+    batch (the shape of check_k1_backward), timed."""
     from analysisgnn_tpu_torch.core.graph import NOTE, NOTE_EDGE_TYPES
     from analysisgnn_tpu_torch.models.fused import fused_plan
 
@@ -2724,10 +2779,10 @@ def k1_bf16_batch_check(batch) -> dict:
     plan = fused_plan([batch.edges(et) for et in NOTE_EDGE_TYPES], n)
     gen = torch.Generator(device="cpu").manual_seed(3)
     f = TRAIN_CFG["hidden_channels"]
-    msgs = torch.randn(plan.seg.shape[0], f, generator=gen).cuda().bfloat16()
-    x_base = torch.randn(n, f, generator=gen).cuda().bfloat16()
-    return check_k1("fused note layer T=7 of a bench batch", msgs, plan.seg, x_base, plan.num_segments, timed=True,
-                    row_ptr=plan.row_ptr)
+    msgs = torch.randn(plan.seg.shape[0], f, generator=gen).cuda()
+    x_base = torch.randn(n, f, generator=gen).cuda()
+    return [check_k1("fused note layer T=7 of a bench batch", m, plan.seg, b, plan.num_segments, timed=True,
+                     row_ptr=plan.row_ptr) for m, b in ((msgs, x_base), (msgs.bfloat16(), x_base.bfloat16()))]
 
 
 def bf16_turns(trained: dict, batches: list) -> dict:
@@ -2861,7 +2916,8 @@ def main() -> None:
     k2_rows = k2_checks(batches[0])
     phase("kernel check: K3, K1 backward and K2 done")
     k3_bf16_rows = k3_bf16_checks(n_train)
-    k1_bf16_rows = [r for r in rows if r["rows"] == "bfloat16"] + [k1_bf16_batch_check(batches[0])]
+    k1_batch = k1_batch_checks(batches[0])  # f32 rows, bf16 rows
+    k1_bf16_rows = [r for r in rows if r["rows"] == "bfloat16"] + [k1_batch[1]]
     phase("kernel check: K3's bf16 forward and K1 on bf16 rows done")
     trained = {arm: train(arm, batches) for arm in ARMS}
     turns = bf16_turns(trained, batches)
@@ -2949,15 +3005,20 @@ def main() -> None:
         "source": "analysisgnn_tpu_torch/csrc/segment_mean_base.cu",
         "replaces": "analysisgnn_tpu/kernels/pallas_segment.py:263",
         "launches": served["main_path_launches"],
-        "max_abs_err": max(max(r["max_abs_err"] for r in rows), k1_backward["max_abs_err"]),
+        "max_abs_err": max(max(r["max_abs_err"] for r in rows), k1_backward["max_abs_err"],
+                           k1_batch[0]["max_abs_err"]),
         "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": f"{main_row['case']}: E={main_row['E']} (valid {main_row['E_valid']}) "
                  f"F={main_row['F']} S={main_row['S']}",
-        "onset_pooling": {k: rows[1][k] for k in ("E", "E_valid", "S", "ms", "plain_ms", "library_ms", "bound_ms")},
+        "onset_pooling": {k: rows[1][k] for k in ("E", "E_valid", "S", "ms", "device_ms", "plain_ms", "library_ms",
+                                                  "bound_ms")},
+        "bench_batch": {k: k1_batch[0][k] for k in ("case", "E", "E_valid", "S", "ms", "device_ms", "plain_ms",
+                                                    "library_ms", "bound_ms", "bound_by")},
         "train_launches": {impl: r["launches"]["segment_mean_base"] for impl, r in trained.items()},
         "backward": k1_backward,
     },
@@ -3049,11 +3110,28 @@ def main() -> None:
         "source": "analysisgnn_tpu_torch/csrc/relation_weighted_matmul.cu",
         "replaces": "analysisgnn_tpu/kernels/pallas_relmm.py:93",
         "launches": kernels[1]["bf16_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in k3_bf16_rows), "ms": k3b["ms"], "plain_ms": k3b["plain_ms"],
-        "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"],
-        "device_ms": k3b["device_ms"],
+        "max_abs_err": max(r["max_abs_err"] for r in k3_bf16_rows if r["kernel"] == "wgmma"), "ms": k3b["ms"],
+        "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"], "bound_by": k3b["bound_by"],
+        "library_ms": k3b["library_ms"], "device_ms": k3b["device_ms"],
+        "mma_sync_ms": k3b["mma_sync_ms"], "mma_sync_device_ms": k3b["mma_sync_device_ms"],
         "shape": f"train step: N={k3b['N']} F={k3b['F']} G={k3b['G']} T={k3b['T']}, x and w bf16, alpha and out f32",
         "per_step": {a: trained[a]["launches_per_step"]["relation_weighted_matmul.bf16"] for a in bf16_arms},
+        "note": "rwm_bf16_wgmma_kernel: TMA ring, wgmma reading w MN-major, x resident across relations",
+    })
+    # the mma.sync kernel takes the bf16 operands that TMA cannot describe: off the main path; timed in turns
+    # with the wgmma kernel at the train shape, checked there and at its own edge cases
+    kernels.append({
+        "name": "relation_weighted_matmul.bf16_mma", "route": "cuda",
+        "source": "analysisgnn_tpu_torch/csrc/relation_weighted_matmul.cu",
+        "replaces": "analysisgnn_tpu/kernels/pallas_relmm.py:93",
+        "launches": sum(trained[a]["launches"]["relation_weighted_matmul.bf16_mma"] for a in bf16_arms),
+        "max_abs_err": max([k3b["mma_sync_max_abs_err"]]
+                           + [r["max_abs_err"] for r in k3_bf16_rows if r["kernel"] == "mma.sync"]),
+        "ms": k3b["mma_sync_ms"], "plain_ms": k3b["plain_ms"], "bound_ms": k3b["bound_ms"],
+        "bound_by": k3b["bound_by"], "library_ms": k3b["library_ms"], "device_ms": k3b["mma_sync_device_ms"],
+        "shape": f"train step: N={k3b['N']} F={k3b['F']} G={k3b['G']} T={k3b['T']} (timed there in turns with the "
+                 f"wgmma kernel; the path sends it only F or G not a multiple of 8, or a misaligned base)",
+        "note": "rwm_bf16_forward_kernel: mma.sync m16n8k16, one chunk in flight; no model shape takes it",
     })
     k1b = k1_bf16_rows[0]
     kernels.append({
@@ -3062,10 +3140,12 @@ def main() -> None:
         "launches": sum(trained[a]["launches"]["segment_mean_base.bf16"] for a in bf16_arms),
         "max_abs_err": max(r["max_abs_err"] for r in k1_bf16_rows), "ms": k1b["ms"], "plain_ms": k1b["plain_ms"],
         "bound_ms": k1b["bound_ms"], "bound_by": k1b["bound_by"], "library_ms": k1b["library_ms"],
+        "device_ms": k1b["device_ms"],
         "shape": f"{k1b['case']}: E={k1b['E']} (valid {k1b['E_valid']}) F={k1b['F']} S={k1b['S']}, bf16 rows",
-        "bench_batch": {k: k1_bf16_rows[1][k] for k in ("case", "E", "E_valid", "S", "ms", "plain_ms", "library_ms",
-                                                          "bound_ms", "bound_by")},
-        "f32_rows_ms": main_row["ms"], "f32_rows_bound_ms": main_row["bound_ms"],
+        "bench_batch": {k: k1_bf16_rows[1][k] for k in ("case", "E", "E_valid", "S", "ms", "device_ms", "plain_ms",
+                                                          "library_ms", "bound_ms", "bound_by")},
+        "f32_rows_ms": main_row["ms"], "f32_rows_device_ms": main_row["device_ms"],
+        "f32_rows_bound_ms": main_row["bound_ms"],
         "per_step": {a: trained[a]["launches_per_step"]["segment_mean_base.bf16"] for a in bf16_arms},
     })
     per_step = ", ".join(f"{arm} {r['median_ms']:.2f}" for arm, r in trained.items())
