@@ -13,7 +13,9 @@ differences handled here:
   ``[out, in]``: transposed;
 * stacked parameters (``FusedHeteroSage`` ``w_neigh [T, F, F]``, ``w_self``,
   ``w_agg``, ``b_*``; ``FusedTaskHeads`` ``w1``, ``w2``, ``b*``, ``ln_*``) keep
-  their layout;
+  their layout; a hetero layer's ``fused_{t}`` is ``fused.{t}``, its
+  ``conv_{src}__{rel}__{dst}`` SageConv is ``convs.{src}__{rel}__{dst}`` and
+  its ``self_{t}`` Dense ``selfs.{t}``;
 * flax ``LayerNorm_i`` / ``Dense_i`` of a deep projection are ``norm_i`` /
   ``dense_i``; a LayerNorm's ``scale`` is the torch ``weight``;
 * the logit-fusion heads' ``proj_{task}``, ``projnorm_{task}`` and

@@ -82,28 +82,29 @@ def _range_edges(onset: np.ndarray, lo_vals: np.ndarray, hi_vals: np.ndarray,
 
 
 def _rest_edges(onset: np.ndarray, end: np.ndarray) -> np.ndarray:
-    """Silence-gap edges: end-of-note → first onset group after the gap."""
-    uniq_ends = np.unique(end)[:-1] if len(end) else np.zeros(0, np.int64)
-    # ends that do not coincide with any onset == true silences
-    is_silence = ~np.isin(uniq_ends, onset)
-    silent_ends = uniq_ends[is_silence]
-    if silent_ends.size == 0:
-        return np.zeros((2, 0), np.int64)
-    srcs, dsts = [], []
+    """Silence-gap edges: end-of-note -> first onset group after the gap.
+
+    Ordered by the source's end, then the source, then the destination (the
+    order of the JAX package's loop over the silent ends, which the sampler's
+    draws follow).  Notes are stable-sorted by end, so the enders of one end
+    come out in index order; each silent end's enders and next onset group
+    are found with ``searchsorted``."""
     n = len(onset)
-    for et in silent_ends:
-        dst_lo = int(np.searchsorted(onset, et, side="right"))
-        if dst_lo >= n:
-            continue
-        nxt = onset[dst_lo]
-        dst_hi = int(np.searchsorted(onset, nxt, side="right"))
-        src_idx = np.flatnonzero(end == et)
-        dst_idx = np.arange(dst_lo, dst_hi, dtype=np.int64)
-        srcs.append(np.repeat(src_idx, len(dst_idx)))
-        dsts.append(np.tile(dst_idx, len(src_idx)))
-    if not srcs:
+    if n == 0:
         return np.zeros((2, 0), np.int64)
-    return np.stack([np.concatenate(srcs), np.concatenate(dsts)])
+    ends = np.unique(end)[:-1]  # the last end has no onset after it
+    dst_lo = np.searchsorted(onset, ends, side="right")
+    # a silence: no onset at the end, and some onset after it
+    keep = (np.searchsorted(onset, ends, side="left") == dst_lo) & (dst_lo < n)
+    ends, dst_lo = ends[keep], dst_lo[keep]
+    dst_hi = np.searchsorted(onset, onset[dst_lo], side="right")
+    order = np.argsort(end, kind="stable")
+    sorted_end = end[order]
+    src_lo = np.searchsorted(sorted_end, ends, side="left")
+    enders = np.searchsorted(sorted_end, ends, side="right") - src_lo
+    src = order[multi_arange(src_lo, enders)]  # every ender of every silent end, in order
+    width = np.repeat(dst_hi - dst_lo, enders)  # the size of each ender's next onset group
+    return np.stack([np.repeat(src, width), multi_arange(np.repeat(dst_lo, enders), width)]).astype(np.int64)
 
 
 def build_score_graph(
@@ -111,12 +112,16 @@ def build_score_graph(
     measures: Optional[np.ndarray] = None,
     add_beats: bool = True,
     add_measures: bool = True,
+    use_native: bool = True,
 ) -> ScoreGraphArrays:
     """note array (sorted by onset_div, pitch) → typed edge lists.
 
     ``measures``: optional ``[M, 2]`` (start_div, end_div) spans; when absent
     and ``add_measures`` is set, measures are derived from the downbeat grid
-    (``ts_beats`` beats per measure).
+    (``ts_beats`` beats per measure).  The four base note relations come from
+    the C++ builder (``data/native.py``, compiled at first use; a failed build
+    raises) or, with ``use_native=False``, from the numpy functions above:
+    the same arrays in the same order.
     """
     onset = np.ascontiguousarray(note_array["onset_div"], dtype=np.int64)
     dur = np.ascontiguousarray(note_array["duration_div"], dtype=np.int64)
@@ -126,10 +131,17 @@ def build_score_graph(
     n = len(onset)
 
     edges: Dict[EdgeType, np.ndarray] = {}
-    edges[(NOTE, "onset", NOTE)] = _onset_edges(onset)
-    consecutive = _range_edges(onset, end, end, "left", "right")
-    during = _range_edges(onset, onset, end, "right", "left")
-    rest = _rest_edges(onset, end)
+    if use_native:
+        from analysisgnn_tpu_torch.data.native import build_note_edges_native
+
+        base = build_note_edges_native(onset, dur)
+        edges[(NOTE, "onset", NOTE)] = base["onset"]
+        consecutive, during, rest = base["consecutive"], base["during"], base["rest"]
+    else:
+        edges[(NOTE, "onset", NOTE)] = _onset_edges(onset)
+        consecutive = _range_edges(onset, end, end, "left", "right")
+        during = _range_edges(onset, onset, end, "right", "left")
+        rest = _rest_edges(onset, end)
     edges[(NOTE, "consecutive", NOTE)] = consecutive
     edges[(NOTE, "during", NOTE)] = during
     edges[(NOTE, "rest", NOTE)] = rest

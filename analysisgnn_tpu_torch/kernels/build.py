@@ -1,12 +1,16 @@
-"""Build a CUDA source under ``csrc/`` with ``nvcc`` and load it with ctypes.
+"""Build a source under ``csrc/`` and load it with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and includes
 no PyTorch header, so ``nvcc`` compiles it in seconds into a shared library.
-The library lands in ``analysisgnn_tpu_torch/_build/`` (ignored by git), keyed
-by a hash of the source and the flags.  It is written under a temporary name
-and renamed into place, so a killed build leaves neither a half-written
-library nor a lock behind.  Nothing is built at import time: the first launch
-builds, or a caller builds up front with :func:`build` or :func:`build_all`.
+A ``csrc/<name>.cpp`` (the host edge builder) is host C++, compiled with
+``g++``; its flags name no ``-march``, so a library left behind runs on any
+x86-64 host.  The library lands in ``analysisgnn_tpu_torch/_build/`` (ignored
+by git), keyed by a hash of the source and the flags.  It is written under a
+temporary name and renamed into place, so builds that race (test workers, a
+prefetch thread) each leave a whole library, and a killed build leaves
+neither a half-written library nor a lock behind.  Nothing is built at import
+time: the first launch builds, or a caller builds up front with :func:`build`
+or :func:`build_all`.  A build that fails raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -29,6 +34,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+CXX = "g++"
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -44,30 +51,41 @@ def _nvcc() -> str:
     return cand
 
 
+def _source(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    """``csrc/<name>.cu`` and nvcc's flags, else ``csrc/<name>.cpp`` and g++'s."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return (cu, NVCC_FLAGS) if cu.exists() else (CSRC_DIR / f"{name}.cpp", CXX_FLAGS)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src, flags = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(name: str) -> Tuple[float, str]:
-    """Compile ``csrc/<name>.cu`` unless it is built already.  Returns the wall
-    seconds (0.0 when already built) and the compiler's output (ptxas register
-    report); raises with that output if ``nvcc`` fails."""
+    """Compile ``csrc/<name>.cu`` (or ``.cpp``) unless it is built already.
+    Returns the wall seconds (0.0 when already built) and the compiler's
+    output (ptxas register report); raises with that output if the compiler
+    fails or cannot run."""
     out = library_path(name)
     if out.exists():
         return 0.0, ""
+    src, flags = _source(name)
+    compiler = _nvcc() if src.suffix == ".cu" else CXX
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}.{threading.get_ident()}")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+    try:
+        proc = subprocess.run(
+            [compiler, *flags, "-o", str(tmp), str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+    except OSError as err:
+        raise RuntimeError(f"build of {src.name} failed: cannot run {compiler!r}: {err}") from err
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"CUDA build of {name} failed (nvcc exit {proc.returncode}):\n{proc.stdout}")
+        raise RuntimeError(f"build of {src.name} failed ({compiler} exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)
     return seconds, proc.stdout
 
@@ -81,7 +99,7 @@ def build_all(names: Sequence[str]) -> Dict[str, Tuple[float, str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` (or ``.cpp``), built on first use."""
     lib = _loaded.get(name)
     if lib is None:
         build(name)

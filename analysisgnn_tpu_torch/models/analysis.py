@@ -76,6 +76,8 @@ class AnalysisGNN(nn.Module):
         use_rnn: bool = False,
         hgt_stage_dtype: str = "float32",
         use_edge_decoder: bool = False,
+        remat: bool = False,
+        final_dropout: bool = False,
     ):
         super().__init__()
         encoder_type = encoder_type.lower()
@@ -115,15 +117,16 @@ class AnalysisGNN(nn.Module):
                 conv_impl=conv_impl,
             )
         else:
+            # remat and final_dropout are HybridGNN knobs: the JAX model passes them to no other encoder
             self.encoder = HybridGNN(
                 hidden_channels, num_layers, self.node_types, self.edge_types, use_jk=use_jk, final_norm=final_norm,
-                dropout=dropout, conv_impl=conv_impl,
+                dropout=dropout, conv_impl=conv_impl, final_dropout=final_dropout, remat=remat,
             )
         if plain_proj:
             self.project_enc = PlainProjection(2 * hidden_channels, out_channels)
         else:
             self.project_enc = EncoderProjection(2 * hidden_channels, hidden_channels, out_channels, dropout)
-        self.heads = TaskHeads(self.task_dict, out_channels, logit_fusion)
+        self.heads = TaskHeads(self.task_dict, out_channels, logit_fusion, dropout)
         self.use_rnn = use_rnn
         if use_rnn:
             self.rnn = StackedBiGRU(out_channels, out_channels, num_layers=2)
@@ -175,8 +178,12 @@ class AnalysisGNN(nn.Module):
             x = self.rnn_proj(self.rnn_norm(self.rnn(x, segment_starts(batch[NOTE]))))
         return x
 
-    def classify(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.heads(x)
+    def classify(
+        self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
+        """Per-task logits; with logit fusion the cross-task attention's
+        dropout runs unless ``deterministic``, drawn from ``generator``."""
+        return self.heads(x, deterministic, generator)
 
     def decode_edges(
         self,
@@ -203,7 +210,7 @@ class AnalysisGNN(nn.Module):
             x_dict, edge_index_dict, pitch_spelling, key_signature, num_target_nodes, deterministic, generator,
             batch,
         )
-        return self.classify(x)
+        return self.classify(x, deterministic, generator)
 
 
 # The serving configuration of the repo's trained HybridGNN checkpoints
@@ -237,9 +244,11 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
     read as the JAX predict CLI reads them (``analysisgnn_tpu/cli/
     predict.py::load_model_and_params``): a config without ``final_norm``
     or ``plain_proj`` predates them and means the raw final conv and the
-    deep projections.  ``use_edge_decoder`` is no key of a saved config: the
-    Trainer adds it for the edge-consistency loss, as the JAX Trainer builds
-    its model with ``use_edge_decoder=use_edge_loss``."""
+    deep projections.  ``use_edge_decoder``, ``remat`` and ``final_dropout``
+    are no keys of a saved config: the Trainer adds them, as the JAX Trainer
+    builds its model with ``use_edge_decoder=use_edge_loss`` and its
+    ``TrainConfig``'s ``remat`` and ``final_dropout`` (neither changes a
+    parameter, nor what a forward without dropout computes)."""
     for key, allowed in _SUPPORTED.items():
         if key in cfg and cfg[key] not in allowed:
             raise NotImplementedError(f"model_config {key}={cfg[key]!r} is not ported (supported: {allowed})")
@@ -267,6 +276,8 @@ def model_from_config(cfg: Mapping, device: "str | torch.device" = "cuda") -> An
             use_rnn=cfg.get("use_rnn", False),
             hgt_stage_dtype=cfg.get("hgt_stage_dtype", "float32"),
             use_edge_decoder=cfg.get("use_edge_decoder", False),
+            remat=cfg.get("remat", False),
+            final_dropout=cfg.get("final_dropout", False),
         )
 
 

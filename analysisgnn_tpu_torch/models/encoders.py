@@ -18,6 +18,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from analysisgnn_tpu_torch.core.graph import BEAT, MEASURE, NOTE, EdgeType
 from analysisgnn_tpu_torch.kernels.segment_mean import spread_rows
@@ -37,11 +39,21 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 class HybridGNN(nn.Module):
     """Hetero SAGE layers with ReLU -> L2-norm -> dropout between them,
     optional LSTM-attention JumpingKnowledge over the note states, and a final
-    hetero conv (ReLU -> L2-norm on its output when ``final_norm``).
+    hetero conv (ReLU -> L2-norm on its output when ``final_norm``, then
+    dropout when ``final_dropout``, whatever ``final_norm`` is).
     ``conv_impl`` is the fused-SAGE layout of every hetero conv
     (``models/fused.py``).  ``in_channels`` is the width of the first conv's
     input (``hidden`` by default; flax infers it from the input, and the
-    chord encoders feed raw note features in)."""
+    chord encoders feed raw note features in).
+
+    ``remat`` recomputes each hidden conv in the backward pass instead of
+    keeping its per-edge activations (the JAX ``nn.remat(HeteroConv)``; not
+    the final conv): ``torch.utils.checkpoint`` around the conv alone, with
+    the edge plans and the parameters as they are at the forward (bf16 casts
+    under the bf16 step) held by the closure.  Dropout stays outside the
+    recomputed region: checkpoint restores the global RNG, not the explicit
+    generator the dropout draws from, so a recomputed dropout would draw
+    other masks."""
 
     def __init__(
         self,
@@ -54,9 +66,13 @@ class HybridGNN(nn.Module):
         dropout: float = 0.0,
         conv_impl: str = "node",
         in_channels: Optional[int] = None,
+        final_dropout: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
         self.final_norm = final_norm
+        self.final_dropout = final_dropout
+        self.remat = remat
         self.dropout = dropout
         widths = [hidden if in_channels is None else in_channels] + [hidden] * num_layers
         self.layers = nn.ModuleList(
@@ -80,7 +96,7 @@ class HybridGNN(nn.Module):
         h = dict(x_dict)
         note_states = []
         for layer in self.layers:
-            h = {t: l2_normalize(torch.relu(v)) for t, v in layer(h, plans).items()}
+            h = {t: l2_normalize(torch.relu(v)) for t, v in self._conv(layer, h, plans).items()}
             h = {t: dropout(v, self.dropout, deterministic, generator) for t, v in h.items()}
             note_states.append(h[NOTE])
         if self.jk is not None:
@@ -88,7 +104,19 @@ class HybridGNN(nn.Module):
         y = self.final(h, plans)[NOTE]
         if self.final_norm:
             y = l2_normalize(torch.relu(y))
+        if self.final_dropout:
+            y = dropout(y, self.dropout, deterministic, generator)
         return y
+
+    def _conv(self, layer: HeteroConv, h: Dict[str, torch.Tensor], plans) -> Dict[str, torch.Tensor]:
+        """A hidden conv, recomputed in the backward under ``remat`` (only
+        where autograd records: a forward without gradients keeps nothing)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return layer(h, plans)
+        state = {**dict(layer.named_parameters()), **dict(layer.named_buffers())}
+        return checkpoint(
+            lambda x: functional_call(layer, state, (x, plans)), h, use_reentrant=False, preserve_rng_state=False
+        )
 
 
 # ------------------------------------------------------------------ HybridHGT

@@ -50,23 +50,30 @@ class CrossTaskTransformer(nn.Module):
     to ``heads x proj_dim / heads``, scores scaled by ``1 / sqrt(head_dim)``,
     an output projection) on ``[N, T, proj_dim]``.  The flax kernels
     ``[in, heads, head_dim]`` and ``[heads, head_dim, out]`` are stored as
-    Linears over the flattened ``heads * head_dim`` axis."""
+    Linears over the flattened ``heads * head_dim`` axis.  In training the
+    attention weights take flax's broadcast dropout: one ``[T, T]`` mask for
+    every node and head."""
 
-    def __init__(self, proj_dim: int, num_heads: int = XTASK_HEADS):
+    def __init__(self, proj_dim: int, num_heads: int = XTASK_HEADS, rate: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.rate = rate
         self.query = Linear(proj_dim, proj_dim)
         self.key = Linear(proj_dim, proj_dim)
         self.value = Linear(proj_dim, proj_dim)
         self.out = Linear(proj_dim, proj_dim)
         self.norm = layer_norm(proj_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         n, t, f = x.shape
         split = lambda y: y.reshape(n, t, self.num_heads, f // self.num_heads)
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
         q = q / math.sqrt(q.shape[-1])
         w = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", *promote(q, k)), dim=-1)
+        if not deterministic and self.rate > 0:
+            w = w * dropout(w.new_ones(t, t), self.rate, deterministic, generator)
         attended = self.out(torch.einsum("nhqk,nkhd->nqhd", *promote(w, v)).reshape(n, t, f))
         return self.norm(x + attended)
 
@@ -75,10 +82,13 @@ class TaskHeads(nn.Module):
     """The task heads of the analysis model (hidden width ``out_channels //
     2``), with the optional cross-task logit fusion: each task's logits
     projected (Linear -> ReLU -> LayerNorm) to ``out_channels // 2``,
-    attention across the tasks, and a Linear back to each task's classes.
-    At inference the attention's dropout is the identity."""
+    attention across the tasks (its weights dropped at ``dropout`` in
+    training), and a Linear back to each task's classes."""
 
-    def __init__(self, task_dict: Sequence[Tuple[str, int]], out_channels: int, logit_fusion: bool = False):
+    def __init__(
+        self, task_dict: Sequence[Tuple[str, int]], out_channels: int, logit_fusion: bool = False,
+        dropout: float = 0.1,
+    ):
         super().__init__()
         half = out_channels // 2
         self.task_dict = tuple(task_dict)
@@ -87,17 +97,19 @@ class TaskHeads(nn.Module):
         if logit_fusion:
             self.proj = nn.ModuleDict({task: Linear(n_cls, half) for task, n_cls in self.task_dict})
             self.projnorm = nn.ModuleDict({task: layer_norm(half) for task, _ in self.task_dict})
-            self.xtask = CrossTaskTransformer(half)
+            self.xtask = CrossTaskTransformer(half, rate=dropout)
             self.fusion = nn.ModuleDict({task: Linear(half, n_cls) for task, n_cls in self.task_dict})
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(
+        self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None
+    ) -> Dict[str, torch.Tensor]:
         raw = self.clf(x)
         if not self.logit_fusion:
             return raw
         stack = torch.stack(
             [self.projnorm[task](torch.relu(self.proj[task](raw[task]))) for task, _ in self.task_dict], dim=1
         )
-        enhanced = self.xtask(stack)  # [N, T, half]
+        enhanced = self.xtask(stack, deterministic, generator)  # [N, T, half]
         return {task: self.fusion[task](enhanced[:, i]) for i, (task, _) in enumerate(self.task_dict)}
 
 

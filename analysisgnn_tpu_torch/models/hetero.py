@@ -1,9 +1,10 @@
 """Heterogeneous conv dispatch (counterpart of ``analysisgnn_tpu/models/hetero.py``,
-the fused-SAGE path with mean or sum reduction across edge types).
+SAGE relations with mean or sum reduction across edge types).
 
-A node type with two or more same-type relations gets one
-:class:`FusedHeteroSage` over all of them, in the layout ``conv_impl`` names
-(``models/fused.py``); every other relation gets its own :class:`SageConv`.
+By default (``fused=True``) a node type with two or more same-type relations
+gets one :class:`FusedHeteroSage` over all of them, in the layout
+``conv_impl`` names (``models/fused.py``); every other relation gets its own
+:class:`SageConv`.  ``fused=False`` gives every relation its own SageConv.
 A node type's next state is the mean (``aggr="mean"``) or the sum
 (``aggr="sum"``, the cadence family's ``HierarchicalHeteroSage``) of the
 contributions of the relations whose source it is; a type with none gets a
@@ -33,8 +34,13 @@ from analysisgnn_tpu_torch.models.fused import EdgePlan, FusedHeteroSage, edge_p
 from analysisgnn_tpu_torch.models.mlp import Linear
 
 
-def fusion_groups(edge_types: Sequence[EdgeType]) -> Tuple[Dict[str, List[EdgeType]], List[EdgeType]]:
-    """(node type -> its fused same-type relations, the remaining relations)."""
+def fusion_groups(
+    edge_types: Sequence[EdgeType], fused: bool = True
+) -> Tuple[Dict[str, List[EdgeType]], List[EdgeType]]:
+    """(node type -> its fused same-type relations, the remaining relations);
+    no groups unless ``fused``."""
+    if not fused:
+        return {}, list(edge_types)
     by_type: Dict[str, List[EdgeType]] = {}
     for et in edge_types:
         if et[0] == et[2]:
@@ -56,6 +62,7 @@ def plan_hetero(
     edge_types: Sequence[EdgeType],
     capacities: Mapping[str, int],
     conv_impl: str = "node",
+    fused: bool = True,
 ) -> Dict[object, Union[SegmentPlan, EdgePlan]]:
     """Every plan one hetero layer needs, keyed by node type (fused groups:
     a K1 edge order for ``conv_impl="node"``, the stacked ``[T, E_max]``
@@ -63,7 +70,7 @@ def plan_hetero(
     same for every layer, so it is built once per graph.  Relations the
     graph lacks get no plan, so the layers skip them."""
     present = set(present_relations(edge_types, edge_index_dict, capacities))
-    groups, singles = fusion_groups(edge_types)
+    groups, singles = fusion_groups(edge_types, fused)
     make = fused_plan if conv_impl == "node" else edge_plan
     plans: Dict[object, Union[SegmentPlan, EdgePlan]] = {}
     for t, rels in groups.items():
@@ -87,13 +94,13 @@ AGGRS = ("mean", "sum")
 class HeteroConv(nn.Module):
     def __init__(
         self, in_features: int, out_features: int, node_types: Sequence[str], edge_types: Sequence[EdgeType],
-        conv_impl: str = "node", aggr: str = "mean",
+        conv_impl: str = "node", aggr: str = "mean", fused: bool = True,
     ):
         super().__init__()
         if aggr not in AGGRS:
             raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
         self.aggr = aggr
-        self.groups, self.singles = fusion_groups(edge_types)
+        self.groups, self.singles = fusion_groups(edge_types, fused)
         self.fused = nn.ModuleDict({
             t: FusedHeteroSage(in_features, out_features, len(rels), reduce="sum", impl=conv_impl)
             for t, rels in self.groups.items()

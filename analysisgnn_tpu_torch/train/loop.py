@@ -20,8 +20,7 @@ their count, the step, the dropout generator, the teacher, the EWC fisher
 and means, and FAMO's state) for ``resume``.
 
 Not ported, and refused: W&B logging (ROADMAP queue 1 item 7.3: it needs the
-network); ``remat``, ``final_dropout`` and the Dense-only torch-style init
-(item 11).
+network).
 """
 
 from __future__ import annotations
@@ -130,28 +129,11 @@ class TrainConfig:
     device: str = "cuda"  # the GPU unless the caller asks for the CPU
 
 
-_ITEM7 = "is not ported (ROADMAP queue 1 item 7.3: W&B needs the network)"
-_ITEM11 = "is not ported yet: it comes with the remaining HybridGNN knobs (ROADMAP queue 1 item 11)"
-_SERVE_ONLY = "is not ported for training yet: the port serves such checkpoints (ROADMAP queue 1 item 11)"
-
-
-def _refuse(cfg: TrainConfig) -> None:
-    refused = {
-        "use_wandb": (cfg.use_wandb, _ITEM7),
-        "remat": (cfg.remat, _ITEM11),
-        "final_dropout": (cfg.final_dropout, _ITEM11),
-        "fused_torch_init=False": (cfg.torch_init and not cfg.fused_torch_init, _ITEM11),
-        "plain_proj=False (--deep_proj)": (not cfg.plain_proj, _SERVE_ONLY),
-        "logit_fusion": (cfg.logit_fusion, _SERVE_ONLY),
-    }
-    for name, (on, why) in refused.items():
-        if on:
-            raise NotImplementedError(f"TrainConfig {name} {why}")
-
-
 class Trainer:
     def __init__(self, config: TrainConfig, datamodule: AnalysisDataModule):
-        _refuse(config)
+        if config.use_wandb:
+            raise NotImplementedError("TrainConfig use_wandb is not ported (ROADMAP queue 1 item 7.3: W&B needs the "
+                                      "network)")
         self.cfg = config
         self.dm = datamodule
         self.device = resolve_device(config.device)
@@ -167,9 +149,13 @@ class Trainer:
             "hgt_softmax_stab": config.hgt_softmax_stab, "hgt_stage_dtype": config.hgt_stage_dtype,
             "add_beats": config.add_beats, "add_measures": config.add_measures,
         }
-        # the edge decoder is the Trainer's addition (no key of model_config.json), as in the JAX Trainer
-        self.model = model_from_config({**self.model_config, "use_edge_decoder": config.use_edge_loss},
-                                       device=self.device)
+        # the edge decoder, remat and final dropout are the Trainer's additions (no keys of model_config.json),
+        # as in the JAX Trainer
+        self.model = model_from_config(
+            {**self.model_config, "use_edge_decoder": config.use_edge_loss, "remat": config.remat,
+             "final_dropout": config.final_dropout},
+            device=self.device,
+        )
         self.history: List[Dict] = []
         self.best_val = float("inf")
         # host seconds of each train step call (each step ends in a host sync)
@@ -188,7 +174,7 @@ class Trainer:
         else:
             init_parameters(self.model, torch.Generator(device="cpu").manual_seed(self.cfg.seed))
             if self.cfg.torch_init:
-                torch_style_reinit(self.model, seed=self.cfg.seed)
+                torch_style_reinit(self.model, seed=self.cfg.seed, fused=self.cfg.fused_torch_init)
         total_steps = sum(self._epochs_per_task()) * max(self.dm.steps_per_epoch(self.dm.main_tasks[0]), 1)
         schedule = warmup_cosine_schedule(self.cfg.lr, total_steps=max(total_steps, 10))
         self.optimizer = make_optimizer(schedule, self.cfg.weight_decay)

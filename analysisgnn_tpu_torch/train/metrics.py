@@ -1,12 +1,9 @@
 """Masked evaluation metrics (counterpart of ``analysisgnn_tpu/train/metrics.py``):
-per-task accuracy and the sufficient statistics of split-level macro-F1,
-their note-weighted accumulation across batches, and the composite
-onset-wise RNA accuracy with Cantor-pair onset dedup and its NCT-masked
-variant.
-
-``masked_macro_f1``, ``roc_auc`` and ``linear_assignment_score`` have no
-caller on the ported paths; they come with their callers (ROADMAP queue 1
-item 7 and item 11).
+per-task accuracy, one batch's macro-F1 and the sufficient statistics of
+split-level macro-F1, their note-weighted accumulation across batches, the
+composite onset-wise RNA accuracy with Cantor-pair onset dedup and its
+NCT-masked variant, a masked binary ROC-AUC and the degree-deviation score of
+link-prediction assignments.
 """
 
 from __future__ import annotations
@@ -16,7 +13,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from analysisgnn_tpu_torch.kernels.segment_ops import segment_mean_with_base
+from analysisgnn_tpu_torch.kernels.segment_ops import segment_mean_with_base, segment_sum
 
 RNA_KEYS: Tuple[str, ...] = ("quality", "inversion", "degree1", "degree2")
 NCT_RNA_KEYS: Tuple[str, ...] = ("quality", "inversion", "degree1", "degree2", "localkey")
@@ -25,6 +22,14 @@ NCT_RNA_KEYS: Tuple[str, ...] = ("quality", "inversion", "degree1", "degree2", "
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     correct = (logits.argmax(-1) == labels).float() * weight.float()
     return correct.sum() / weight.float().sum().clamp_min(1.0)
+
+
+def masked_macro_f1(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """Macro-F1 of one batch over the classes present in its weighted labels."""
+    tp, fp, fn = f1_stats(logits, labels, weight, num_classes)
+    f1 = 2 * tp / (2 * tp + fp + fn).clamp_min(1e-9)
+    present = (tp + fn > 0).float()
+    return (f1 * present).sum() / present.sum().clamp_min(1.0)
 
 
 def f1_stats(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -126,6 +131,37 @@ def onsetwise_rna_accuracy(
     if with_weight:
         return acc, w.sum()
     return acc
+
+
+def roc_auc(scores: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Binary ROC-AUC of the weighted rows through the rank-sum
+    (Mann-Whitney) identity; 0.5 without both classes.  Ranks come from a
+    stable sort over all rows, as ``jnp.argsort`` gives them: tied scores
+    take consecutive ranks in row order, not their average (sklearn's)."""
+    w = weight.float()
+    pos = labels.float() * w
+    neg = (1.0 - labels.float()) * w
+    order = torch.argsort(scores, stable=True)
+    ranks = torch.empty_like(scores)
+    ranks[order] = torch.arange(1, scores.shape[0] + 1, dtype=scores.dtype, device=scores.device)
+    n_pos, n_neg = pos.sum(), neg.sum()
+    auc = ((ranks * pos).sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg).clamp_min(1.0)
+    return torch.where((n_pos > 0) & (n_neg > 0), auc, torch.full_like(auc, 0.5))
+
+
+def linear_assignment_score(
+    edge_index: torch.Tensor, scores: torch.Tensor, target_node_mask: torch.Tensor, num_nodes: int,
+    threshold: float = 0.3,
+) -> torch.Tensor:
+    """How far the edges scored above ``threshold`` are from a perfect
+    matching of the target nodes: the L2 deviations of each node's out- and
+    in-degree from its mask, summed, over ``num_nodes``.  Ids out of
+    ``[0, num_nodes)`` drop, as in ``jax.ops.segment_sum``."""
+    pred = (scores > threshold).float()
+    ones = target_node_mask.float()
+    add_row = segment_sum(pred, edge_index[0], num_nodes)
+    add_col = segment_sum(pred, edge_index[1], num_nodes)
+    return (((ones - add_row) ** 2).sum().sqrt() + ((ones - add_col) ** 2).sum().sqrt()) / num_nodes
 
 
 def nct_rna_accuracy(

@@ -149,11 +149,10 @@ def accumulate_fisher(state: TrainState, grads: Sequence[Optional[torch.Tensor]]
     return state
 
 
-def _redraw(node: Mapping, rng: np.random.Generator) -> dict:
-    """The walk of the JAX ``torch_style_reinit`` (``fused=True``, its
-    default) over a flax tree: sorted keys, depth first; Dense kernels and
-    biases and the batched SAGE and task-head stacks from
-    U(+-1/sqrt(fan_in))."""
+def _redraw(node: Mapping, rng: np.random.Generator, fused: bool) -> dict:
+    """The walk of the JAX ``torch_style_reinit`` over a flax tree: sorted
+    keys, depth first; Dense kernels and biases and, with ``fused``, the
+    batched SAGE and task-head stacks from U(+-1/sqrt(fan_in))."""
 
     def draw(bound, shape):
         return rng.uniform(-bound, bound, shape).astype(np.float32)
@@ -162,12 +161,12 @@ def _redraw(node: Mapping, rng: np.random.Generator) -> dict:
     is_dense = getattr(kernel, "ndim", 0) == 2
     fan_in = kernel.shape[0] if is_dense else None
     fans = {}
-    w = node.get("w_neigh")
+    w = node.get("w_neigh") if fused else None
     if getattr(w, "ndim", 0) == 3:
         f = w.shape[-2]
         # w_self / w_agg / b_out are the halves of SageConv's Linear(2f, g)
         fans.update({"w_neigh": f, "b_neigh": f, "w_self": 2 * f, "w_agg": 2 * f, "b_out": 2 * f})
-    w = node.get("w1")
+    w = node.get("w1") if fused else None
     if getattr(w, "ndim", 0) == 3 and getattr(node.get("w2"), "ndim", 0) == 3:
         f, h = w.shape[-2], node["w2"].shape[-2]
         fans.update({"w1": f, "b1": f, "w2": h, "b2": h})
@@ -175,7 +174,7 @@ def _redraw(node: Mapping, rng: np.random.Generator) -> dict:
     for key in sorted(node):
         leaf = node[key]
         if isinstance(leaf, Mapping):
-            out[key] = _redraw(leaf, rng)
+            out[key] = _redraw(leaf, rng, fused)
         elif is_dense and key == "kernel":
             out[key] = draw(1.0 / np.sqrt(fan_in), leaf.shape)
         elif is_dense and key == "bias" and leaf.ndim == 1:
@@ -188,11 +187,12 @@ def _redraw(node: Mapping, rng: np.random.Generator) -> dict:
 
 
 @torch.no_grad()
-def torch_style_reinit(model: nn.Module, seed: int = 0) -> None:
+def torch_style_reinit(model: nn.Module, seed: int = 0, fused: bool = True) -> None:
     """Redraw the model's parameters in place as the JAX package's
     ``torch_style_reinit`` redraws the flax tree of the same model: the same
     numpy generator walks the same flax names in the same order, so both
     draw the same numbers.  Embeddings and LayerNorm parameters keep their
-    values."""
-    tree = _redraw(flax_tree_from_state_dict(model.state_dict()), np.random.default_rng(seed))
+    values, and so do the batched (ndim-3) SAGE and task-head stacks with
+    ``fused=False`` (the train CLI's ``--no_fused_torch_init``)."""
+    tree = _redraw(flax_tree_from_state_dict(model.state_dict()), np.random.default_rng(seed), fused)
     model.load_state_dict(state_dict_from_flax(tree, {"num_layers": len(model.encoder.layers)}))

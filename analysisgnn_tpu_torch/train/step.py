@@ -168,7 +168,7 @@ def _compute_losses(model, mt_params, batch, cfg, deterministic, generator, teac
     # feature-norm regularizer over the valid target rows
     fw = base_w.float()
     feature_loss = ((x.float() ** 2).sum(-1) * fw).sum() / (fw.sum() * x.shape[-1]).clamp_min(1.0)
-    logits = model.classify(x)
+    logits = model.classify(x, deterministic, generator)
     # SMOTE in embedding space for single-task cadence training: synthetic
     # minority rows add a CE term, and their distance penalty joins the feature loss
     smote = None
@@ -189,7 +189,7 @@ def _compute_losses(model, mt_params, batch, cfg, deterministic, generator, teac
         task_losses[task] = masked_cross_entropy(logits[task], labels, w, cfg.label_smoothing)
         if task == "cadence" and smote is not None:
             x_syn, y_syn, w_syn = smote
-            syn_logits = model.classify(x_syn)["cadence"]
+            syn_logits = model.classify(x_syn, deterministic, generator)["cadence"]
             task_losses[task] = 0.5 * task_losses[task] + 0.5 * masked_cross_entropy(
                 syn_logits, y_syn, w_syn, cfg.label_smoothing)
         metrics[f"{task}_acc"] = masked_accuracy(logits[task], labels, w)
@@ -216,7 +216,7 @@ def _compute_losses(model, mt_params, batch, cfg, deterministic, generator, teac
             x_t = teacher.encode(*args, True, batch=batch.batch)
             teacher_logits = teacher.classify(x_t)
         memory_loss = cfg.lambda_dctn * distillation_loss(
-            model.classify(x_t), teacher_logits, base_w, cfg.previous_tasks
+            model.classify(x_t, deterministic, generator), teacher_logits, base_w, cfg.previous_tasks
         )
     return total, feature_loss, memory_loss, task_losses, metrics
 

@@ -9,7 +9,8 @@ Phases, each on its own line with elapsed seconds:
   2. build: the CUDA sources of K1 and K4 (analysisgnn_tpu_torch/csrc/
      segment_mean_base.cu), K3 (csrc/relation_weighted_matmul.cu), K2
      (csrc/segment_softmax_agg.cu), K5 (csrc/segment_softmax.cu) and K6
-     (csrc/halo_pull.cu), one nvcc each, started together, into the
+     (csrc/halo_pull.cu), one nvcc each, and the host edge builder
+     (csrc/graphbuild.cpp) with g++, started together, into the
      git-ignored analysisgnn_tpu_torch/_build/, with ptxas's registers;
   3. kernel check: K1 (segment_mean_base) against its plain PyTorch version on
      the card, at the shapes of the largest request (the fused 7-relation note
@@ -44,9 +45,12 @@ Phases, each on its own line with elapsed seconds:
      step of the MetricalGNN 3 x 256 -> 128 with use_rnn and edge-zxp: ms
      per step, valid message edges per second, K3 and K1 launches per step
      against the code's prediction, a finite loss that falls over 8 steps
-     on one batch (edge-zxp, HGT); then one step on the GPU against the
-     same step on the CPU (plain versions, same weights and batch, dropout
-     0; edge-zxp, HGT, MetricalGNN);
+     on one batch (edge-zxp, HGT); the same step of the "variants" arm
+     (edge-zxp with the deep projections, logit fusion, remat and final
+     dropout; its launches include remat's recomputed forwards); then one
+     step on the GPU against the same step on the CPU (plain versions, same
+     weights, a batch of 2 of the bench's subgraphs, dropout 0; edge-zxp,
+     HGT, MetricalGNN);
   9. train trace: one edge-zxp step and one MetricalGNN step under
      torch.profiler, with the device's busy share of the step, its kernels
      by device time, K3's sum and the GRUs' (the kernels under the cuDNN
@@ -186,6 +190,25 @@ Phases, each on its own line with elapsed seconds:
      the HGT epoch with --hgt_stage_dtype bfloat16 (its last.pt served by
      cli/predict.py) and a single-task cadence run with --use_smote
      (--cl_training --main_tasks cadence: SMOTE oversamples every step).
+ 24. graph build (run after phase 5): the serve path's host graph build of
+     the 20,000-note score, build_score_graph through the C++ edge builder
+     (csrc/graphbuild.cpp, built with g++ beside the CUDA sources in the
+     build phase, called through data/native.py) against its
+     numpy twin in turns, every array equal, and graph_from_note_array to
+     the card, beside the serve phase's requests (each of which took the
+     native build once, counted) and the loop-based numpy build's request
+     before it;
+ 25. trainer variants (run after phase 13's SMOTE run): cli.train.main with
+     --deep_proj --logit_fusion --remat --final_dropout --no_fused_torch_init
+     at full width (one combined epoch of 2 steps a task), launches against
+     the prediction with remat's recomputed K1 and K3 forwards, a loss that
+     falls over FALL_STEPS steps on one bench batch, last.pt served through
+     cli/predict.py's load_model, and one dropout-0 step of its weights on
+     the GPU against the CPU;
+ 26. remat (run after phase 16): one train step of the variants model on a
+     whole 20,000-note score with beats and measures, with and without
+     remat, in turns: ms a step and peak device memory of each, launches
+     against the prediction, the losses and gradients within 1e-5 relative.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -207,6 +230,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -246,14 +270,22 @@ ARMS = {"edge-zxp": {**TRAIN_CFG, "conv_impl": "edge-zxp"}, "node": {**TRAIN_CFG
         "hgt": HGT_CFG, "metrical": {**TRAIN_CFG, "model": "MetricalGNN", "use_rnn": True, "conv_impl": "edge-zxp"}}
 # bf16 compute (phase 23): the bench step of both HybridGNN layouts with StepConfig compute_dtype="bfloat16"
 ARMS.update({"node-bf16": ARMS["node"], "edge-zxp-bf16": ARMS["edge-zxp"]})
+# the train CLI's last five knobs (phase 25): edge-zxp with the deep projections, logit fusion, remat of the
+# hidden convs and dropout after the final conv; its torch-style draw leaves the fused stacks out
+# (--no_fused_torch_init)
+ARMS["variants"] = {**ARMS["edge-zxp"], "plain_proj": False, "logit_fusion": True, "remat": True,
+                    "final_dropout": True}
+UNFUSED_INIT_ARMS = ("variants",)
 # each bf16 arm (compute_dtype="bfloat16"; every other arm float32) and the f32 arm of its layout, timed in turns
 BF16_PAIRS = {"node-bf16": "node", "edge-zxp-bf16": "edge-zxp"}
 BF16_TURNS = 2
-TIMED_STEPS = {"edge-zxp": 3, "node": 2, "hgt": 2, "metrical": 2, "node-bf16": 2, "edge-zxp-bf16": 2}
+TIMED_STEPS = {"edge-zxp": 3, "node": 2, "hgt": 2, "metrical": 2, "node-bf16": 2, "edge-zxp-bf16": 2, "variants": 2}
 FALL_ARMS = ("edge-zxp", "hgt", "edge-zxp-bf16")  # the metrical Trainer runs of phase 22 show its loss falling
-# one step on the GPU against the CPU, and one traced step
+# one step on the GPU against the CPU, and one traced step; the CPU steps take a batch of PARITY_BATCH of the
+# bench's 500-note subgraphs (8 in the timed steps), the same models at full width
 PARITY_ARMS = ("edge-zxp", "hgt", "metrical", "node-bf16", "edge-zxp-bf16")
-FALL_STEPS = 8
+PARITY_BATCH = 2
+FALL_STEPS = 6
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # K3's bf16 forward vs its plain version (the f32 einsum of the upcast
 # operands), elementwise, relative to the sum of |terms|: products of bf16
@@ -370,6 +402,25 @@ METRICAL_PROB_ATOL = 1e-4
 # combinations (|h| <= 1) of gate values from 512-term dot products summed in another order, and the
 # recurrence contracts errors; absolute, the JAX tests' bound for the scan against the sequential cell
 SCAN_ATOL = 2e-5
+# phase 24: the serve path's host graph build of the serve phase's largest score, the C++ edge builder against
+# its numpy twin in rounds of (native, numpy, numpy, native); beside the earlier numpy build (a Python loop over
+# the silent ends) and its request, PERF.md section 5 (chip run, NVIDIA H100 80GB HBM3, 700.00 W)
+GRAPH_NOTES = 20000
+GRAPH_TURNS = 5
+LOOP_BUILD_MS, LOOP_REQUEST_MS = 133.5, 182.8
+# phase 25: the training entry point with the train CLI's last five knobs at full width, one combined epoch of
+# 2 steps; its losses fall over FALL_STEPS steps on one bench batch, its last.pt is served, and one dropout-0
+# step of its weights on a batch of its data runs on the GPU against the CPU (PARITY_LOSS_RTOL, the
+# TRAINER_PARITY_RTOL)
+VARIANT_TRAINER_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_impl", "edge-zxp", "--deep_proj",
+                         "--logit_fusion", "--remat", "--final_dropout", "--no_fused_torch_init", "--do_train",
+                         "--num_epochs", "3", "--max_steps_per_epoch", "2", "--main_tasks", "all,cadence,rna"]
+# phase 26: one train step of the variants arm (dropout 0) on a whole 20,000-note score with beats and
+# measures, with and without remat, in rounds of (without, with, with, without); the loss relative and the
+# concatenated gradients in relative L2 (the same function, the gather's backward adding in no fixed order)
+REMAT_NOTES = 20000
+REMAT_TURNS = 2
+REMAT_RTOL = 1e-5
 
 
 def phase(msg: str) -> None:
@@ -412,8 +463,10 @@ def device_ms(fn, kernel: str, iters: int = 20, per_call: int = 1, alone: bool =
     before (seen on the H100 with none of the window's kernels, or 13 of 20
     launches): a window with fewer launches of ``kernel`` than the calls
     made is taken again, up to PROFILER_ATTEMPTS times, and every retake is
-    printed; more launches than expected, or another kernel with ``alone``,
-    fail at once."""
+    printed (seen too: every window one of 20 launches short); if all come
+    back short, the fullest window gives the time, a launch's mean over the
+    launches it holds, if it holds at least half of them.  More launches
+    than expected, or another kernel with ``alone``, fail at once."""
     fn()
     torch.cuda.synchronize()
     pad = torch.zeros(8, device="cuda")
@@ -439,10 +492,12 @@ def device_ms(fn, kernel: str, iters: int = 20, per_call: int = 1, alone: bool =
             break
     if alone and not pad_keys:
         raise AssertionError(f"the profiler recorded no kernel in {PROFILER_ATTEMPTS} windows of padding launches")
+    fullest = (0, [])
     for _ in range(PROFILER_ATTEMPTS):
         cuda = _cuda_window(calls)
         hits = [e for e in cuda if kernel in e.key]
         count = sum(e.count for e in hits)
+        fullest = max(fullest, (count, hits), key=lambda c: c[0])
         others = [f"{e.key} x{e.count}" for e in cuda if kernel not in e.key and e.key not in pad_keys]
         if count > iters * per_call or (alone and others):
             raise AssertionError(f"{iters} calls of {kernel}: the profiler saw {count} launches of it "
@@ -451,6 +506,11 @@ def device_ms(fn, kernel: str, iters: int = 20, per_call: int = 1, alone: bool =
             return sum(e.self_device_time_total for e in hits) / iters / 1e3
         phase(f"device_ms: the profiler's window held {count} of the {iters * per_call} launches of {kernel}; "
               f"taking it again")
+    count, hits = fullest
+    if 2 * count >= iters * per_call:
+        phase(f"device_ms: every window short; {kernel}'s time from the fullest, a launch's mean over its {count} "
+              f"launches")
+        return sum(e.self_device_time_total for e in hits) / count * per_call / 1e3
     raise AssertionError(f"the profiler saw fewer than {iters * per_call} launches of {kernel} in "
                          f"{PROFILER_ATTEMPTS} windows of {iters} calls")
 
@@ -476,10 +536,11 @@ def build_kernels() -> None:
     from analysisgnn_tpu_torch.kernels import build
 
     t = time.perf_counter()
+    # the CUDA sources with nvcc and the host edge builder (graphbuild.cpp) with g++, all started together
     built = build.build_all(["segment_mean_base", "relation_weighted_matmul", "segment_softmax_agg", "segment_softmax",
-                             "halo_pull"])
+                             "halo_pull", "graphbuild"])
     for name, (seconds, log) in built.items():
-        phase(f"build: {name} nvcc {seconds:.2f}s -> {build.library_path(name).name}")
+        phase(f"build: {name} {seconds:.2f}s -> {build.library_path(name).name}")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line or "C75" in line:
                 phase(f"build:   {line.strip()}")
@@ -591,6 +652,7 @@ def kernel_checks(model, largest_notes: int) -> list:
 
 def serve(model) -> dict:
     from analysisgnn_tpu_torch.data.graph_build import build_score_graph
+    from analysisgnn_tpu_torch.data.native import build_note_edges_native
     from analysisgnn_tpu_torch.data.note_array import synthetic_score
     from analysisgnn_tpu_torch.inference.predict import predict_score_ids
     from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base
@@ -605,6 +667,7 @@ def serve(model) -> dict:
     for notes in REQUEST_NOTES:
         na = synthetic_score(notes, seed=notes)
         before = segment_mean_base.launches
+        native_before = build_note_edges_native.calls
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         ids = predict_score_ids(model, na, add_beats=False, add_measures=False,
@@ -622,15 +685,18 @@ def serve(model) -> dict:
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t)
         peak = torch.cuda.max_memory_allocated()
+        native_builds = build_note_edges_native.calls - native_before
+        if native_builds != 1 + REPEATS:
+            raise AssertionError(f"{notes}-note requests: {native_builds} native edge builds in {1 + REPEATS} requests")
         for k, v in ids.items():
             if v.shape != (notes,) or (v < 0).any() or not np.array_equal(v, again[k]):
                 raise AssertionError(f"{notes}-note request: bad or unstable ids for {k}")
         edges = sum(ei.shape[1] for ei in build_score_graph(na, add_beats=False, add_measures=False).edges.values())
         results[notes] = {"edges": edges, "launches": launches, "median_s": statistics.median(lat),
-                          "first_s": first_s, "peak_bytes": peak}
+                          "first_s": first_s, "peak_bytes": peak, "native_builds": native_builds}
         phase(f"serve: {notes} notes, {edges} note-note edges: K1 launches {launches} (expected {expected}), "
               f"first call {first_s * 1e3:.1f} ms, median of {REPEATS} {statistics.median(lat) * 1e3:.1f} ms, "
-              f"max memory allocated {peak / 2**20:.1f} MiB")
+              f"max memory allocated {peak / 2**20:.1f} MiB; the C++ edge builder ran once a request")
     results["main_path_launches"] = segment_mean_base.launches
     if results["main_path_launches"] == 0:
         raise AssertionError("the serve phase never launched K1")
@@ -1028,7 +1094,7 @@ def _train_model(arm: str, dropout: float, device: str):
 
     model = model_from_config({**ARMS[arm], "dropout": dropout}, device=device)
     init_parameters(model, torch.Generator(device="cpu").manual_seed(0))
-    torch_style_reinit(model, seed=0)
+    torch_style_reinit(model, seed=0, fused=arm not in UNFUSED_INIT_ARMS)
     return model
 
 
@@ -1092,16 +1158,12 @@ def predicted_launches(model, compute_dtype: str = "float32") -> dict:
     and its tensors aligned; the mma.sync kernel's ``.bf16_mma`` stays 0);
     every later conv reads f32 states (a mean over f32 counts), and so does
     onset pooling."""
-    from analysisgnn_tpu_torch.models.hetero import fusion_groups
-
     k1, k2, k3, k1_bf16, k3_bf16 = 1, 0, 0, 0, 0
     if model.encoder_type == "hgt":
         k2 = len(model.encoder.layers) if model.encoder.layers[0].use_pallas else 0
     else:
-        groups, singles = fusion_groups(_conv_edge_types(model))
+        per_conv_k1, per_conv_k3 = _per_conv(model)
         convs = len(model.encoder.layers) + 1
-        per_conv_k1 = len(singles) + (len(groups) if model.conv_impl == "node" else 0)
-        per_conv_k3 = len(groups) if model.conv_impl == "edge-zxp" else 0
         k1 += convs * per_conv_k1
         k3 = convs * per_conv_k3
         if compute_dtype == "bfloat16":
@@ -1112,6 +1174,43 @@ def predicted_launches(model, compute_dtype: str = "float32") -> dict:
             "relation_weighted_matmul.dx": k3, "relation_weighted_matmul.dw": k3,
             "relation_weighted_matmul.dalpha": 0, "segment_sum_sorted": 0, "segment_softmax_sorted": 0,
             "halo_pull": 0}
+
+
+def _per_conv(model) -> tuple:
+    """K1 and K3-forward launches of one hetero conv: one K1 per single
+    relation, plus one per fused group under "node" or one K3 forward per
+    fused group under "edge-zxp"."""
+    from analysisgnn_tpu_torch.models.hetero import fusion_groups
+
+    groups, singles = fusion_groups(_conv_edge_types(model))
+    return (len(singles) + (len(groups) if model.conv_impl == "node" else 0),
+            len(groups) if model.conv_impl == "edge-zxp" else 0)
+
+
+def remat_launches(model, compute_dtype: str = "float32") -> dict:
+    """Launches a backward adds under a HybridGNN's remat (a train step or a
+    fisher batch; a pass without gradients recomputes nothing): each hidden
+    conv (not the final one) runs its forward kernels once more, on bf16
+    rows in layer 0 under bf16 compute."""
+    names = ("segment_mean_base", "segment_mean_base.bf16", "relation_weighted_matmul",
+             "relation_weighted_matmul.bf16")
+    out = dict.fromkeys(names, 0)
+    if model.encoder_type != "hybridgnn" or not model.encoder.remat:
+        return out
+    per_conv_k1, per_conv_k3 = _per_conv(model)
+    hidden = len(model.encoder.layers)
+    first = 1 if compute_dtype == "bfloat16" else 0  # layer 0 reads the bf16 projections
+    out.update({"segment_mean_base": (hidden - first) * per_conv_k1, "segment_mean_base.bf16": first * per_conv_k1,
+                "relation_weighted_matmul": (hidden - first) * per_conv_k3,
+                "relation_weighted_matmul.bf16": first * per_conv_k3})
+    return out
+
+
+def step_launches(model, compute_dtype: str = "float32") -> dict:
+    """Launches of one train step: :func:`predicted_launches` and the
+    recomputed forwards of remat."""
+    rec = remat_launches(model, compute_dtype)
+    return {k: v + rec.get(k, 0) for k, v in predicted_launches(model, compute_dtype).items()}
 
 
 def train(arm: str, batches: list) -> dict:
@@ -1139,7 +1238,7 @@ def train(arm: str, batches: list) -> dict:
         losses.append(float(aux["total_loss"]))
         skipped += float(aux["skipped_nonfinite"])
     counts = _counts()
-    expected = predicted_launches(model, compute)
+    expected = step_launches(model, compute)
     per_step = {name: c / k for name, c in counts.items()}
     if per_step != expected:
         raise AssertionError(f"{arm}: launches per step {per_step}, the code predicts {expected}")
@@ -1184,12 +1283,15 @@ def _graph_to(batch, device: str):
     )
 
 
-def step_parity(arm: str, batch) -> dict:
+def step_parity(arm: str, batch, state_dict=None) -> dict:
     """One step of the arm on the GPU (kernels) against the same step on the
-    CPU (plain versions): same weights, same batch, dropout 0, constant rate."""
+    CPU (plain versions): same weights (the arm's init, or ``state_dict``),
+    same batch, dropout 0, constant rate."""
     from analysisgnn_tpu_torch.train.state import ClippedAdamW
 
     model = _train_model(arm, 0.0, "cpu")
+    if state_dict is not None:
+        model.load_state_dict({k: v.cpu() for k, v in state_dict.items()})
     gpu_model = _train_model(arm, 0.0, "cuda")
     gpu_model.load_state_dict(model.state_dict())
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1521,11 +1623,14 @@ def _check_trainer_launches(label: str, trainer, counts: dict, epochs: int, eval
     """The run's launches against the code's prediction: every train step,
     every forward-only pass, every teacher forward (continual learning, after
     the first task) and every fisher batch (EWC's replay) launch the forward
-    kernels; only train steps and fisher batches launch K3's dx and dw."""
+    kernels; only train steps and fisher batches launch K3's dx and dw, and
+    under remat the hidden convs' forward kernels once more."""
     per = predicted_launches(trainer.model)
+    rec = remat_launches(trainer.model)
     steps = len(trainer.step_seconds)
     fwd = _forward_passes(trainer.dm, epochs, evaluated)
-    expected = {name: (steps + teacher_passes + fwd + fisher_passes) * v for name, v in per.items()}
+    expected = {name: (steps + teacher_passes + fwd + fisher_passes) * v + (steps + fisher_passes) * rec.get(name, 0)
+                for name, v in per.items()}
     for name in ("relation_weighted_matmul.dx", "relation_weighted_matmul.dw"):
         expected[name] = (steps + fisher_passes) * per[name]
     passes = (f"{steps} train steps, {teacher_passes} teacher forwards, {fwd} forward-only passes and "
@@ -1536,7 +1641,7 @@ def _check_trainer_launches(label: str, trainer, counts: dict, epochs: int, eval
           + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
           + f" (per pass {', '.join(f'{k} {v}' for k, v in per.items() if v)}; the code predicts the same)")
     return {"steps": steps, "teacher_passes": teacher_passes, "forward_passes": fwd, "fisher_passes": fisher_passes,
-            "launches": counts, "per_step": per}
+            "launches": counts, "per_step": per, "remat_per_backward": rec}
 
 
 def _cl_passes(trainer, steps_per_epoch: int) -> tuple:
@@ -2885,9 +2990,235 @@ def hgt_staged_serve(ckpt_dir: str, tmp: str) -> dict:
 
 
 
+# ---------------------------------------------------------- phases 24-26
+
+
+def graph_build_phase(served: dict) -> dict:
+    """Phase 24: the serve path's host graph build of the serve phase's
+    largest score: the C++ edge builder (data/native.py, built with g++ in
+    the build phase) against its numpy twin in turns, every array equal, then
+    graph_from_note_array to the card; beside the serve phase's request and
+    the loop-based build's numbers."""
+    from analysisgnn_tpu_torch.data.graph_build import build_score_graph
+    from analysisgnn_tpu_torch.data.native import build_note_edges_native
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.inference.predict import graph_from_note_array
+
+    na = synthetic_score(GRAPH_NOTES, seed=GRAPH_NOTES)
+    builds = {"native": lambda: build_score_graph(na, add_beats=False, add_measures=False),
+              "numpy": lambda: build_score_graph(na, add_beats=False, add_measures=False, use_native=False)}
+    calls = build_note_edges_native.calls
+    got, want = builds["native"](), builds["numpy"]()
+    if build_note_edges_native.calls != calls + 1:
+        raise AssertionError("build_score_graph did not take the C++ edge builder")
+    if list(got.edges) != list(want.edges) or not all(
+        got.edges[k].dtype == want.edges[k].dtype and np.array_equal(got.edges[k], want.edges[k]) for k in want.edges
+    ):
+        raise AssertionError(f"{GRAPH_NOTES} notes: the C++ edge builder's arrays differ from the numpy builder's")
+    times = {name: [] for name in builds}
+    for _ in range(GRAPH_TURNS):
+        for name in ("native", "numpy", "numpy", "native"):
+            t = time.perf_counter()
+            builds[name]()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    ms = {name: statistics.median(v) for name, v in times.items()}
+    graph_ms = []
+    for _ in range(GRAPH_TURNS):
+        t = time.perf_counter()
+        graph_from_note_array(na, add_beats=False, add_measures=False, bucket_factor=BUCKET_FACTOR, device="cuda")
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t) * 1e3)
+    edges = sum(v.shape[1] for v in got.edges.values())
+    request_ms = served[GRAPH_NOTES]["median_s"] * 1e3
+    phase(f"graph build: {GRAPH_NOTES} notes, {edges} note-note edges, every array of the C++ edge builder equal to "
+          f"the numpy builder's; in turns x {GRAPH_TURNS}: build_score_graph native median {ms['native']:.2f} ms "
+          f"({', '.join(f'{v:.2f}' for v in times['native'])}), numpy {ms['numpy']:.2f} ms "
+          f"({', '.join(f'{v:.2f}' for v in times['numpy'])}); graph_from_note_array to the card median "
+          f"{statistics.median(graph_ms):.2f} ms; the serve phase's {GRAPH_NOTES}-note request {request_ms:.1f} ms "
+          f"(with the loop over silent ends: the numpy build {LOOP_BUILD_MS} ms of a {LOOP_REQUEST_MS} ms request)")
+    return {"native_ms": ms["native"], "numpy_ms": ms["numpy"], "native_runs_ms": times["native"],
+            "numpy_runs_ms": times["numpy"], "graph_from_note_array_ms": statistics.median(graph_ms),
+            "request_ms": {n: served[n]["median_s"] * 1e3 for n in REQUEST_NOTES}, "edges": edges}
+
+
+def variant_trainer_phase(ckpt_dir: str, fall_batch) -> dict:
+    """Phase 25: the training entry point with --deep_proj --logit_fusion
+    --remat --final_dropout --no_fused_torch_init at full width: launches
+    against the prediction (remat's recomputed forwards included), finite
+    losses that fall over FALL_STEPS steps on one bench batch, last.pt served
+    through cli/predict.py's load_model, and one dropout-0 step of the
+    trained weights on the GPU against the CPU."""
+    from analysisgnn_tpu_torch.cli.predict import load_model
+    from analysisgnn_tpu_torch.cli.train import main as train_main
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.inference.predict import predict_score_ids
+    from analysisgnn_tpu_torch.train.schedules import warmup_cosine_schedule
+    from analysisgnn_tpu_torch.train.state import make_optimizer
+
+    t = time.perf_counter()
+    _reset_counts()  # the variant Trainer path's run starts here
+    trainer = train_main([*VARIANT_TRAINER_FLAGS, "--checkpoint_dir", ckpt_dir])
+    torch.cuda.synchronize()
+    counts = _counts()
+    wall = time.perf_counter() - t
+    model = trainer.model
+    if not (model.encoder.remat and model.encoder.final_dropout and model.heads.logit_fusion
+            and not trainer.model_config["plain_proj"] and not trainer.cfg.fused_torch_init):
+        raise AssertionError("trainer variants: the Trainer's model lacks one of the five knobs")
+    hist = trainer.history
+    launches = _check_trainer_launches("trainer variants", trainer, counts, len(hist), evaluated=False)
+    losses = [r["train_loss"] for r in hist] + [r["val/total_loss"] for r in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"trainer variants: non-finite losses {losses}")
+    steps_ms = [x * 1e3 for x in trainer.step_seconds]
+    # the trained model's loss falls on one fixed bench batch (dropout 0.3 on)
+    state, step = _trainer(model, make_optimizer(warmup_cosine_schedule(5e-3, total_steps=1000)))
+    fall = []
+    for _ in range(FALL_STEPS):
+        state, aux = step(state, fall_batch)
+        fall.append(float(aux["total_loss"]))
+    if not (all(np.isfinite(fall)) and statistics.mean(fall[-3:]) < statistics.mean(fall[:3])):
+        raise AssertionError(f"trainer variants: loss on one fixed batch did not fall over {FALL_STEPS} steps: {fall}")
+    phase(f"trainer variants: cli.train.main {' '.join(VARIANT_TRAINER_FLAGS)}: {len(hist)} epoch of "
+          f"{len(steps_ms)} train steps in {wall:.2f} s (demo corpus included), steps "
+          f"{', '.join(f'{v:.1f}' for v in steps_ms)} ms; train_loss {hist[-1]['train_loss']:.4f}, val/total_loss "
+          f"{hist[-1]['val/total_loss']:.4f}; {FALL_STEPS} more steps on one bench batch: loss {fall[0]:.4f} -> "
+          f"{fall[-1]:.4f}")
+    _reset_counts()  # the serve path's run starts here
+    served_model, cfg = load_model(ckpt_dir, "last", "cuda")
+    t = time.perf_counter()
+    ids = predict_score_ids(served_model, synthetic_score(2000, seed=7), add_beats=cfg["add_beats"],
+                            add_measures=cfg["add_measures"], device="cuda")
+    torch.cuda.synchronize()
+    serve_ms = (time.perf_counter() - t) * 1e3
+    served = _counts()
+    per = predicted_launches(served_model)
+    expected = {k: v if k in ("segment_mean_base", "relation_weighted_matmul") else 0 for k, v in per.items()}
+    if served != expected or any(v.shape != (2000,) or (v < 0).any() for v in ids.values()):
+        raise AssertionError(f"serving the variants' last.pt launched {served} (the code predicts {expected}) or "
+                             f"gave bad ids")
+    phase(f"trainer variants: last.pt (deep projections, logit fusion) through cli/predict.py's load_model served "
+          f"a 2000-note request in {serve_ms:.1f} ms (first call), launches "
+          + ", ".join(f"{k} {v}" for k, v in served.items() if v))
+    parity = step_parity("variants", next(iter(trainer.dm.val_batches("all"))), model.state_dict())
+    return {"launches": launches, "wall_s": wall, "step_ms": steps_ms, "fall": fall, "serve_ms": serve_ms,
+            "serve_launches": served, "parity": parity}
+
+
+def remat_turns() -> dict:
+    """Phase 26: remat's reason to exist, measured: one train step of the
+    variants arm's model (full width, edge-zxp, dropout 0) on a whole
+    20,000-note score with beats, measures and random labels, with and
+    without remat, in turns: peak device memory and ms a step, launches
+    against the prediction; the loss and the gradients of both."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.inference.predict import graph_from_note_array
+    from analysisgnn_tpu_torch.models.analysis import model_from_config
+    from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
+    from analysisgnn_tpu_torch.train.state import ClippedAdamW
+    from analysisgnn_tpu_torch.train.step import StepConfig, compute_losses
+
+    na = synthetic_score(REMAT_NOTES, seed=REMAT_NOTES)
+    graph = graph_from_note_array(na, add_beats=True, add_measures=True, device="cuda")
+    n = graph.capacity(NOTE)
+    rng = np.random.default_rng(0)
+    attrs = graph.node_attrs[NOTE]
+    for task, n_cls in TASK_DICT.items():
+        attrs[task] = torch.from_numpy(rng.integers(0, n_cls, n)).to("cuda")
+    attrs["valid_label"] = torch.ones(n, dtype=torch.int64, device="cuda")
+    base = _train_model("variants", 0.0, "cuda")
+    cfg = StepConfig(task_dict=tuple(TASK_DICT.items()), active_tasks=tuple(TASK_DICT))
+    arms = {}
+    for remat in (False, True):
+        model = model_from_config({**ARMS["variants"], "dropout": 0.0, "remat": remat}, device="cuda")
+        model.load_state_dict(base.state_dict())
+        arms[remat] = (model, *_trainer(model, ClippedAdamW(lambda _step: PARITY_LR)))
+    del base
+
+    def gradients(remat: bool) -> tuple:
+        model, state, _ = arms[remat]
+        total, feature, memory, _, _ = compute_losses(model, state.mt_params, graph, cfg, False, state.generator)
+        loss = total + memory + cfg.lambda_featl * feature
+        names = [name for name, _ in model.named_parameters()] + ["mt_params"]
+        trainables = [*model.parameters(), state.mt_params]
+        grads = torch.autograd.grad(loss, trainables, allow_unused=True)
+        return float(loss.detach()), {k: torch.zeros_like(p) if g is None else g
+                                      for k, p, g in zip(names, trainables, grads)}
+
+    def compare(a: tuple, b: tuple) -> tuple:
+        """(loss relative, gradients relative L2, the three parameters that
+        differ most, relative L2 each)."""
+        flat = lambda grads: torch.cat([g.reshape(-1) for g in grads.values()])
+        rel = float((flat(a[1]) - flat(b[1])).norm() / flat(b[1]).norm())
+        worst = sorted(((float((a[1][k] - v).norm() / v.norm().clamp_min(1e-30)), k) for k, v in b[1].items()),
+                       reverse=True)[:3]
+        return abs(a[0] - b[0]) / abs(b[0]), rel, worst
+
+    # the card's run-to-run spread without remat (the gathers' backward adds with atomics, in no fixed order),
+    # remat against it in that mode, then in PyTorch's deterministic mode, which holds remat to REMAT_RTOL
+    plain = gradients(False)
+    floor = compare(gradients(False), plain)
+    loose = compare(gradients(True), plain)
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            exact = compare(gradients(True), gradients(False))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    del plain
+    loose_ops = sorted({str(w.message).split(".")[0][:120] for w in caught})
+    show = lambda c: (f"loss rel {c[0]:.2e}, gradients {c[1]:.2e} relative L2 (most: "
+                      + ", ".join(f"{k} {r:.1e}" for r, k in c[2]) + ")")
+    phase(f"remat: gradients of one step on the whole {REMAT_NOTES}-note score: without remat twice {show(floor)}; "
+          f"with remat against without {show(loose)}; in deterministic mode {show(exact)} (tol {REMAT_RTOL}); "
+          f"ops without a deterministic version: {loose_ops or 'none'}")
+    loss_rel, grad_rel = exact[0], exact[1]
+    if not (loss_rel <= REMAT_RTOL and grad_rel <= REMAT_RTOL):
+        raise AssertionError(f"remat in deterministic mode: loss rel {loss_rel:.2e}, gradients {grad_rel:.2e} "
+                             f"relative L2 (tol {REMAT_RTOL})")
+    ms, peak, base_bytes = {False: [], True: []}, {}, {}
+    for _ in range(REMAT_TURNS):
+        for remat in (False, True, True, False):
+            model, state, step = arms[remat]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_bytes[remat] = torch.cuda.memory_allocated()
+            _reset_counts()
+            t = time.perf_counter()
+            state, aux = step(state, graph)
+            torch.cuda.synchronize()
+            ms[remat].append((time.perf_counter() - t) * 1e3)
+            peak[remat] = max(peak.get(remat, 0), torch.cuda.max_memory_allocated())
+            counts, expected = _counts(), step_launches(model)
+            if counts != expected or not np.isfinite(float(aux["total_loss"])):
+                raise AssertionError(f"remat={remat}: a step launched {counts}, the code predicts {expected}, "
+                                     f"loss {float(aux['total_loss'])}")
+            arms[remat] = (model, state, step)
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    recomputed = remat_launches(arms[True][0])
+    phase(f"remat: one train step on a whole {REMAT_NOTES}-note score ({n} note rows, beats and measures; the "
+          f"variants arm at dropout 0): in turns x {REMAT_TURNS}: without remat "
+          f"median {med[False]:.2f} ms ({', '.join(f'{v:.1f}' for v in ms[False])}), peak "
+          f"{peak[False] / 2**20:.1f} MiB; with remat {med[True]:.2f} ms ({', '.join(f'{v:.1f}' for v in ms[True])}),"
+          f" peak {peak[True] / 2**20:.1f} MiB ({base_bytes[True] / 2**20:.1f} MiB allocated before a step); "
+          f"remat's recomputed forwards a step: " + ", ".join(f"{k} {v}" for k, v in recomputed.items() if v))
+    return {"loss_rel": loss_rel, "grad_rel_l2": grad_rel, "floor_grad_rel_l2": floor[1],
+            "default_mode_grad_rel_l2": loose[1], "ms": ms, "median_ms": med,
+            "peak_bytes": peak, "allocated_before_bytes": base_bytes, "recomputed_per_step": recomputed}
+
+
 def main() -> None:
     smi = environment()
     from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.data.sampler import SubgraphSampler
     from analysisgnn_tpu_torch.models.analysis import SERVE_CONFIG as CFG
     from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
 
@@ -2903,11 +3234,14 @@ def main() -> None:
     check_logits(model, max(REQUEST_NOTES))
     phase(f"serve: done; K1 launches on the main path: {served['main_path_launches']}")
     trace(model, max(REQUEST_NOTES))
+    graph_build = graph_build_phase(served)
     del model
 
     t = time.perf_counter()
     sampler = train_corpus()
     batches = [sampler.sample_batch(device="cuda") for _ in range(1 + max(TIMED_STEPS.values()))]
+    parity_batch = SubgraphSampler(sampler.samples, dataclasses.replace(sampler.cfg, batch_size=PARITY_BATCH)
+                                   ).sample_batch(device="cuda")
     n_train = batches[0].capacity(NOTE)
     phase(f"train corpus: 8 scores x 2000 notes, {len(batches)} batches of {n_train} note rows "
           f"({batches[0].num_target_nodes} targets) in {time.perf_counter() - t:.2f}s")
@@ -2921,7 +3255,7 @@ def main() -> None:
     phase("kernel check: K3's bf16 forward and K1 on bf16 rows done")
     trained = {arm: train(arm, batches) for arm in ARMS}
     turns = bf16_turns(trained, batches)
-    parity = {arm: step_parity(arm, batches[0]) for arm in PARITY_ARMS}
+    parity = {arm: step_parity(arm, parity_batch) for arm in PARITY_ARMS}
     traced = {arm: trace_train(trained[arm], batches[1]) for arm in PARITY_ARMS}
     with tempfile.TemporaryDirectory() as tmp:
         metrical = metrical_phase(tmp, batches[0])
@@ -2939,10 +3273,13 @@ def main() -> None:
         hgt_trainer = hgt_trainer_phase(f"{tmp}/trainer_hgt")
         hgt_served = hgt_staged_serve(f"{tmp}/trainer_hgt", tmp)
         smote = smote_trainer_phase(f"{tmp}/trainer_smote")
+        variants = variant_trainer_phase(f"{tmp}/trainer_variants", batches[0])
         trainer_rels = trainer_parity(f"{tmp}/parity")["rels"]
         phase(f"trainer: done; {trainer['median_step_ms']:.2f} ms per HybridGNN train step (with the edge loss), "
               f"{hgt_trainer['median_step_ms']:.2f} ms per HGT train step (bf16 staging), "
-              f"{smote['median_step_ms']:.2f} ms per SMOTE cadence step; GPU vs CPU {trainer_rels}")
+              f"{smote['median_step_ms']:.2f} ms per SMOTE cadence step, "
+              f"{statistics.median(variants['step_ms']):.2f} ms per step with the five knobs; GPU vs CPU "
+              f"{trainer_rels}, with the five knobs {variants['parity']}")
         raw_dir = raw_dir_trainer_phase(f"{tmp}/raw_dir")
         raw_dir_rels = trainer_parity(f"{tmp}/raw_dir_parity", [*raw_dir["flags"], "--dropout", "0", "--num_epochs",
                                                                 "1"], "raw-dir trainer")["rels"]
@@ -2952,6 +3289,7 @@ def main() -> None:
           f"{raw_dir['cache_s']:.2f} s; {raw_dir['median_step_ms']:.2f} ms per train step; GPU vs CPU {raw_dir_rels}")
     phase(f"CL trainer: done; {cl['without_teacher_ms']:.2f} ms per train step without the teacher, "
           f"{cl['with_teacher_ms']:.2f} with it; GPU vs CPU {cl_par['rels']}")
+    remat = remat_turns()
 
     k6_rows = k6_checks()
     phase("kernel check: K6 done")
@@ -3046,6 +3384,12 @@ def main() -> None:
         "trainer_launches": hgt_trainer["launches"]["launches"]["segment_softmax_agg"],
     })
     kernels[0]["trainer_launches"] = trainer["launches"]["launches"]["segment_mean_base"]
+    # phases 25 and 26: the Trainer with the five knobs (remat recomputes the hidden convs' forward
+    # kernels in every backward) and a remat step on a whole 20,000-note score
+    for entry in kernels[:4]:
+        entry["variant_trainer_launches"] = variants["launches"]["launches"][entry["name"]]
+    kernels[0]["remat_recomputed_per_step"] = remat["recomputed_per_step"]["segment_mean_base"]
+    kernels[1]["remat_recomputed_per_step"] = remat["recomputed_per_step"]["relation_weighted_matmul"]
     kernels[0]["raw_dir_trainer_launches"] = raw_dir["launches"]["launches"]["segment_mean_base"]
     kernels[0]["cl_trainer_launches"] = cl["launches"]["launches"]["segment_mean_base"]
     for entry in kernels[1:4]:
@@ -3154,6 +3498,12 @@ def main() -> None:
     busy = ", ".join(f"{arm} {r['busy_ms']:.2f} of {r['wall_ms']:.2f} ms" for arm, r in traced.items())
     phase(f"train: done; ms per step {per_step}; traced steps busy {busy}; K3 in the traced edge-zxp step "
           f"{traced['edge-zxp']['group_ms']:.3f} ms of device time; parity {parity}")
+    phase(f"graph build and remat: done; at {GRAPH_NOTES} notes the C++ edge builder "
+          f"{graph_build['native_ms']:.2f} ms, its numpy twin {graph_build['numpy_ms']:.2f} ms, requests "
+          + ", ".join(f"{n} notes {v:.1f} ms" for n, v in graph_build["request_ms"].items())
+          + f"; a {REMAT_NOTES}-note train step {remat['median_ms'][False]:.2f} ms and "
+          f"{remat['peak_bytes'][False] / 2**20:.1f} MiB peak without remat, {remat['median_ms'][True]:.2f} ms and "
+          f"{remat['peak_bytes'][True] / 2**20:.1f} MiB with it")
     phase(f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,6 +29,9 @@ from analysisgnn_tpu_torch.data.note_array import synthetic_score
 from analysisgnn_tpu_torch.inference.predict_chords import decode_chord_predictions, predict_chord_tasks
 from analysisgnn_tpu_torch.models.analysis import model_from_config
 probs, onsets = predict_chord_tasks(synthetic_score(30), hidden=8, device="cpu")
+# the graph build goes through the C++ edge builder (data/native.py), built with g++ at first use
+from analysisgnn_tpu_torch.data.native import build_note_edges_native
+calls = build_note_edges_native.calls
 decode_chord_predictions(probs)
 model_from_config({{"num_layers": 1, "hidden_channels": 8, "out_channels": 4, "in_channels": 25,
                    "plain_proj": False, "logit_fusion": True}}, device="cpu")
@@ -44,6 +47,7 @@ from analysisgnn_tpu_torch.train.state import create_train_state, make_optimizer
 from analysisgnn_tpu_torch.train.step import StepConfig, make_train_step
 graph = graph_from_note_array(synthetic_score(40), feature_type="simple", add_beats=False, add_measures=False,
                               device="cpu")
+assert build_note_edges_native.calls == calls + 1
 n = graph.node_features[NOTE].shape[0]
 for task in ("cadence", "quality", "inversion", "degree1", "degree2", "localkey"):
     graph.node_attrs[NOTE][task] = torch.arange(n) % 4
@@ -72,7 +76,8 @@ def test_every_port_module_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
-    assert len(names) >= 68  # every module of the port and chip_smoke, the chord chain's, the families' and SMOTE's
+    # every module of the port and chip_smoke: the chord chain's, the families', SMOTE's, the native builder's
+    assert len(names) >= 69
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
@@ -84,6 +89,7 @@ def test_every_port_module_imports_without_jax():
         "data.features", "theory.encoders",
         "theory.roman", "theory.rules", "data.kern", "models.chord", "models.pooling", "models.mlp",
         "inference.predict_chords", "models.pitch_spelling", "models.cadence", "train.smote", "train.cadence",
+        "data.native",
     )} <= names
 
 
@@ -94,13 +100,13 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 69 and {
+    assert len(files) >= 70 and {
         "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
         "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
         "halo.py", "partition.py", "partition_encoder.py", "launch.py", "_table.py", "tsv.py", "dlc_meta.py",
         "time_divided.py", "samplers.py",
         "roman.py", "rules.py", "kern.py", "chord.py", "pooling.py", "predict_chords.py",
-        "pitch_spelling.py", "cadence.py", "smote.py",
+        "pitch_spelling.py", "cadence.py", "smote.py", "native.py",
     } <= {f.name for f in files}
     assert (PORT / "train" / "cadence.py").is_file()
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}

@@ -154,10 +154,11 @@ def test_trainer_refuses_what_is_not_ported():
     assert all(layer.stage == torch.bfloat16 for layer in hgt.model.encoder.layers)
     with pytest.raises(ValueError, match="hgt_stage_dtype"):  # a HybridGNN cannot stage, as in the JAX model
         tloop.Trainer(tloop.TrainConfig(**TRAINER, hgt_stage_dtype="bfloat16", device="cpu"), dm)
-    for kw in ({"remat": True}, {"final_dropout": True}, {"fused_torch_init": False}, {"plain_proj": False},
-               {"logit_fusion": True}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tloop.Trainer(tloop.TrainConfig(**TRAINER, **kw, device="cpu"), dm)
+    # the five HybridGNN knobs of the JAX train CLI build a Trainer now
+    knobs = tloop.Trainer(tloop.TrainConfig(**TRAINER, remat=True, final_dropout=True, fused_torch_init=False,
+                                            plain_proj=False, logit_fusion=True, device="cpu"), dm)
+    assert knobs.model.encoder.remat and knobs.model.encoder.final_dropout and knobs.model.heads.logit_fusion
+    assert not knobs.model_config["plain_proj"] and not knobs.cfg.fused_torch_init
     # MetricalGNN with use_rnn is ported: the Trainer builds the JAX Trainer's parameter tree
     metrical = dict(TRAINER, num_layers=2, model="MetricalGNN", use_rnn=True)
     tt = tloop.Trainer(tloop.TrainConfig(**metrical, device="cpu"), dm)
