@@ -45,6 +45,25 @@ differences handled here:
 * the edge decoder's ``embed_{rel}_dense`` / ``embed_{rel}_norm`` are
   ``embed_dense.{rel}`` / ``embed_norm.{rel}``; its ``fc_dense1``,
   ``fc_norm`` and ``fc_dense2`` keep their names.
+
+The layer zoo and the pre-training encoder (``zoo_state_dict_from_flax``:
+``PreEncoder``, ``HGPS``, ``HResGatedConv``, ``OnsetEmbedding``,
+``ResGatedConv``, ``GATConv``, ``UNet`` and their parts; no JAX code reads
+the port's weights back, so there is no inverse) add:
+
+* a ``PreEncoder``'s ``encoder`` is an HGT encoder as above, its heads'
+  ``Dense_i`` / ``LayerNorm_i`` are ``dense_i`` / ``norm_i``;
+* ``layer_i`` is ``layers.i``; a hetero layer's ``conv_{src}__{rel}__{dst}``
+  and ``self_{t}`` are ``convs.{...}`` and ``selfs.{t}``; an HGPS layer's
+  ``local_{rel}`` is ``local.{rel}`` and its Dense ``embedding`` ``embed``;
+* an attention's ``query``/``key``/``value`` kernels ``[F, H, D]`` (bias
+  ``[H, D]``) and ``out`` kernel ``[H, D, F]`` are Linears over the flattened
+  ``H * D`` axis, as in the cross-task attention;
+* a flax ``Conv`` kernel ``[kh, kw, in, out]`` is an ``nn.Conv2d`` weight
+  ``[out, in, kh, kw]``; ``ConvBlock_i``, ``Conv_i`` and ``GroupNorm_i`` are
+  ``blocks.i``, ``convs.i`` and ``norms.i``;
+* any other leaf (``GATConv``'s ``attnl`` / ``attnr``) keeps its name and
+  layout.
 """
 
 from __future__ import annotations
@@ -494,3 +513,55 @@ def flax_tree_from_chord_state_dict(state_dict: Mapping[str, torch.Tensor]) -> D
         leaf = _flax_leaf(path[-1], parts[-1], v)
         put(path + [leaf], v.T if leaf == "kernel" else v)
     return tree
+
+
+_ZOO_LISTS = {"layer": "layers", "ConvBlock": "blocks", "Conv": "convs", "GroupNorm": "norms"}
+_ZOO_DICTS = {"local": "local", "conv": "convs", "self": "selfs"}
+
+
+def _zoo_module(name: str) -> str:
+    """One flax module name of the layer zoo as the port's path."""
+    if m := re.fullmatch(r"(layer|ConvBlock|Conv|GroupNorm)_(\d+)", name):
+        return f"{_ZOO_LISTS[m.group(1)]}.{m.group(2)}"
+    if m := re.fullmatch(r"(Dense|LayerNorm)_\d+", name):
+        return _auto_name(name)
+    if m := re.fullmatch(r"(local|conv|self)_(.+)", name):
+        return f"{_ZOO_DICTS[m.group(1)]}.{m.group(2)}"
+    return "embed" if name == "embedding" else name
+
+
+def _zoo_leaf(module: str, leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A leaf of the layer zoo: the port's leaf name and layout."""
+    if leaf == "kernel" and v.ndim == 4:  # Conv [kh, kw, in, out]
+        return "weight", v.transpose(3, 2, 0, 1)
+    if leaf == "kernel" and v.ndim == 3:  # attention: out [H, D, F], query / key / value [F, H, D]
+        return "weight", (v.reshape(-1, v.shape[-1]) if module == "out" else v.reshape(v.shape[0], -1)).T
+    if leaf == "kernel":
+        return "weight", v.T
+    if leaf == "bias":
+        return "bias", v.reshape(-1)
+    if leaf == "scale":
+        return "weight", v
+    return leaf, v
+
+
+def zoo_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's state dict of a flax layer-zoo module's tree
+    (``{"params": ...}`` or the inner dict): ``PreEncoder``, ``HGPS``,
+    ``HGPSLayer``, ``HResGatedConv``, ``OnsetEmbedding``, ``ResGatedConv``,
+    ``GATConv``, ``UNet`` or ``ConvBlock``."""
+    if "params" in params and isinstance(params["params"], Mapping):
+        params = params["params"]
+    flat = _flatten(params)
+    out: Dict[str, np.ndarray] = {}
+    for cell in ("OptimizedLSTMCell_0", "OptimizedLSTMCell_1"):
+        if ("encoder", "jk", cell, "ii", "kernel") in flat:
+            out.update(_lstm(flat, cell))
+    for path, v in flat.items():
+        if path[0] == "encoder":  # the PreEncoder's HybridHGT
+            key, val = _encoder_param("encoder", path[1:], v)
+        else:
+            leaf, val = _zoo_leaf(path[-2] if len(path) > 1 else "", path[-1], v)
+            key = ".".join([_zoo_module(c) for c in path[:-1]] + [leaf])
+        out[key] = val
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}

@@ -22,6 +22,14 @@ with 16-byte loads and writes its row once, with no atomics.
 The JAX function is forward-only (no ``custom_vjp``), and so is this one:
 inputs that require a gradient are refused.  On a CPU tensor the wrapper
 computes the plain version; on a CUDA tensor it launches the kernel or raises.
+
+:func:`segment_sum_plan` is the models' form (``ResGatedConv``, ``GATConv``):
+the same kernel on a :class:`SegmentPlan`'s sorted ids and row pointers,
+built once per graph, so a call launches the kernel alone.  It carries
+gradients through one ``torch.autograd.Function`` whose backward is plain
+PyTorch (the output gradient gathered by each sorted edge's segment, 0 for
+padding edges), as K1's does.  Both wrappers count their launches in
+``segment_sum_sorted.launches``: they launch the one K4 kernel.
 """
 
 from __future__ import annotations
@@ -32,8 +40,8 @@ from typing import Optional
 import torch
 
 from analysisgnn_tpu_torch.kernels import launch
-from analysisgnn_tpu_torch.kernels.segment_mean import row_pointers
-from analysisgnn_tpu_torch.kernels.segment_ops import segment_sum
+from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan, row_pointers
+from analysisgnn_tpu_torch.kernels.segment_ops import dummy_row_ids, segment_sum
 
 # segment_sum_launch: msgs, row_ptr, out, num_nodes, F, vec, stream
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -60,13 +68,9 @@ def _check(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> None
         raise ValueError(f"msgs and dst_sorted must be on one cpu or cuda device, got {msgs.device}, {dst_sorted.device}")
 
 
-def _launch(msgs: torch.Tensor, dst_sorted: torch.Tensor, num_nodes: int) -> torch.Tensor:
+def _launch(msgs: torch.Tensor, row_ptr: torch.Tensor, num_nodes: int) -> torch.Tensor:
     msgs = msgs.contiguous()
     f = msgs.shape[1]
-    ids = dst_sorted
-    if ids.dtype != torch.int32 or not ids.is_contiguous():
-        ids = ids.to(torch.int32).contiguous()
-    row_ptr = row_pointers(ids, num_nodes)
     out = torch.empty((num_nodes, f), dtype=torch.float32, device=msgs.device)
     vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, out))
     fn = launch.bind("segment_mean_base", "segment_sum_launch", _ARGTYPES)
@@ -86,7 +90,44 @@ def segment_sum_sorted(
     _check(msgs, dst_sorted, num_nodes)
     if msgs.device.type == "cpu":
         return segment_sum_sorted_plain(msgs, dst_sorted, num_nodes)
-    return _launch(msgs, dst_sorted, num_nodes)
+    ids = dst_sorted
+    if ids.dtype != torch.int32 or not ids.is_contiguous():
+        ids = ids.to(torch.int32).contiguous()
+    return _launch(msgs, row_pointers(ids, num_nodes), num_nodes)
 
 
 segment_sum_sorted.launches = 0
+
+
+class _SegmentSum(torch.autograd.Function):
+    """Forward: the kernel on the card, the plain version on the CPU.
+    Backward (plain PyTorch, the XLA backward of ``jax.ops.segment_sum``):
+    ``d msgs = g[seg]``, 0 for padding edges (ids at or past the end)."""
+
+    @staticmethod
+    def forward(ctx, msgs, seg_sorted, num_segments, row_ptr):
+        ctx.save_for_backward(seg_sorted)
+        ctx.num_segments = num_segments
+        if msgs.device.type == "cpu":
+            return segment_sum_sorted_plain(msgs, seg_sorted, num_segments)
+        return _launch(msgs, row_ptr, num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (seg,) = ctx.saved_tensors
+        padded = torch.cat([g, g.new_zeros((1, g.shape[1]))])
+        return padded[dummy_row_ids(seg, ctx.num_segments)], None, None, None
+
+
+def segment_sum_plan(msgs: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    """``[plan.num_segments, F]`` sums of ``msgs`` (one row per sorted edge of
+    ``plan``) per segment, through K4 on the plan's row pointers;
+    differentiable in ``msgs`` on both devices."""
+    if msgs.dtype != torch.float32:
+        raise TypeError(f"msgs must be float32, got {msgs.dtype}")
+    if msgs.dim() != 2 or msgs.shape[0] != plan.seg.shape[0]:
+        raise ValueError(f"expected msgs [{plan.seg.shape[0]}, F] (one row per sorted edge), got {tuple(msgs.shape)}")
+    if msgs.device != plan.seg.device or msgs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"msgs and the plan must be on one cpu or cuda device, got {msgs.device}, {plan.seg.device}")
+    return _SegmentSum.apply(msgs, plan.seg, plan.num_segments, plan.row_ptr)
+

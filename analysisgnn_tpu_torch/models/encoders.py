@@ -435,7 +435,9 @@ class HGTLayer(nn.Module):
 class HybridHGT(nn.Module):
     """HGT layers, each followed by dropout on every node type, and the
     LSTM-attention JumpingKnowledge over the note states (the JAX
-    ``HybridHGT``)."""
+    ``HybridHGT``).  ``in_channels`` is the width of the first layer's input
+    (``hidden`` by default; flax infers it, and the PreEncoder feeds raw
+    node features in, where the first layer's ``res_{t}`` projects them)."""
 
     def __init__(
         self,
@@ -450,14 +452,16 @@ class HybridHGT(nn.Module):
         use_pallas: bool = False,
         softmax_stab: str = "global",
         stage_dtype: str = "float32",
+        in_channels: Optional[int] = None,
     ):
         super().__init__()
         self.dropout = dropout
         self.edge_types = tuple(edge_types)
         self.group_mode = group_mode
         self.layers = nn.ModuleList(
-            HGTLayer(hidden, hidden, node_types, edge_types, heads, group_mode, use_pallas, softmax_stab, stage_dtype)
-            for _ in range(num_layers)
+            HGTLayer(in_channels or hidden if i == 0 else hidden, hidden, node_types, edge_types, heads, group_mode,
+                     use_pallas, softmax_stab, stage_dtype)
+            for i in range(num_layers)
         )
         self.jk = LayerAttentionJK(hidden, num_layers) if use_jk else None
 

@@ -44,38 +44,57 @@ class FusedTaskHeads(nn.Module):
         return {task: logits[i, :, :n_cls] for i, (task, n_cls) in enumerate(self.task_dict)}
 
 
-class CrossTaskTransformer(nn.Module):
-    """Self-attention across the task axis, then a residual LayerNorm: the
-    flax ``MultiHeadDotProductAttention`` (query, key and value projections
-    to ``heads x proj_dim / heads``, scores scaled by ``1 / sqrt(head_dim)``,
-    an output projection) on ``[N, T, proj_dim]``.  The flax kernels
-    ``[in, heads, head_dim]`` and ``[heads, head_dim, out]`` are stored as
-    Linears over the flattened ``heads * head_dim`` axis.  In training the
-    attention weights take flax's broadcast dropout: one ``[T, T]`` mask for
-    every node and head."""
+class MultiHeadAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` self-attention over the
+    second-to-last axis of ``[..., L, F]`` (``qkv_features = out_features =
+    F``): query, key and value projections to ``heads x F / heads``, the
+    query scaled by ``1 / sqrt(head_dim)``, logits where ``mask`` (``[L, L]``
+    or broadcastable to ``[..., H, L, L]``) is false set to the dtype's
+    smallest value, so a row with no valid key attends uniformly to every
+    key, as in flax; a softmax over the keys, in training flax's broadcast
+    dropout on the weights (one ``[L, L]`` mask for every leading index and
+    head), and the output projection.  The flax kernels ``[in, heads,
+    head_dim]`` and ``[heads, head_dim, out]`` are stored as Linears over the
+    flattened ``heads * head_dim`` axis."""
 
-    def __init__(self, proj_dim: int, num_heads: int = XTASK_HEADS, rate: float = 0.1):
+    def __init__(self, features: int, num_heads: int, rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.rate = rate
-        self.query = Linear(proj_dim, proj_dim)
-        self.key = Linear(proj_dim, proj_dim)
-        self.value = Linear(proj_dim, proj_dim)
-        self.out = Linear(proj_dim, proj_dim)
+        self.query = Linear(features, features)
+        self.key = Linear(features, features)
+        self.value = Linear(features, features)
+        self.out = Linear(features, features)
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        *lead, length, f = x.shape
+        split = lambda y: y.reshape(*lead, length, self.num_heads, f // self.num_heads)
+        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        q = q / math.sqrt(q.shape[-1])
+        logits = torch.einsum("...qhd,...khd->...hqk", *promote(q, k))
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        w = torch.softmax(logits, dim=-1)
+        if not deterministic and self.rate > 0:
+            w = w * dropout(w.new_ones(length, length), self.rate, deterministic, generator)
+        return self.out(torch.einsum("...hqk,...khd->...qhd", *promote(w, v)).reshape(*lead, length, f))
+
+
+class CrossTaskTransformer(MultiHeadAttention):
+    """Self-attention across the task axis of ``[N, T, proj_dim]``, then a
+    residual LayerNorm (the logit-fusion heads' cross-task attention)."""
+
+    def __init__(self, proj_dim: int, num_heads: int = XTASK_HEADS, rate: float = 0.1):
+        super().__init__(proj_dim, num_heads, rate)
         self.norm = layer_norm(proj_dim)
 
     def forward(
         self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        n, t, f = x.shape
-        split = lambda y: y.reshape(n, t, self.num_heads, f // self.num_heads)
-        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
-        q = q / math.sqrt(q.shape[-1])
-        w = torch.softmax(torch.einsum("nqhd,nkhd->nhqk", *promote(q, k)), dim=-1)
-        if not deterministic and self.rate > 0:
-            w = w * dropout(w.new_ones(t, t), self.rate, deterministic, generator)
-        attended = self.out(torch.einsum("nhqk,nkhd->nqhd", *promote(w, v)).reshape(n, t, f))
-        return self.norm(x + attended)
+        return self.norm(x + super().forward(x, None, deterministic, generator))
 
 
 class TaskHeads(nn.Module):

@@ -1,10 +1,12 @@
 """Heterogeneous conv dispatch (counterpart of ``analysisgnn_tpu/models/hetero.py``,
-SAGE relations with mean or sum reduction across edge types).
+SAGE or ResGated relations with mean or sum reduction across edge types).
 
 By default (``fused=True``) a node type with two or more same-type relations
 gets one :class:`FusedHeteroSage` over all of them, in the layout
 ``conv_impl`` names (``models/fused.py``); every other relation gets its own
-:class:`SageConv`.  ``fused=False`` gives every relation its own SageConv.
+:class:`SageConv`.  ``fused=False`` gives every relation its own conv of
+``conv_cls`` (``SageConv`` or ``ResGatedConv``, the JAX ``conv_cls``); as in
+JAX, only SageConv relations fuse.
 A node type's next state is the mean (``aggr="mean"``) or the sum
 (``aggr="sum"``, the cadence family's ``HierarchicalHeteroSage``) of the
 contributions of the relations whose source it is; a type with none gets a
@@ -29,7 +31,7 @@ from torch import nn
 
 from analysisgnn_tpu_torch.core.graph import EdgeType, edge_type_key
 from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan
-from analysisgnn_tpu_torch.models.conv import SageConv, sage_plan
+from analysisgnn_tpu_torch.models.conv import ResGatedConv, SageConv, sage_plan
 from analysisgnn_tpu_torch.models.fused import EdgePlan, FusedHeteroSage, edge_plan, fused_plan
 from analysisgnn_tpu_torch.models.mlp import Linear
 
@@ -89,23 +91,28 @@ def plan_hetero(
 
 
 AGGRS = ("mean", "sum")
+CONV_CLASSES = (SageConv, ResGatedConv)
 
 
 class HeteroConv(nn.Module):
     def __init__(
         self, in_features: int, out_features: int, node_types: Sequence[str], edge_types: Sequence[EdgeType],
-        conv_impl: str = "node", aggr: str = "mean", fused: bool = True,
+        conv_impl: str = "node", aggr: str = "mean", fused: bool = True, conv_cls: type = SageConv,
     ):
         super().__init__()
         if aggr not in AGGRS:
             raise ValueError(f"aggr must be one of {AGGRS}, got {aggr!r}")
+        if conv_cls not in CONV_CLASSES:
+            raise ValueError(f"conv_cls must be one of {[c.__name__ for c in CONV_CLASSES]}, got {conv_cls!r}")
+        if fused and conv_cls is not SageConv:
+            raise ValueError("only SageConv relations fuse: build a ResGatedConv layer with fused=False")
         self.aggr = aggr
         self.groups, self.singles = fusion_groups(edge_types, fused)
         self.fused = nn.ModuleDict({
             t: FusedHeteroSage(in_features, out_features, len(rels), reduce="sum", impl=conv_impl)
             for t, rels in self.groups.items()
         })
-        self.convs = nn.ModuleDict({edge_type_key(et): SageConv(in_features, out_features) for et in self.singles})
+        self.convs = nn.ModuleDict({edge_type_key(et): conv_cls(in_features, out_features) for et in self.singles})
         sources = set(self.groups) | {et[0] for et in self.singles}
         self.selfs = nn.ModuleDict({t: Linear(in_features, out_features) for t in node_types if t not in sources})
 

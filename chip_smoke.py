@@ -78,8 +78,8 @@ Phases, each on its own line with elapsed seconds:
      run of every edge, H = 6 and 40, int64 ids, -inf logits), with median
      times of each kernel, its plain version and, for K4, an index_add_
      yardstick, and the profiler's device time (K5: one launch a call and no
-     other kernel), beside the bytes bound; only tests call them, so no path
-     launches them;
+     other kernel), beside the bytes bound; no path launches K5 (only tests
+     call it), and K4's path is phase 27's;
  13. trainer: the training entry point, analysisgnn_tpu_torch.cli.train.main,
      at full width (HybridGNN 3 x 256 -> 128, JK, final norm) on the demo
      corpus with --use_metrical --use_pallas --conv_impl edge-zxp, one
@@ -209,6 +209,25 @@ Phases, each on its own line with elapsed seconds:
      whole 20,000-note score with beats and measures, with and without
      remat, in turns: ms a step and peak device memory of each, launches
      against the prediction, the losses and gradients within 1e-5 relative.
+ 27. pre-training and the layer zoo (run after phase 12), at full width with
+     weights from seed 0: (a) the PreEncoder (HybridHGT pair 3 x 256, 4
+     heads, JK) pre-trained by make_pretrain_step on the bench's batches
+     with seeded voice and staff attributes: ms a step over 4 steps, peak
+     memory, no hand-written kernel launched, a loss that falls, one step on
+     the GPU against the CPU; K4 through a SegmentPlan (segment_sum_plan)
+     against its plain version, its gradient, and its call timed in turns
+     with phase 12's call that builds its row pointers; (b) HResGatedConv (3
+     layers, 13 relations: K4 39 a forward), HGPS (2 layers, 4 heads, the
+     dense masked attention over a batch's note rows: K4 14), OnsetEmbedding
+     (K1 1) and GATConv (3 heads, K4 1) on a bench batch, forward and
+     backward on the GPU against the CPU, launches against the code's
+     formula, peak memory; (c) UNet((32, 64, 128)) on [8, 88, 256, 1]
+     pianoroll-shaped images, GPU against CPU; (d) hetero_fidelity of the
+     serve model on a 2,000-note request with half of each note -> note
+     relation's edges masked (three forwards, K1 15), GPU against CPU; the
+     pretrained PreEncoder's voice links through voice_from_edges,
+     pianoroll_svg and graph_to_json, and GraphSampler and the Laplacian
+     positional encoding on the host.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -421,6 +440,41 @@ VARIANT_TRAINER_FLAGS = ["--demo", "--use_metrical", "--use_pallas", "--conv_imp
 REMAT_NOTES = 20000
 REMAT_TURNS = 2
 REMAT_RTOL = 1e-5
+# phase 27: pre-training and the rest of the layer zoo at full width, weights drawn from seed 0.  The PreEncoder
+# (HybridHGT pair 3 x 256, 4 heads, JK, no K2: the JAX module's build) pre-trains on the bench's batches with seeded
+# voice / staff attributes in {1, 2} (tests/test_model_families.py:226-229), AdamW at PRETRAIN_LR with optax's
+# weight decay and no clipping (the JAX step's optax.adamw): PRETRAIN_STEPS timed steps after one warm-up, the loss
+# falling over FALL_STEPS steps on one batch, one dropout-0 step on the GPU against the CPU at PARITY_EPS on a
+# batch of PARITY_BATCH (the loss within PARITY_LOSS_RTOL, every parameter within PARITY_PARAM_ATOL)
+PRETRAIN = {"hidden": 256, "num_layers": 3, "heads": 4}
+PRETRAIN_LR, PRETRAIN_WEIGHT_DECAY = 1e-3, 1e-4
+PRETRAIN_STEPS = 4
+# the layer zoo on one bench batch at width 256, forward and backward, GPU against CPU on the same weights: each
+# output's note rows within ZOO_RTOL of its largest |value| (the same f32 sums in another order; K4 sums a node's
+# few dozen messages, HGPS's softmax runs over 5,376 keys), the gradients of the parameters and the input within
+# ZOO_GRAD_RTOL in relative L2.  The gradient is not continuous at a ReLU's kink: a pre-activation within f32
+# rounding of 0 lands on the other side of it on the card, and each such unit moves the gradient by its term, 1e-4
+# to 1e-3 of the gradient's norm here (HGPS: 2 of the last layer's 2.2 million ff1 units, at |pre| < 6e-7, moved
+# it by 1.1e-3 in one chip run and by 2.7e-4 in another, where the CPU's f32 gradient lay within 4.5e-7 of float64:
+# chip runs, NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section 6); a wrong index or a dropped term moves it by
+# O(1).  Padding rows (graph id -1) are never read: a finite output is all they owe, and the cotangent is 0
+# there.  HGPS's
+# padding rows have no valid key and attend uniformly to every key, as flax's do; their output is a mean over the
+# 5,376 rows, which the card sums in another order: 1.4e-5 of the largest |output| from float64 after two layers,
+# where the note rows lie within 8.6e-7 on the card and 7.0e-7 on the CPU (chip run, NVIDIA H100 80GB HBM3,
+# 700.00 W, PERF.md section 6)
+ZOO_HIDDEN = 256
+ZOO_RTOL, ZOO_GRAD_RTOL = 1e-5, 1e-2
+HGPS_LAYERS, HGPS_HEADS, HRES_LAYERS, GAT_HEADS = 2, 4, 3, 3
+# UNet((32, 64, 128), out 1) on pianoroll-shaped images [B, 88 pitches, 256 steps, 1], GPU against CPU: the same
+# convolutions (cuDNN, TF32 off) and GroupNorms in another order, within UNET_RTOL of the largest |output|
+UNET_SHAPE, UNET_FEATURES, UNET_RTOL = (8, 88, 256, 1), (32, 64, 128), 1e-5
+# hetero_fidelity of the serve model on a FID_NOTES-note request, a seeded mask keeping half of each note -> note
+# relation's edges: three forwards, each with the serve path's K1 launches; the pretrained PreEncoder's voice
+# links on the same score, then voice_from_edges, pianoroll_svg, graph_to_json, GraphSampler and the Laplacian
+# positional encoding on the host
+FID_NOTES = 2000
+LAP_PE_K = 8
 
 
 def phase(msg: str) -> None:
@@ -3215,6 +3269,462 @@ def remat_turns() -> dict:
             "peak_bytes": peak, "allocated_before_bytes": base_bytes, "recomputed_per_step": recomputed}
 
 
+# ------------------------------------------------- pre-training and the layer zoo
+
+
+def _with_voice_staff(batch, seed: int):
+    """The batch with seeded voice and staff attributes in {1, 2} (the
+    sampler does not carry them)."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+
+    rng = np.random.default_rng(seed)
+    n = batch.capacity(NOTE)
+    dev = batch.node_features[NOTE].device
+    attrs = dict(batch.node_attrs[NOTE])
+    for name in ("voice", "staff"):
+        attrs[name] = torch.from_numpy(rng.integers(1, 3, n)).to(dev)
+    return dataclasses.replace(batch, node_attrs={**batch.node_attrs, NOTE: attrs})
+
+
+def _pre_encoder(device: str):
+    from analysisgnn_tpu_torch.core.graph import metadata
+    from analysisgnn_tpu_torch.models.analysis import init_parameters
+    from analysisgnn_tpu_torch.models.pre_encoder import PreEncoder
+
+    nodes, edges = metadata(True, True)
+    model = PreEncoder(TRAIN_CFG["in_channels"], PRETRAIN["hidden"], nodes, edges, PRETRAIN["num_layers"],
+                       PRETRAIN["heads"])
+    init_parameters(model, torch.Generator(device="cpu").manual_seed(0))
+    return model.to(device)
+
+
+def _pretrain_optimizer(lr: float, eps: float = 1e-8):
+    from analysisgnn_tpu_torch.train.state import ClippedAdamW
+
+    return ClippedAdamW(lambda _count: lr, eps=eps, weight_decay=PRETRAIN_WEIGHT_DECAY, clip_norm=None)
+
+
+def pretrain_phase(batches: list, parity_batch) -> dict:
+    """Phase 27 (a): the PreEncoder's pretrain step at full width on the
+    bench's batches: ms a step, peak memory, no hand-written kernel launched
+    (the HGT of ``pair`` without K2 and the heads are PyTorch ops), a loss
+    that falls over FALL_STEPS steps on one batch; then one dropout-0 step on
+    the GPU against the CPU."""
+    from analysisgnn_tpu_torch.train.pretrain import make_pretrain_step
+
+    batches = [_with_voice_staff(b, i) for i, b in enumerate(batches)]
+    model = _pre_encoder("cuda")
+    opt = _pretrain_optimizer(PRETRAIN_LR)
+    state = opt.init(list(model.parameters()))
+    step = make_pretrain_step(model, opt)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    state, losses = step(state, batches[0], gen)  # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(PRETRAIN_STEPS):
+        b = batches[1 + i % (len(batches) - 1)]
+        t = time.perf_counter()
+        state, losses = step(state, b, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    if any(counts.values()):
+        raise AssertionError(f"the pretrain step launched hand-written kernels {counts}; the code predicts none")
+    if not all(np.isfinite(float(v)) for v in losses.values()):
+        raise AssertionError(f"pretrain step: non-finite losses {losses}")
+    fall = []
+    for _ in range(FALL_STEPS):
+        state, losses = step(state, batches[0], gen)
+        fall.append(float(losses["total"]))
+    if not fall[-1] < fall[0]:
+        raise AssertionError(f"pretrain: the loss did not fall over {FALL_STEPS} steps on one batch: {fall}")
+    ms = statistics.median(times)
+    phase(f"pretrain: PreEncoder HybridHGT pair {PRETRAIN['num_layers']}x{PRETRAIN['hidden']}, {PRETRAIN['heads']} "
+          f"heads, JK, {sum(p.numel() for p in model.parameters())} parameters: {PRETRAIN_STEPS} steps after one "
+          f"warm-up, median {ms:.2f} ms/step ({', '.join(f'{v:.1f}' for v in times)}), peak memory "
+          f"{peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before the steps); hand-written kernels "
+          f"launched: none (as predicted); losses "
+          + ", ".join(f"{k} {float(v):.4f}" for k, v in losses.items())
+          + f"; {FALL_STEPS} steps on one batch: total {fall[0]:.4f} -> {fall[-1]:.4f}")
+
+    # one dropout-0 step on the GPU against the CPU, the same weights and batch
+    pb = _with_voice_staff(parity_batch, 0)
+    out = {}
+    for label, dev, b in (("gpu", "cuda", pb), ("cpu", "cpu", _graph_to(pb, "cpu"))):
+        m = _pre_encoder(dev)
+        m.load_state_dict({k: v.to(dev) for k, v in model.state_dict().items()})
+        o = _pretrain_optimizer(PARITY_LR, PARITY_EPS)
+        st, l = make_pretrain_step(m, o)(o.init(list(m.parameters())), b)
+        out[label] = ({k: float(v) for k, v in l.items()}, {k: v.detach().cpu() for k, v in m.state_dict().items()})
+    (lg, pg), (lc, pc) = out["gpu"], out["cpu"]
+    rels = {k: abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc}
+    worst = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    if max(rels.values()) > PARITY_LOSS_RTOL or worst > PARITY_PARAM_ATOL:
+        raise AssertionError(f"pretrain step GPU vs CPU: losses rel {rels} (tol {PARITY_LOSS_RTOL}), parameters "
+                             f"max|d| {worst:.3e} (tol {PARITY_PARAM_ATOL})")
+    phase(f"pretrain: one step GPU vs CPU (dropout 0, lr {PARITY_LR}, eps {PARITY_EPS}, a batch of {PARITY_BATCH}): "
+          f"total {lg['total']:.6f} vs {lc['total']:.6f}, losses rel max {max(rels.values()):.2e} (tol "
+          f"{PARITY_LOSS_RTOL}); every parameter max|d| {worst:.3e} (tol {PARITY_PARAM_ATOL} abs)")
+    return {"model": model, "median_ms": ms, "step_ms": times, "peak_bytes": peak, "base_bytes": base, "fall": fall,
+            "parity": {"loss_rel": max(rels.values()), "param_max_abs": worst}}
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _zoo_case(name: str, make, run, batch, expected: dict) -> dict:
+    """One zoo module on the card and on the CPU with the same weights and
+    inputs: forward and backward of a seeded cotangent (0 on padding rows);
+    the card's launches against ``expected``, the note rows' output within
+    ZOO_RTOL of its largest |value|, every row finite, the parameters' and
+    the input's gradients within ZOO_GRAD_RTOL in relative L2; the card's
+    forward and forward + backward timed."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.models.analysis import init_parameters
+
+    cpu = make()
+    init_parameters(cpu, torch.Generator(device="cpu").manual_seed(0))
+    gpu = make().cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    res = {}
+    notes = (batch.batch[NOTE] >= 0).cpu()
+    cot = torch.randn(batch.capacity(NOTE), ZOO_HIDDEN, generator=torch.Generator(device="cpu").manual_seed(1))
+    cot = cot * notes[:, None]
+    _reset_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for label, m, b in (("gpu", gpu, batch), ("cpu", cpu, _graph_to(batch, "cpu"))):
+        x, out = run(m, b)  # x: the note features, with requires_grad
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"zoo {name}: non-finite output on the {label}")
+        if m is gpu:
+            torch.cuda.synchronize()
+            launches = _counts()
+        (out * cot.to(out.device)).sum().backward()
+        # the last HResGatedConv layer's beat and measure relations do not reach the note states: no gradient
+        grads = torch.cat([x.grad.flatten()] + [p.grad.flatten() if p.grad is not None else p.new_zeros(p.numel())
+                                                for p in m.parameters()]).cpu()
+        res[label] = (out.detach().cpu()[notes], grads)
+        if m is gpu:
+            peak = torch.cuda.max_memory_allocated()
+    (og, gg), (oc, gc) = res["gpu"], res["cpu"]
+    err = float((og - oc).abs().max())
+    scale = float(oc.abs().max())
+    grad_rel = _rel_l2(gg, gc)
+    if err > ZOO_RTOL * scale or grad_rel > ZOO_GRAD_RTOL:
+        raise AssertionError(f"zoo {name}: GPU vs CPU note rows max|d| {err:.3e} of max|out| {scale:.3e} (tol "
+                             f"{ZOO_RTOL} relative), gradients {grad_rel:.3e} relative L2 (tol {ZOO_GRAD_RTOL})")
+    got = {k: v for k, v in launches.items() if v}
+    if got != expected:
+        raise AssertionError(f"zoo {name}: forward launches {got}, the code predicts {expected}")
+
+    def fwd():
+        with torch.no_grad():
+            run(gpu, batch)
+
+    def fwd_bwd():
+        x, out = run(gpu, batch)
+        out.sum().backward()
+
+    gpu.zero_grad(set_to_none=True)
+    row = {"launches": got, "max_abs_err": err, "max_abs_out": scale, "grad_rel_l2": grad_rel,
+           "forward_ms": cuda_ms(fwd, iters=5, trials=3), "step_ms": cuda_ms(fwd_bwd, iters=3, trials=3),
+           "peak_bytes": peak, "base_bytes": base, "shape": tuple(out.shape)}
+    phase(f"zoo {name}: out {tuple(out.shape)}, forward launches {got} (as the code predicts), GPU vs CPU note rows max|d| "
+          f"{err:.3e} of max|out| {scale:.3e} (tol {ZOO_RTOL} relative), gradients {grad_rel:.3e} relative L2 (tol "
+          f"{ZOO_GRAD_RTOL}); forward {row['forward_ms']:.3f} ms, forward + backward {row['step_ms']:.3f} ms, peak "
+          f"memory {peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB allocated before)")
+    return row
+
+
+def zoo_phase(batch) -> dict:
+    """Phase 27 (b): HResGatedConv (3 layers, 13 relations), HGPS (2 layers,
+    4 heads, the dense [4, N, N] masked attention over the batch's note rows),
+    OnsetEmbedding and GATConv (3 heads) on the onset relation, at width 256
+    on one bench batch: launches against the code's formula, GPU against
+    CPU."""
+    from analysisgnn_tpu_torch.core.graph import NOTE, metadata
+    from analysisgnn_tpu_torch.models.conv import GATConv, sage_plan
+    from analysisgnn_tpu_torch.models.extra_layers import HGPS, HResGatedConv, OnsetEmbedding, note_relations
+
+    nodes, edges = metadata(True, True)
+    f_in = TRAIN_CFG["in_channels"]
+    n = batch.capacity(NOTE)
+    onset = (NOTE, "onset", NOTE)
+
+    def leaf(b):
+        return {t: v.clone().requires_grad_(t == NOTE) for t, v in b.node_features.items()}
+
+    def run_hres(m, b):
+        x = leaf(b)
+        return x[NOTE], m(x, m.plan(b.edge_index, {t: v.shape[0] for t, v in x.items()}))
+
+    def run_hgps(m, b):
+        x = leaf(b)
+        return x[NOTE], m(x, m.plan(b.edge_index, n), b.batch, valid=b.batch[NOTE] >= 0)
+
+    def run_single(m, b):
+        x = leaf(b)[NOTE]
+        return x, m(x, sage_plan(b.edges(onset), n, n))
+
+    rels = [et for et in edges if et in batch.edge_index]
+    rows = {}
+    rows["HResGatedConv"] = _zoo_case(
+        f"HResGatedConv {HRES_LAYERS}x{ZOO_HIDDEN}", lambda: HResGatedConv(f_in, ZOO_HIDDEN, nodes, edges, HRES_LAYERS),
+        run_hres, batch, {"segment_sum_sorted": HRES_LAYERS * len(rels)})
+    rows["HGPS"] = _zoo_case(
+        f"HGPS {HGPS_LAYERS}x{ZOO_HIDDEN}, {HGPS_HEADS} heads, attention over {n} note rows",
+        lambda: HGPS(f_in, ZOO_HIDDEN, edges, HGPS_LAYERS, HGPS_HEADS), run_hgps, batch,
+        {"segment_sum_sorted": HGPS_LAYERS * len(note_relations(rels))})
+    rows["OnsetEmbedding"] = _zoo_case(f"OnsetEmbedding {ZOO_HIDDEN}", lambda: OnsetEmbedding(f_in, ZOO_HIDDEN),
+                                       run_single, batch, {"segment_mean_base": 1})
+    rows["GATConv"] = _zoo_case(f"GATConv {ZOO_HIDDEN}, {GAT_HEADS} heads, onset relation",
+                                lambda: GATConv(f_in, ZOO_HIDDEN, GAT_HEADS), run_single, batch,
+                                {"segment_sum_sorted": 1})
+    return rows
+
+
+def check_k4_plan(batch) -> dict:
+    """K4 through a SegmentPlan (segment_sum_plan, the models' form) against
+    its plain version within K4_RTOL and its gradient against the plain
+    gradient (each sorted edge takes its segment's row, padding 0), on a
+    ResGatedConv relation with its padding edges; then, at phase 12's shape
+    (the fused note layer's sorted valid edges), the plan call's time and
+    device time beside the call that builds its row pointers."""
+    from analysisgnn_tpu_torch.core.graph import NOTE, NOTE_EDGE_TYPES
+    from analysisgnn_tpu_torch.kernels.segment_mean import SegmentPlan, row_pointers
+    from analysisgnn_tpu_torch.kernels.segment_ops import dummy_row_ids
+    from analysisgnn_tpu_torch.kernels.segment_sum import segment_sum_plan, segment_sum_sorted, \
+        segment_sum_sorted_plain
+    from analysisgnn_tpu_torch.models.conv import sage_plan
+    from analysisgnn_tpu_torch.models.fused import fused_plan
+
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    n = batch.capacity(NOTE)
+    f = ZOO_HIDDEN
+    plan = sage_plan(batch.edges((NOTE, "consecutive", NOTE)), n, n)
+    msgs = torch.randn(plan.seg.shape[0], f, generator=gen).cuda().requires_grad_()
+    g = torch.randn(n, f, generator=gen).cuda()
+    out = segment_sum_plan(msgs, plan)
+    ref = segment_sum_sorted_plain(msgs.detach(), plan.seg, n)
+    scale = segment_sum_sorted_plain(msgs.detach().abs(), plan.seg, n)
+    (out * g).sum().backward()
+    want_grad = torch.cat([g, g.new_zeros((1, f))])[dummy_row_ids(plan.seg, n)]
+    torch.cuda.synchronize()
+    err = (out.detach() - ref).abs()
+    padding = int((plan.seg >= n).sum())
+    if not bool((err <= K4_RTOL * scale).all()) or not torch.equal(msgs.grad, want_grad):
+        raise AssertionError(f"K4 plan call: max|kernel - plain| {float(err.max()):.3e} (tol {K4_RTOL} of the sum of "
+                             f"|terms|) or a gradient unequal to the plain one")
+    # phase 12's timed shape, through a plan of its sorted ids
+    fplan = fused_plan([batch.edges(et) for et in NOTE_EDGE_TYPES], n)
+    dst = fplan.seg[fplan.seg.long() < fplan.num_segments].contiguous()
+    s = fplan.num_segments
+    tplan = SegmentPlan(gather=torch.arange(dst.shape[0], device=dst.device), seg=dst, num_segments=s, base_rows=s,
+                        row_ptr=row_pointers(dst, s))
+    tm = torch.randn(dst.shape[0], f, generator=gen).cuda()
+    ids = dst.long()
+    plan_call = lambda: segment_sum_plan(tm, tplan)
+    sorted_call = lambda: segment_sum_sorted(tm, dst, s)
+    if not torch.equal(plan_call(), sorted_call()):
+        raise AssertionError("K4: the plan call and the searchsorted call differ on the same inputs")
+    with torch.no_grad():
+        turns = cuda_ms_turns({"plan": plan_call, "searchsorted": sorted_call})
+        row = {"case": "fused note layer (plan)", "E": dst.shape[0], "F": f, "n": s,
+               "max_abs_err": float(err.max()), "grad_equal": True, "padding_edges": padding,
+               "ms": turns["plan"], "searchsorted_ms": turns["searchsorted"],
+               "device_ms": device_ms(plan_call, "segment_mean_base_kernel"),
+               "plain_ms": cuda_ms(lambda: segment_sum_sorted_plain(tm, dst, s)),
+               "library_ms": cuda_ms(lambda: torch.zeros((s, f), device="cuda").index_add_(0, ids, tm))}
+    row["bound_ms"], row["bound_by"] = k4_bound_ms(dst.shape[0], f, s)
+    phase(f"kernel check: K4 plan call on the consecutive relation (E={plan.seg.shape[0]}, {padding} padding, F={f}, "
+          f"n={n}): max|d| {row['max_abs_err']:.3e} (tol {K4_RTOL} of the sum of |terms|), gradient equal to the "
+          f"plain one; at E={row['E']} F={f} n={s}, in turns: plan call {row['ms']:.4f} ms, searchsorted call "
+          f"{row['searchsorted_ms']:.4f} ms; plan call on the device {row['device_ms']:.4f} ms; plain "
+          f"{row['plain_ms']:.4f} ms, index_add_ yardstick {row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}, {100 * row['bound_ms'] / row['device_ms']:.1f}% of the device time)")
+    return row
+
+
+def unet_phase() -> dict:
+    """Phase 27 (c): UNet((32, 64, 128), out 1) on [8, 88, 256, 1] images on
+    the card against the CPU, and its forward timed."""
+    from analysisgnn_tpu_torch.models.analysis import init_parameters
+    from analysisgnn_tpu_torch.models.unet import UNet
+
+    cpu = UNet(UNET_SHAPE[-1], UNET_FEATURES, out_channels=1)
+    init_parameters(cpu, torch.Generator(device="cpu").manual_seed(0))
+    gpu = UNet(UNET_SHAPE[-1], UNET_FEATURES, out_channels=1).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.randn(UNET_SHAPE, generator=torch.Generator(device="cpu").manual_seed(2))
+    with torch.no_grad():
+        t = time.perf_counter()
+        want = cpu(x)
+        cpu_s = time.perf_counter() - t
+        xg = x.cuda()
+        got = gpu(xg).cpu()
+        ms = cuda_ms(lambda: gpu(xg), iters=5, trials=3)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    if got.shape != UNET_SHAPE or not torch.isfinite(got).all() or err > UNET_RTOL * scale:
+        raise AssertionError(f"UNet: shape {tuple(got.shape)}, GPU vs CPU max|d| {err:.3e} of max|out| {scale:.3e} "
+                             f"(tol {UNET_RTOL} relative)")
+    phase(f"UNet{UNET_FEATURES} on {list(UNET_SHAPE)}: GPU vs CPU max|d| {err:.3e} of max|out| {scale:.3e} (tol "
+          f"{UNET_RTOL} relative); forward {ms:.3f} ms on the card, {cpu_s:.2f} s on the CPU")
+    return {"forward_ms": ms, "max_abs_err": err, "max_abs_out": scale}
+
+
+def fidelity_voices_phase(pre_encoder) -> dict:
+    """Phase 27 (d): hetero_fidelity of the serve model (phase 4's weights) on
+    a FID_NOTES-note request with a seeded mask keeping half of each
+    note -> note relation's edges, GPU against CPU (fid values equal except
+    where an argmax has two logits within LOGIT_ATOL), K1's launches against
+    the serve path's; then the pretrained PreEncoder's voice links with a
+    logit above 0 through voice_from_edges, pianoroll_svg and graph_to_json,
+    and GraphSampler and the Laplacian positional encoding on the host."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.data.graph_sampling import GraphSampler
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.inference.predict import graph_from_note_array
+    from analysisgnn_tpu_torch.models.analysis import SERVE_CONFIG, init_parameters, model_from_config
+    from analysisgnn_tpu_torch.models.hetero import fusion_groups
+    from analysisgnn_tpu_torch.train.pretrain import pretrain_candidates
+    from analysisgnn_tpu_torch.utils.explain import hetero_fidelity
+    from analysisgnn_tpu_torch.utils.graph_utils import laplacian_positional_encoding, voice_from_edges
+    from analysisgnn_tpu_torch.utils.visualization import graph_to_json, pianoroll_svg
+    import scipy.sparse.csgraph  # noqa: F401  (imported here, outside the timed host calls)
+    import scipy.sparse.linalg  # noqa: F401
+
+    na = synthetic_score(FID_NOTES, seed=FID_NOTES)
+    models = {}
+    for label, dev in (("gpu", "cuda"), ("cpu", "cpu")):
+        m = model_from_config(SERVE_CONFIG, device=dev).eval()
+        init_parameters(m, torch.Generator(device="cpu").manual_seed(0))  # the serve phase's weights
+        models[label] = m
+    groups, singles = fusion_groups(models["gpu"].edge_types)
+    per_forward = (len(models["gpu"].encoder.layers) + 1) * (len(groups) + len(singles)) + 1
+    rng = np.random.default_rng(FID_NOTES)
+    tasks = [t for t, _ in models["gpu"].task_dict]
+    fids, logits_seen, launches = {}, {}, 0
+    for label, m in models.items():
+        dev = next(m.parameters()).device
+        g = graph_from_note_array(na, add_beats=False, add_measures=False, bucket_factor=BUCKET_FACTOR, device=dev)
+        if label == "gpu":
+            n_cap = g.capacity(NOTE)
+            masks_np = {et: rng.random(ei.shape[1]) < 0.5 for et, ei in g.edge_index.items()}
+            labels_np = {t: rng.integers(0, c, n_cap) for t, c in m.task_dict}
+        a = g.node_attrs[NOTE]
+        seen = []
+
+        @torch.no_grad()
+        def logits_fn(ei, m=m, g=g, a=a, seen=seen):
+            out = m(g.node_features, ei, a["pitch_spelling"], a["key_signature"], g.num_target_nodes)
+            seen.append({k: v.float().cpu() for k, v in out.items()})
+            return out
+
+        to = lambda d: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+        _reset_counts()
+        t = time.perf_counter()
+        fids[label] = hetero_fidelity(logits_fn, g.edge_index, to(masks_np), to(labels_np), g.target_mask(),
+                                      {NOTE: g.capacity(NOTE)})
+        if label == "gpu":
+            torch.cuda.synchronize()
+            fid_ms = (time.perf_counter() - t) * 1e3
+            launches = _counts()["segment_mean_base"]
+        logits_seen[label] = seen
+    if launches != 3 * per_forward:
+        raise AssertionError(f"hetero_fidelity launched K1 {launches} times, the code predicts 3 x {per_forward}")
+    weight = (torch.arange(n_cap) < FID_NOTES).float()
+    denom = float(weight.sum())
+    worst = 0.0
+    for task in tasks:
+        ties = 0  # weighted rows where a forward's CPU top two logits lie within LOGIT_ATOL
+        for fwd_g, fwd_c in zip(logits_seen["gpu"], logits_seen["cpu"]):
+            worst = max(worst, float((fwd_g[task] - fwd_c[task]).abs().max()))
+            top2 = fwd_c[task].topk(2, dim=-1).values
+            ties += int(((top2[:, 0] - top2[:, 1] <= LOGIT_ATOL) & (weight > 0)).sum())
+        for k in (0, 1):
+            d = abs(float(fids["gpu"][k][task]) - float(fids["cpu"][k][task])) * denom
+            if d > ties + 1e-3:
+                raise AssertionError(f"hetero_fidelity {task}: fid {'+-'[k]} GPU {float(fids['gpu'][k][task])} vs "
+                                     f"CPU {float(fids['cpu'][k][task])} on {d:.1f} rows, {ties} near ties")
+    if worst > LOGIT_ATOL:
+        raise AssertionError(f"hetero_fidelity: GPU vs CPU logits differ by {worst:.3e} > {LOGIT_ATOL}")
+    fid_plus = {t: float(v) for t, v in fids["gpu"][0].items()}
+    fid_minus = {t: float(v) for t, v in fids["gpu"][1].items()}
+    phase(f"fidelity: hetero_fidelity of the serve model on a {FID_NOTES}-note request, half of each note -> note "
+          f"relation's edges kept: {fid_ms:.1f} ms for its three forwards, K1 launches {launches} (3 x {per_forward}, "
+          f"as predicted); GPU vs CPU logits max|d| {worst:.3e}, every fid equal but for near ties; fid+ "
+          f"mean {statistics.mean(fid_plus.values()):.4f}, fid- mean {statistics.mean(fid_minus.values()):.4f} over "
+          f"{len(tasks)} tasks")
+    del models
+
+    # the pretrained PreEncoder's voice links on the same score, with beats and measures
+    t = time.perf_counter()
+    g = graph_from_note_array(na, bucket_factor=BUCKET_FACTOR, device="cuda")
+    g = dataclasses.replace(g, node_attrs={NOTE: {**g.node_attrs[NOTE], "voice": torch.ones_like(
+        g.node_attrs[NOTE]["pitch_spelling"]), "staff": torch.ones_like(g.node_attrs[NOTE]["pitch_spelling"])}})
+    cand = pretrain_candidates(g)
+    capacities = {tt: v.shape[0] for tt, v in g.node_features.items()}
+    with torch.no_grad():
+        _, voice_logits, _, _ = pre_encoder(g.node_features, pre_encoder.plan(g.edge_index, capacities),
+                                            cand["staff"], cand["voice"])
+    links = cand["voice"][:, (voice_logits > 0) & cand["voice_valid"]].cpu().numpy()
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    voices, n_voices = voice_from_edges(links, FID_NOTES)
+    voices_ms = (time.perf_counter() - t) * 1e3
+    predicted = na.copy()
+    predicted["voice"] = voices
+    t = time.perf_counter()
+    svg = pianoroll_svg(predicted)
+    svg_ms = (time.perf_counter() - t) * 1e3
+    host_edges = {et: g.edge_index[et][:, :g.num_edges[et]].cpu().numpy() for et in g.edge_index
+                  if et[0] == et[2] == NOTE}
+    t = time.perf_counter()
+    js = graph_to_json(na, host_edges, {"voice_pred": voices.tolist()})
+    json_ms = (time.perf_counter() - t) * 1e3
+    if not (svg.startswith("<svg") and svg.count("<rect") == FID_NOTES + 1 and len(json.loads(js)["nodes"]) == FID_NOTES
+            and 1 <= n_voices <= FID_NOTES and voices.min() == 1):
+        raise AssertionError(f"voices: {n_voices} voices, an SVG of {svg.count('<rect')} rects, a JSON graph")
+    cons = host_edges[(NOTE, "consecutive", NOTE)]
+    t = time.perf_counter()
+    sel, sub = GraphSampler(cons, FID_NOTES, seed=0).sample_node_induced(num_seeds=32, walk_length=16)
+    sampler_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    pe = laplacian_positional_encoding(np.concatenate(list(host_edges.values()), axis=1), FID_NOTES, LAP_PE_K)
+    pe_ms = (time.perf_counter() - t) * 1e3
+    if pe.shape != (FID_NOTES, LAP_PE_K) or not np.isfinite(pe).all() or len(sel) == 0:
+        raise AssertionError(f"Laplacian encoding {pe.shape} or an empty sampled subgraph")
+    phase(f"voices: the pretrained PreEncoder's {links.shape[1]} voice links with a logit above 0 of "
+          f"{int(cand['voice_valid'].sum())} candidates ({forward_ms:.1f} ms with the graph build) -> "
+          f"{n_voices} voices by voice_from_edges ({voices_ms:.2f} ms); pianoroll_svg {len(svg)} bytes "
+          f"({svg_ms:.2f} ms), graph_to_json {len(js)} bytes ({json_ms:.2f} ms); GraphSampler.sample_node_induced "
+          f"{len(sel)} notes, {sub.shape[1]} edges ({sampler_ms:.2f} ms); laplacian_positional_encoding k="
+          f"{LAP_PE_K} {pe_ms:.1f} ms")
+    return {"fid_ms": fid_ms, "launches": launches, "per_forward": per_forward, "logit_max_abs": worst,
+            "fid_plus": fid_plus, "fid_minus": fid_minus, "voices": n_voices, "links": int(links.shape[1]),
+            "forward_ms": forward_ms, "voices_ms": voices_ms, "svg_ms": svg_ms, "json_ms": json_ms,
+            "sampler_ms": sampler_ms, "lap_pe_ms": pe_ms}
+
+
+def zoo_and_pretrain(batches: list, parity_batch) -> dict:
+    """Phase 27: pre-training, the layer zoo, UNet, fidelity and voices."""
+    t = time.perf_counter()
+    pre = pretrain_phase(batches, parity_batch)
+    k4 = check_k4_plan(batches[0])
+    zoo = zoo_phase(batches[0])
+    unet = unet_phase()
+    fid = fidelity_voices_phase(pre.pop("model"))
+    phase(f"pretrain and zoo: done in {time.perf_counter() - t:.1f} s")
+    return {"pretrain": pre, "k4_plan": k4, "zoo": zoo, "unet": unet, "fidelity": fid}
+
+
 def main() -> None:
     smi = environment()
     from analysisgnn_tpu_torch.core.graph import NOTE
@@ -3268,6 +3778,7 @@ def main() -> None:
     k4_rows = k4_checks(batches[0])
     k5_rows = k5_checks(batches[0])
     phase("kernel check: K4 and K5 done")
+    zoo = zoo_and_pretrain(batches, parity_batch)
     with tempfile.TemporaryDirectory() as tmp:
         trainer = trainer_phase(f"{tmp}/trainer")
         hgt_trainer = hgt_trainer_phase(f"{tmp}/trainer_hgt")
@@ -3395,23 +3906,37 @@ def main() -> None:
     for entry in kernels[1:4]:
         entry["cl_parity_launches"] = cl_par["launches"]["launches"][entry["name"]]
     kernels[1]["trainer_launches"] = trainer["launches"]["launches"]["relation_weighted_matmul"]
-    # K4 and K5: held against their plain versions above; no path of the JAX
-    # package runs them (their only callers are tests), so none here does
-    for name, rows_, source, replaces in (
-        ("segment_sum_sorted", k4_rows, "analysisgnn_tpu_torch/csrc/segment_mean_base.cu",
-         "analysisgnn_tpu/kernels/pallas_segment.py:302"),
-        ("segment_softmax_sorted", k5_rows, "analysisgnn_tpu_torch/csrc/segment_softmax.cu",
-         "analysisgnn_tpu/kernels/pallas_segment.py:486"),
-    ):
-        r = rows_[0]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
-            "max_abs_err": max(x["max_abs_err"] for x in rows_), "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "device_ms": r["device_ms"],
-            "shape": f"{r['case']}: E={r['E']} " + (f"F={r['F']} n={r['n']}" if "F" in r else f"H={r['H']} n={r['n']}"),
-            "note": "only tests call it (tests/test_pallas.py in the JAX package), so no path launches it",
-        })
+    # K4: its first path is phase 27's layer zoo (ResGatedConv in HResGatedConv and HGPS's local branch, GATConv),
+    # through a SegmentPlan's row pointers; timed there as the plan call, beside phase 12's call that builds its
+    # row pointers with searchsorted, at the same shape
+    zoo_rows = zoo["zoo"]
+    k4p = zoo["k4_plan"]
+    k4_launches = {name: r["launches"].get("segment_sum_sorted", 0) for name, r in zoo_rows.items()}
+    kernels.append({
+        "name": "segment_sum_sorted", "route": "cuda", "source": "analysisgnn_tpu_torch/csrc/segment_mean_base.cu",
+        "replaces": "analysisgnn_tpu/kernels/pallas_segment.py:302", "launches": sum(k4_launches.values()),
+        "max_abs_err": max([k4p["max_abs_err"]] + [x["max_abs_err"] for x in k4_rows]), "ms": k4p["ms"],
+        "plain_ms": k4p["plain_ms"], "bound_ms": k4p["bound_ms"], "bound_by": k4p["bound_by"],
+        "library_ms": k4p["library_ms"], "device_ms": k4p["device_ms"], "searchsorted_ms": k4p["searchsorted_ms"],
+        "searchsorted_check": {k: k4_rows[0][k] for k in ("ms", "device_ms", "plain_ms", "library_ms")},
+        "shape": f"{k4p['case']}: E={k4p['E']} F={k4p['F']} n={k4p['n']}; ms is the plan call (segment_sum_plan), "
+                 f"timed in turns with the call that builds its row pointers (searchsorted_ms)",
+        "zoo_launches": k4_launches,
+    })
+    # K5: held against its plain version above; no path of the JAX package
+    # runs it (its only callers are tests), so none here does
+    r = k5_rows[0]
+    kernels.append({
+        "name": "segment_softmax_sorted", "route": "cuda", "source": "analysisgnn_tpu_torch/csrc/segment_softmax.cu",
+        "replaces": "analysisgnn_tpu/kernels/pallas_segment.py:486", "launches": 0,
+        "max_abs_err": max(x["max_abs_err"] for x in k5_rows), "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "device_ms": r["device_ms"], "shape": f"{r['case']}: E={r['E']} H={r['H']} n={r['n']}",
+        "note": "only tests call it (tests/test_pallas.py in the JAX package), so no path launches it",
+    })
+    # phase 27: K1 in OnsetEmbedding and in hetero_fidelity's three forwards of the serve model
+    kernels[0]["zoo_launches"] = zoo_rows["OnsetEmbedding"]["launches"]["segment_mean_base"]
+    kernels[0]["fidelity_launches"] = zoo["fidelity"]["launches"]
     # K5's bound at the train batch's shape lies below a single launch's floor: the larger shape beside it
     large = k5_rows[1]
     kernels[-1]["large"] = {k: large[k] for k in ("case", "E", "H", "ms", "int64_ids_ms", "device_ms", "plain_ms",
@@ -3504,6 +4029,13 @@ def main() -> None:
           + f"; a {REMAT_NOTES}-note train step {remat['median_ms'][False]:.2f} ms and "
           f"{remat['peak_bytes'][False] / 2**20:.1f} MiB peak without remat, {remat['median_ms'][True]:.2f} ms and "
           f"{remat['peak_bytes'][True] / 2**20:.1f} MiB with it")
+    pre, hgps = zoo["pretrain"], zoo["zoo"]["HGPS"]
+    phase(f"pretrain and zoo: {pre['median_ms']:.2f} ms a PreEncoder pretrain step (peak "
+          f"{(pre['peak_bytes'] - pre['base_bytes']) / 2**20:.1f} MiB above what was allocated before); forward + "
+          f"backward " + ", ".join(f"{k} {r['step_ms']:.2f} ms" for k, r in zoo["zoo"].items())
+          + f"; HGPS peak {(hgps['peak_bytes'] - hgps['base_bytes']) / 2**20:.1f} MiB above what was allocated before; "
+          f"UNet forward {zoo['unet']['forward_ms']:.2f} ms; K4 plan "
+          f"call {zoo['k4_plan']['ms']:.4f} ms against {zoo['k4_plan']['searchsorted_ms']:.4f} ms with searchsorted")
     phase(f"all phases passed in {time.perf_counter() - T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
