@@ -121,6 +121,16 @@ class HeteroGraph:
         x = self.node_features[NOTE]
         return torch.arange(x.shape[0], device=x.device) < self.num_target_nodes
 
+    def to(self, device: "str | torch.device") -> "HeteroGraph":
+        """The same graph with every tensor on ``device``."""
+        return dataclasses.replace(
+            self,
+            node_features={k: v.to(device) for k, v in self.node_features.items()},
+            edge_index={k: v.to(device) for k, v in self.edge_index.items()},
+            node_attrs={t: {k: v.to(device) for k, v in d.items()} for t, d in self.node_attrs.items()},
+            batch={k: v.to(device) for k, v in self.batch.items()},
+        )
+
     @staticmethod
     def from_numpy(
         node_features: Mapping[str, np.ndarray],

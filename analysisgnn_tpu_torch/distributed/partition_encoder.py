@@ -19,7 +19,13 @@ Two regimes, both exact for the owned rows:
 The JAX package runs one partition per device of a 1-D mesh under
 ``shard_map``.  The port stacks the D partitions of the line on one device:
 regime 1 runs the D windows one after another (each with its own K1 plan),
-regime 2 runs them together as ``[D, ...]`` tensors.
+regime 2 runs them together as ``[D, ...]`` tensors.  Given a process group of
+W ranks (``group``), rank r takes partitions ``r * D / W`` to ``(r + 1) * D /
+W - 1`` of the line and stacks those: regime 2 exchanges the halos at its ends
+with the neighbouring ranks (``kernels/halo.py::halo_pull_across_ranks``), and
+both regimes all-gather the owned rows over the group in rank order, so that
+every rank returns the whole ``[D, N_local, F]``.  Without a group it is the
+one-device form.
 """
 
 from __future__ import annotations
@@ -29,10 +35,12 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType
 from analysisgnn_tpu_torch.distributed.partition import gather_parts, segment_sum_parts
-from analysisgnn_tpu_torch.kernels.halo import HaloPlan, halo_pull  # regime 2's exchange: K6
+# regime 2's exchange: K6 on a device, point-to-point between ranks
+from analysisgnn_tpu_torch.kernels.halo import HaloPlan, halo_pull_across_ranks
 from analysisgnn_tpu_torch.models.encoders import l2_normalize
 
 # ---------------------------------------------------------------------------
@@ -126,9 +134,32 @@ def partition_full_graph(
     )
 
 
-def make_partitioned_encode(model):
+def _rank_share(num_parts: int, group) -> slice:
+    """The partitions of a line of ``num_parts`` that this rank of ``group``
+    holds (all of them without a group)."""
+    if group is None:
+        return slice(0, num_parts)
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    if num_parts % world:
+        raise ValueError(f"{num_parts} partitions do not split over {world} ranks")
+    per = num_parts // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def _all_gather_parts(owned: torch.Tensor, group) -> torch.Tensor:
+    """``[D_local, ...]`` of every rank of ``group``, concatenated in rank
+    order (``owned`` itself without a group)."""
+    if group is None:
+        return owned
+    parts = [torch.empty_like(owned) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, owned.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def make_partitioned_encode(model, group=None):
     """The model's ``AnalysisGNN.encode`` over the windows of a partition, on
-    the model's device.
+    the model's device; with a process group ``group``, each rank encodes its
+    share of the windows and the owned rows are all-gathered.
 
     Returns ``fn(part: FullGraphPartition) -> [D, N_local, F_out]``: every
     window is encoded on its own (all D share one shape; each gets its own
@@ -154,11 +185,12 @@ def make_partitioned_encode(model):
         ks = torch.from_numpy(part.key_signature).to(dev).long()
         ei = {et: torch.from_numpy(v).to(dev).long() for et, v in part.edge_index.items()}
         owned = []
-        for d in range(part.num_devices):
+        share = _rank_share(part.num_devices, group)
+        for d in range(share.start, share.stop):
             out = model.encode({NOTE: x[d]}, {et: v[d] for et, v in ei.items()}, ps[d], ks[d], part.n_ext,
                                deterministic=True)
             owned.append(out[part.halo : part.halo + part.num_local])
-        return torch.stack(owned)
+        return _all_gather_parts(torch.stack(owned), group)
 
     return fn
 
@@ -227,10 +259,13 @@ def partitioned_hybridgnn_forward(
     num_layers: int,
     halo: int,
     use_jk: bool,
+    group=None,
 ) -> torch.Tensor:
     """The HybridGNN encoder forward over the D partitions of a line with a
     halo exchange before every message-passing layer, on the port's
-    ``HybridGNN`` (its fused note layers and JK).
+    ``HybridGNN`` (its fused note layers and JK).  With a process group
+    ``group``, the partitions are this rank's share of the line, and the
+    halos at its ends come from the neighbouring ranks.
 
     As ``HybridGNN.forward``: L x (fused hetero SAGE -> ReLU -> L2 norm),
     optional LayerAttentionJK, then the final conv; like the JAX function it
@@ -245,7 +280,7 @@ def partitioned_hybridgnn_forward(
     buf = torch.empty(plan.out_shape, dtype=h.dtype, device=h.device)
     note_states = []
     for i in range(num_layers):
-        halos = halo_pull(h, halo, out=buf, plan=plan)
+        halos = halo_pull_across_ranks(h, halo, group, out=buf, plan=plan)
         h = _fused_sage_from_params(
             dict(encoder.layers[i].fused[NOTE].named_parameters()), h, halos, edge_src, edge_dst, relations, halo
         )
@@ -254,7 +289,7 @@ def partitioned_hybridgnn_forward(
     if use_jk:
         d, n_local, f = h.shape
         h = encoder.jk([s.reshape(d * n_local, f) for s in note_states]).reshape(d, n_local, f)
-    halos = halo_pull(h, halo, out=buf, plan=plan)
+    halos = halo_pull_across_ranks(h, halo, group, out=buf, plan=plan)
     return _fused_sage_from_params(
         dict(encoder.final.fused[NOTE].named_parameters()), h, halos, edge_src, edge_dst, relations, halo
     )
@@ -265,8 +300,10 @@ def make_partitioned_fused_sage(
     num_layers: int,
     use_jk: bool = False,
     hidden: int = 256,
+    group=None,
 ):
-    """The regime-2 forward.
+    """The regime-2 forward; with a process group ``group``, over the ranks
+    of the group (each runs its share of the partitions).
 
     ``fn(encoder, x_parts [D, N_local, F], edge_src {et: [D, E]}, edge_dst
     {et: [D, E]}, halo) -> [D, N_local, G]`` for the port's ``HybridGNN``
@@ -283,10 +320,11 @@ def make_partitioned_fused_sage(
                 f"the encoder has hidden {w.shape[1]}, {len(encoder.layers)} layers and JK "
                 f"{encoder.jk is not None}; the forward was built for {hidden}, {num_layers} and {use_jk}"
             )
-        put = lambda a: torch.as_tensor(a, device=w.device)
-        return partitioned_hybridgnn_forward(
+        share = _rank_share(x_parts.shape[0], group)
+        put = lambda a: torch.as_tensor(a[share], device=w.device)
+        return _all_gather_parts(partitioned_hybridgnn_forward(
             encoder, put(x_parts), {k: put(v) for k, v in edge_src.items()},
-            {k: put(v) for k, v in edge_dst.items()}, relations, num_layers, halo, use_jk,
-        )
+            {k: put(v) for k, v in edge_dst.items()}, relations, num_layers, halo, use_jk, group,
+        ), group)
 
     return fn

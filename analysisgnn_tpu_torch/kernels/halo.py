@@ -32,6 +32,15 @@ launcher, and allocates nothing.  Regime 2 makes one plan and one buffer per
 forward (``distributed/partition_encoder.py``); ``halo_pull(x, halo)``
 makes both on every call.
 
+Across ranks (:func:`halo_pull_across_ranks`): a line whose partitions are
+spread over the ranks of a process group, ``D_local`` consecutive ones a
+rank in rank order, takes K6 for the halos between a rank's own partitions
+and ``torch.distributed`` point-to-point for the two at its ends (the last H
+rows of its last partition to the next rank, the first H rows of its first to
+the previous one; zeros at the ends of the line, as ``ppermute`` gives).  The
+TPU's remote DMA becomes NCCL on cards and gloo on CPUs, the process group's
+own backend.
+
 The TPU kernel has no ``custom_vjp``, and the partitioned forward only
 serves, so inputs that require a gradient are refused.  On a CPU tensor the
 wrapper computes the plain version; on a CUDA tensor it launches the kernel
@@ -44,6 +53,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from analysisgnn_tpu_torch.kernels import launch
 
@@ -135,3 +145,53 @@ def halo_pull(x_parts: torch.Tensor, halo: int, out: Optional[torch.Tensor] = No
 
 
 halo_pull.launches = 0
+
+
+def _ranks(group) -> tuple:
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def halo_pull_across_ranks(x_parts: torch.Tensor, halo: int, group=None, out: Optional[torch.Tensor] = None,
+                           plan: Optional[HaloPlan] = None) -> torch.Tensor:
+    """``[D_local, 2H, F]`` halos of this rank's ``D_local`` partitions
+    ``x_parts`` of a line spread over the ranks of ``group`` (rank ``r``
+    holds partitions ``r * D_local`` on): K6 between its own partitions, then
+    the end halos exchanged with the neighbouring ranks by
+    ``batch_isend_irecv``.  Without a group, or in a group of one rank, it is
+    :func:`halo_pull`.  ``out`` and ``plan`` as for :func:`halo_pull`."""
+    out = halo_pull(x_parts, halo, out=out, plan=plan)
+    rank, world = _ranks(group)
+    if world == 1:
+        return out
+    n_local = x_parts.shape[1]
+    ops = []
+    if rank > 0:
+        peer = dist.get_global_rank(group, rank - 1)
+        ops += [dist.P2POp(dist.isend, x_parts[0, :halo].contiguous(), peer, group),
+                dist.P2POp(dist.irecv, out[0, :halo], peer, group)]
+    if rank < world - 1:
+        peer = dist.get_global_rank(group, rank + 1)
+        ops += [dist.P2POp(dist.isend, x_parts[-1, n_local - halo:].contiguous(), peer, group),
+                dist.P2POp(dist.irecv, out[-1, halo:], peer, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def halo_pull_across_ranks_plain(x_parts: torch.Tensor, halo: int, group=None) -> torch.Tensor:
+    """The plain version: every rank's first and last H rows all-gathered over
+    ``group``, the halos cut from them and from the rank's own partitions."""
+    out = halo_pull_plain(x_parts, halo)
+    rank, world = _ranks(group)
+    if world == 1:
+        return out
+    ends = torch.stack([x_parts[0, :halo], x_parts[-1, x_parts.shape[1] - halo:]])
+    gathered = [torch.empty_like(ends) for _ in range(world)]
+    dist.all_gather(gathered, ends, group=group)
+    if rank > 0:
+        out[0, :halo] = gathered[rank - 1][1]
+    if rank < world - 1:
+        out[-1, halo:] = gathered[rank + 1][0]
+    return out

@@ -64,11 +64,23 @@ class ClippedAdamW:
         return AdamWState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
 
     @torch.no_grad()
-    def update(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: AdamWState) -> None:
-        """One update of ``params`` and ``state``, in place."""
+    def update(
+        self,
+        params: Sequence[torch.Tensor],
+        grads: Sequence[torch.Tensor],
+        state: AdamWState,
+        global_norm: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
+    ) -> None:
+        """One update of ``params`` and ``state``, in place.  ``global_norm``
+        replaces the clip's norm of ``grads`` where they are a part of the
+        tree: the tensor-parallel step (``distributed/mesh.py``) passes one that
+        adds the other model ranks' shards."""
         params, grads = list(params), list(grads)
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if global_norm is None:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            else:
+                norm = global_norm(grads)
             scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
             grads = torch._foreach_mul(grads, scale)
         count = state.count + 1

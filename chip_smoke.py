@@ -228,6 +228,18 @@ Phases, each on its own line with elapsed seconds:
      pretrained PreEncoder's voice links through voice_from_edges,
      pianoroll_svg and graph_to_json, and GraphSampler and the Laplacian
      positional encoding on the host.
+ 28. mesh (run after phase 18): the dry run's twin at world size 1 over NCCL
+     (a FileStore, rank 0): dryrun_multichip at the reference configuration
+     (21 tasks, HybridGNN 3 x 256 -> 128 node, subgraphs of 500 notes from
+     2,000-note scores) with 4 data slots of 2 graphs on the card: the
+     sharded CL cycle ("all", the teacher, "cadence" with distillation)
+     against its unsharded replay, regime 1 and regime 2 of a 1,200-note
+     score against the full encode, K1 and K6 launches against the code's
+     prediction; ms per sharded step over the 4 slots, the device time of
+     NCCL's kernels in one traced step and of its all-reduce of the step's
+     gradients alone; the cycle on 1 of the slots on the GPU against the CPU
+     (dropout 0, Adam eps 1): losses, parameters, the AdamW moments after the
+     cycle and each parameter's move.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
 """
@@ -1327,16 +1339,6 @@ def train(arm: str, batches: list) -> dict:
     return row
 
 
-def _graph_to(batch, device: str):
-    return dataclasses.replace(
-        batch,
-        node_features={k: v.to(device) for k, v in batch.node_features.items()},
-        edge_index={k: v.to(device) for k, v in batch.edge_index.items()},
-        node_attrs={t: {k: v.to(device) for k, v in d.items()} for t, d in batch.node_attrs.items()},
-        batch={k: v.to(device) for k, v in batch.batch.items()},
-    )
-
-
 def step_parity(arm: str, batch, state_dict=None) -> dict:
     """One step of the arm on the GPU (kernels) against the same step on the
     CPU (plain versions): same weights (the arm's init, or ``state_dict``),
@@ -1351,7 +1353,7 @@ def step_parity(arm: str, batch, state_dict=None) -> dict:
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     compute = "bfloat16" if arm in BF16_PAIRS else "float32"
     out = {}
-    for dev, m, b in (("cuda", gpu_model, batch), ("cpu", model, _graph_to(batch, "cpu"))):
+    for dev, m, b in (("cuda", gpu_model, batch), ("cpu", model, batch.to("cpu"))):
         state, step = _trainer(m, ClippedAdamW(lambda _step: PARITY_LR, eps=PARITY_EPS), compute)
         t = time.perf_counter()
         state, aux = step(state, b)
@@ -2427,6 +2429,204 @@ def partition_twin(model) -> dict:
     return _regime1_check(model, full, host, 8, "dryrun_multichip twin")
 
 
+# ---------------------------------------------------------------- the mesh (phase 28)
+
+MESH_SLOTS = 4  # data slots of the world-1 mesh on the card: the data axis of JAX's 8-device reference run
+MESH_PARITY_SLOTS = 1  # the GPU-vs-CPU cycle runs on the first of them
+MESH_TIMED_STEPS = 3
+MESH_TIMEOUT_S = 300.0  # the NCCL process group's timeout
+# GPU vs CPU after the cycle (dropout 0, PARITY_EPS): the dry run's warmup
+# leaves the rate 0 at step 0 and 1e-3 at step 1, so most parameters move by
+# about 1e-7, under PARITY_PARAM_ATOL.  The gradients are held, parameter by
+# parameter, through the AdamW moments after the cycle (mu = 0.09 g_all +
+# 0.1 g_cadence) and through the moves (final - init): the norm of the
+# difference within MESH_LEAF_RTOL of the CPU's norm, plus MESH_FLOOR_OF_MAX
+# of the CPU's largest element an element (a leaf whose gradient is 0 but
+# for rounding, the JK attention's bias, differs by noise) and, for the
+# moves, one f32 ulp of each final value.  The card's gather backward adds
+# with atomics in no fixed order and the L2 norms' backward cancels, so the
+# encoder's gradients differ from the CPU's by about 5e-4 of a leaf's norm
+# on an H100 (phase 26 finds 1.8e-4 over all gradients between two runs on
+# the card); a wrong gradient is off by its own size.
+MESH_LEAF_RTOL, MESH_FLOOR_OF_MAX = 1e-2, 2e-5
+
+
+def mesh_phase() -> dict:
+    """Phase 28: ``dryrun_multichip`` at world size 1 over an NCCL process
+    group (a FileStore, rank 0) with MESH_SLOTS data slots on the card, K1's
+    and K6's launches counted against the code's prediction; then the
+    sharded step timed and traced (NCCL's kernels), its gradients'
+    all-reduce timed alone, and the cycle on MESH_PARITY_SLOTS slots on the
+    GPU against the CPU (dropout 0, Adam eps 1): losses, parameters, the
+    AdamW moments and each parameter's move.  The phase fails if NCCL
+    does not initialize: there is no other backend for the card."""
+    import torch.distributed as dist
+
+    from analysisgnn_tpu_torch.distributed import dryrun
+    from analysisgnn_tpu_torch.distributed import mesh as tmesh
+    from analysisgnn_tpu_torch.distributed.launch import init_process_group
+    from analysisgnn_tpu_torch.train.state import ClippedAdamW, create_train_state
+    from analysisgnn_tpu_torch.train.step import StepConfig
+
+    t0 = time.perf_counter()
+    cfg = dryrun.DryrunConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_process_group("nccl", f"{tmp}/store", 0, 1, MESH_TIMEOUT_S)
+        try:
+            phase(f"mesh: NCCL process group of 1 rank (NCCL_SOCKET_IFNAME={os.environ.get('NCCL_SOCKET_IFNAME')}), "
+                  f"backend {dist.get_backend()}")
+            model = dryrun.build_model(cfg, "cuda")
+            note_model = dryrun.build_model(cfg, "cuda", seed=3, with_metrical=False)
+            per_pass = predicted_launches(model)["segment_mean_base"]
+            # the sharded cycle and its replay: 3 passes a slot each ("all"; "cadence" and its teacher);
+            # certification 2: the full encode and 8 windows of regime 1, the encoder (its convs) for regime 2
+            k1 = 2 * 3 * MESH_SLOTS * per_pass + 9 * predicted_launches(note_model)["segment_mean_base"] + (
+                cfg.layers + 1) * _per_conv(note_model)[0]
+            expected = {k: 0 for k in _counts()}
+            expected.update({"segment_mean_base": k1, "halo_pull": cfg.layers + 1})
+            del note_model
+            _reset_counts()  # the mesh path's run starts here
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as summary:
+                result = dryrun.dryrun_multichip(1, device="cuda", slots_per_rank=MESH_SLOTS, cfg=cfg)
+            torch.cuda.synchronize()
+            dryrun_s = time.perf_counter() - t
+            counts = _counts()
+            if counts != expected:
+                raise AssertionError(f"the mesh path launched {counts}, the code predicts {expected}")
+            phase(f"mesh: {summary.getvalue().strip()}")
+            p = result["partitioned"]
+            phase(f"mesh: dryrun_multichip(1, slots_per_rank={MESH_SLOTS}) in {dryrun_s:.2f} s: K1 launches "
+                  f"{counts['segment_mean_base']}, K6 {counts['halo_pull']}, as predicted; regime 1 halo "
+                  f"{p['halo']}, regime 2 halo {p['regime2_halo']} over {p['partitions']} partitions")
+
+            # the sharded step alone: timed, traced, its all-reduce timed alone
+            mesh = tmesh.make_mesh(1, slots=MESH_SLOTS, device="cuda")
+            sampler = dryrun.build_sampler(cfg.num_notes, cfg.subgraph, cfg.graphs // MESH_SLOTS, tasks=cfg.tasks)
+            stacked = tmesh.stack_batches([sampler.sample_batch(device="cpu") for _ in range(MESH_SLOTS)])
+            slots = tmesh.shard_stacked_batch(stacked, mesh)
+            phase(f"mesh: {MESH_SLOTS} slots sampled for the timed steps")
+            opt = ClippedAdamW(lambda _step: PARITY_LR)
+            state = tmesh.shard_train_state(create_train_state(model, len(cfg.tasks), opt, 1), model, mesh)
+            step = tmesh.make_sharded_train_step(
+                model, opt, StepConfig(task_dict=cfg.tasks, active_tasks=tuple(t for t, _ in cfg.tasks)), mesh)
+            step(state, slots)
+            step_ms = []
+            for _ in range(MESH_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, loss = step(state, slots)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            if not torch.isfinite(loss):
+                raise AssertionError(f"the sharded step's loss is {float(loss)}")
+            # one step traced for its kernels alone (a window of CUDA records: the host ops of its 13,000
+            # launches would take the profiler seconds to sort); NCCL's are named nccl..._AllReduce_...
+            wall = {}
+
+            def traced_step():
+                t = time.perf_counter()
+                step(state, slots)
+                torch.cuda.synchronize()
+                wall["ms"] = (time.perf_counter() - t) * 1e3
+
+            kernels = [e for e in _cuda_window(traced_step) if not e.is_user_annotation]
+            traced = {"wall_ms": wall["ms"], "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+                      "launches": sum(e.count for e in kernels)}
+            reduce = [e for e in kernels if "AllReduce" in e.key]
+            if not traced["busy_ms"] > 0:
+                raise AssertionError("the traced sharded step shows no device time")
+            packed = torch.zeros(state.params.layout.total + len(cfg.tasks) + 1, device="cuda")
+            allreduce_ms = cuda_ms(lambda: dist.all_reduce(packed, group=mesh.data_group))
+            row = {"dryrun_s": dryrun_s, "k1_launches": counts["segment_mean_base"],
+                   "k6_launches": counts["halo_pull"], "step_ms": statistics.median(step_ms),
+                   "allreduce_device_ms": sum(e.self_device_time_total for e in reduce) / 1e3,
+                   "allreduce_launches": sum(e.count for e in reduce), "allreduce_call_ms": allreduce_ms,
+                   "allreduce_bytes": packed.numel() * 4, **traced, **{k: result[k] for k in (
+                       "loss_all", "loss_cad", "params_max_abs", "delta_norm", "delta_norm_unsharded",
+                       "notes_per_step")}, "partition_max_abs_err": p["max_abs_err"],
+                   "regime2_max_abs_err": p["regime2_max_abs_err"]}
+            phase(f"mesh: {row['step_ms']:.2f} ms a sharded step of {MESH_SLOTS} slots (median of "
+                  f"{MESH_TIMED_STEPS}; {result['notes_per_step']} note rows); one traced step: the device busy "
+                  f"{row['busy_ms']:.2f} ms of {row['wall_ms']:.2f} ms under the profiler, {row['launches']} kernel "
+                  f"launches, NCCL's all-reduce {row['allreduce_launches']} kernels, "
+                  f"{row['allreduce_device_ms']:.4f} ms on the device; "
+                  f"the all-reduce of the step's {row['allreduce_bytes']} bytes of gradients alone "
+                  f"{allreduce_ms:.4f} ms a call (CUDA events)")
+        finally:
+            dist.destroy_process_group()
+    del model, state, step
+
+    # the cycle on the first slots, GPU (kernels) against CPU (plain versions), dropout 0, Adam eps 1
+    pcfg = dataclasses.replace(cfg, dropout=0.0, adam_eps=PARITY_EPS)
+    flat = lambda tensors: torch.cat([x.detach().reshape(-1).cpu() for x in tensors])  # noqa: E731
+    out = {}
+    for dev in ("cuda", "cpu"):
+        one = tmesh.local_mesh(MESH_PARITY_SLOTS, dev)
+        m = dryrun.build_model(pcfg, dev)
+        init = flat(m.parameters())
+        t = time.perf_counter()
+        loss_all, loss_cad, st = dryrun.cl_cycle(m, tmesh.shard_stacked_batch(stacked[:MESH_PARITY_SLOTS], one), one,
+                                                 pcfg)
+        out[dev] = {"losses": (loss_all, loss_cad), "init": init, "final": flat(m.parameters()),
+                    "s": time.perf_counter() - t,
+                    **{k: _moments_in_order(getattr(st.opt_state, k), st.params.layout) for k in ("mu", "nu")}}
+    g, c = out["cuda"], out["cpu"]
+    (ga, gc), (ca, cc) = g["losses"], c["losses"]
+    rel = max(abs(ga - ca) / abs(ca), abs(gc - cc) / abs(cc))
+    worst = float((g["final"] - c["final"]).abs().max())
+    if not (torch.equal(g["init"], c["init"]) and rel <= PARITY_LOSS_RTOL and worst <= PARITY_PARAM_ATOL):
+        raise AssertionError(f"mesh: GPU vs CPU cycle: losses {ga}, {gc} vs {ca}, {cc} (rel {rel:.2e}, tol "
+                             f"{PARITY_LOSS_RTOL}), parameters max|d| {worst:.3e} (tol {PARITY_PARAM_ATOL})")
+    names = [n for n, _ in m.named_parameters()]
+    numels = [p.numel() for p in m.parameters()]
+    used = {k: _leafwise_within(g[k], c[k], numels + [len(cfg.tasks)], names + ["mt_params"],
+                                f"AdamW {k} after the cycle") for k in ("mu", "nu")}
+    move = c["final"] - c["init"]
+    ulp = torch.nextafter(c["final"].abs(), torch.tensor(math.inf)) - c["final"].abs()
+    used["move"] = _leafwise_within(g["final"] - g["init"], move, numels, names, "the cycle's move", ulp)
+    row.update({"parity_loss_rel": rel, "parity_param_max_abs": worst, "max_move": float(move.abs().max()),
+                "median_move": float(move.abs().median()), **{f"parity_{k}_tol_used": u[0] for k, u in used.items()},
+                "seconds": time.perf_counter() - t0})
+    phase(f"mesh: the cycle on {MESH_PARITY_SLOTS} slot, GPU vs CPU (dropout 0, eps {PARITY_EPS}): losses "
+          f"{ga:.6f}, {gc:.6f} vs {ca:.6f}, {cc:.6f} (rel {rel:.2e}, tol {PARITY_LOSS_RTOL}); parameters max|d| "
+          f"{worst:.3e} (tol {PARITY_PARAM_ATOL}); moves largest {row['max_move']:.3e}, median "
+          f"{row['median_move']:.3e}; each parameter's AdamW moments and move within {MESH_LEAF_RTOL} of the CPU's "
+          f"norm + {MESH_FLOOR_OF_MAX} of its largest an element (+ an ulp a final value), the largest share of "
+          f"that used: " + ", ".join(f"{k} {u[0]:.3f} ({u[1]})" for k, u in used.items())
+          + f"; CPU cycle {c['s']:.1f} s; phase {row['seconds']:.1f} s")
+    return row
+
+
+def _moments_in_order(moments, layout) -> torch.Tensor:
+    """A sharded state's AdamW moments ``[replicated, own slice, task
+    weights]`` at one model rank, in the parameters' order, then the task
+    weights' (on the host)."""
+    flat = torch.empty(layout.total, device=moments[0].device)
+    flat[layout.rep_idx], flat[layout.own_idx[0]] = moments[0], moments[1]
+    return torch.cat([flat, moments[2].reshape(-1)]).cpu()
+
+
+def _leafwise_within(got: torch.Tensor, want: torch.Tensor, numels, names, what: str, rounding=None) -> tuple:
+    """``got`` against ``want`` (flat, split into ``numels`` parts named
+    ``names``): each part's difference within MESH_LEAF_RTOL of its norm in
+    ``want``, plus MESH_FLOOR_OF_MAX of ``want``'s largest element an element
+    and the norm of ``rounding``'s part.  The largest share of its tolerance
+    a part used, and its name."""
+    norms = lambda x: torch.stack(torch._foreach_norm(list(x.split(numels)))).tolist()  # noqa: E731
+    floor = MESH_FLOOR_OF_MAX * float(want.abs().max())
+    err, scale = norms(got - want), norms(want)
+    rounded = [0.0] * len(numels) if rounding is None else norms(rounding)
+    worst = (0.0, "")
+    for name, e, w, r, n in zip(names, err, scale, rounded, numels):
+        tol = MESH_LEAF_RTOL * w + floor * math.sqrt(n) + r
+        if not e <= tol:
+            raise AssertionError(f"mesh: GPU vs CPU, {what}: {name} differs by {e:.3e} in norm from the CPU's "
+                                 f"{w:.3e} (tol {tol:.3e})")
+        worst = max(worst, (e / tol, name))
+    return worst
+
+
 # ---------------------------------------------------------------- RNA serve, chord chain
 
 
@@ -3354,7 +3554,7 @@ def pretrain_phase(batches: list, parity_batch) -> dict:
     # one dropout-0 step on the GPU against the CPU, the same weights and batch
     pb = _with_voice_staff(parity_batch, 0)
     out = {}
-    for label, dev, b in (("gpu", "cuda", pb), ("cpu", "cpu", _graph_to(pb, "cpu"))):
+    for label, dev, b in (("gpu", "cuda", pb), ("cpu", "cpu", pb.to("cpu"))):
         m = _pre_encoder(dev)
         m.load_state_dict({k: v.to(dev) for k, v in model.state_dict().items()})
         o = _pretrain_optimizer(PARITY_LR, PARITY_EPS)
@@ -3398,7 +3598,7 @@ def _zoo_case(name: str, make, run, batch, expected: dict) -> dict:
     _reset_counts()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for label, m, b in (("gpu", gpu, batch), ("cpu", cpu, _graph_to(batch, "cpu"))):
+    for label, m, b in (("gpu", gpu, batch), ("cpu", cpu, batch.to("cpu"))):
         x, out = run(m, b)  # x: the note features, with requires_grad
         if not torch.isfinite(out).all():
             raise AssertionError(f"zoo {name}: non-finite output on the {label}")
@@ -3810,6 +4010,7 @@ def main() -> None:
         partitioned = partitioned_serve(model, CFG, tmp)
     twin = partition_twin(model)
     del model
+    mesh = mesh_phase()
     phase(f"partitioned serve: done; regime 1 {partitioned['regime1']['median_s'] * 1e3:.1f} ms a "
           f"{PART_NOTES}-note request, regime 2 "
           + ", ".join(f"{d} partitions {r['median_ms']:.2f} ms" for d, r in partitioned["regime2"].items())
@@ -3969,7 +4170,10 @@ def main() -> None:
         "shape": f"{k6['case']}: D={k6['D']} N_local={k6['N_local']} H={k6['H']} F={k6['F']}; ms is the planned "
                  f"call with out, the form regime 2 uses",
         "per_forward": {d: r["k6_launches"] for d, r in partitioned["regime2"].items()},
+        "mesh_launches": mesh["k6_launches"],
     })
+    # phase 28: the dry run's twin over NCCL at world size 1
+    kernels[0]["mesh_launches"] = mesh["k1_launches"]
     # phase 23: K3's bf16 forward and K1 on bf16 rows, launched by the bf16 arms' timed steps
     k3b = k3_bf16_rows[0]
     bf16_arms = tuple(BF16_PAIRS)

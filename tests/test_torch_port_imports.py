@@ -77,8 +77,8 @@ def test_every_port_module_imports_without_jax():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.strip().splitlines()[-1].split(","))
     # every module of the port and chip_smoke: the chord chain's, the families', SMOTE's, the native builder's,
-    # the layer zoo's and pre-training's
-    assert len(names) >= 77
+    # the layer zoo's and pre-training's, the mesh's
+    assert len(names) >= 80
     assert "chip_smoke" in names
     assert {f"analysisgnn_tpu_torch.{m}" for m in (
         "kernels.relmm", "data.sampler", "train.losses", "train.schedules", "train.state", "train.step",
@@ -92,6 +92,7 @@ def test_every_port_module_imports_without_jax():
         "inference.predict_chords", "models.pitch_spelling", "models.cadence", "train.smote", "train.cadence",
         "data.native", "models.extra_layers", "models.pre_encoder", "models.unet", "train.pretrain",
         "utils.graph_utils", "utils.explain", "utils.visualization", "data.graph_sampling",
+        "distributed.mesh", "distributed.launch", "distributed.dryrun",
     )} <= names
 
 
@@ -102,7 +103,7 @@ def test_port_sources_name_no_jax_import():
         re.MULTILINE,
     )
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 78 and {
+    assert len(files) >= 81 and {
         "softmax_agg.py", "encoders.py", "chip_smoke.py", "segment_sum.py", "segment_softmax.py", "corpus.py",
         "prefetch.py", "datamodule.py", "metrics.py", "loop.py", "train.py",
         "halo.py", "partition.py", "partition_encoder.py", "launch.py", "_table.py", "tsv.py", "dlc_meta.py",
@@ -110,6 +111,7 @@ def test_port_sources_name_no_jax_import():
         "roman.py", "rules.py", "kern.py", "chord.py", "pooling.py", "predict_chords.py",
         "pitch_spelling.py", "cadence.py", "smote.py", "native.py", "extra_layers.py", "pre_encoder.py", "unet.py",
         "pretrain.py", "graph_utils.py", "explain.py", "visualization.py", "graph_sampling.py",
+        "mesh.py", "launch.py", "dryrun.py",
     } <= {f.name for f in files}
     assert (PORT / "train" / "cadence.py").is_file()
     offenders = {str(f.relative_to(REPO)): m for f in files for m in pattern.findall(f.read_text())}

@@ -162,18 +162,18 @@ def test_regime2_reuses_one_plan_and_buffer_and_matches_the_allocating_form(use_
     fn = tpenc.make_partitioned_fused_sage(rels, num_layers=layers, use_jk=use_jk, hidden=hidden)
 
     calls = []
-    real = tpenc.halo_pull
+    real = tpenc.halo_pull_across_ranks  # K6 alone: no process group
 
-    def recording(x, halo, out=None, plan=None):
+    def recording(x, halo, group=None, out=None, plan=None):
         calls.append((out, plan))
-        return real(x, halo, out=out, plan=plan)
+        return real(x, halo, group, out=out, plan=plan)
 
-    monkeypatch.setattr(tpenc, "halo_pull", recording)
+    monkeypatch.setattr(tpenc, "halo_pull_across_ranks", recording)
     planned = fn(port, pg.x, pg.edge_src, pg.edge_dst, pg.halo)
     assert len(calls) == layers + 1
     assert all(o is calls[0][0] and p is calls[0][1] for o, p in calls)
     assert calls[0][0].shape == (4, 2 * pg.halo, hidden) and isinstance(calls[0][1], HaloPlan)
-    monkeypatch.setattr(tpenc, "halo_pull", lambda x, halo, out=None, plan=None: real(x, halo))
+    monkeypatch.setattr(tpenc, "halo_pull_across_ranks", lambda x, halo, group=None, out=None, plan=None: real(x, halo))
     allocating = fn(port, pg.x, pg.edge_src, pg.edge_dst, pg.halo)
     assert planned.shape == (4, pg.num_local, hidden) and torch.isfinite(planned).all()
     assert torch.equal(planned, allocating)
