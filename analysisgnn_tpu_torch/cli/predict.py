@@ -19,6 +19,11 @@ an HGT checkpoint the saved one by default).
 a line, all on the one device (the overlap-region regime of
 ``distributed/partition_encoder.py``; note-node HybridGNN and HybridHGT
 configs without ``use_rnn`` only).
+
+``--checkpoint_dir`` is resolved as the JAX CLI resolves it
+(:func:`resolve_checkpoint`): the local directory, then a cached copy under
+``--artifacts_dir``, then a W&B artifact id (``entity/project/name:version``),
+which needs the ``wandb`` package and the network.
 """
 
 from __future__ import annotations
@@ -30,6 +35,76 @@ import os
 import torch
 
 SCORE_EXTENSIONS = (".musicxml", ".xml", ".mxl", ".krn", ".kern")
+
+
+def resolve_checkpoint(checkpoint_dir: str, tag: str, artifacts_dir: str = "./artifacts/models") -> str:
+    """Resolve a checkpoint directory the way the reference resolves its
+    ``.ckpt`` (inference/predict_analysis.py:79-125): prefer the local
+    path, then any previously-downloaded copy under ``artifacts_dir``,
+    then — if ``checkpoint_dir`` looks like a W&B artifact reference
+    (``entity/project/name:version``) — download it via the wandb API.
+
+    A port checkpoint root is a directory holding ``model_config.json`` and
+    ``<tag>.pt``, so the local hit is the file ``<checkpoint_dir>/<tag>.pt``
+    and the cache scan looks for such roots.
+    """
+    local = os.path.join(checkpoint_dir, f"{tag}.pt")
+    if os.path.isfile(local):
+        return checkpoint_dir
+
+    def _is_ckpt_root(d: str) -> bool:
+        return os.path.isfile(os.path.join(d, "model_config.json")) and (
+            os.path.isfile(os.path.join(d, f"{tag}.pt"))
+        )
+
+    # cached artifact scan (reference :86-105)
+    if os.path.isdir(artifacts_dir):
+        if _is_ckpt_root(artifacts_dir):
+            print(f"Using cached checkpoint: {artifacts_dir}")
+            return artifacts_dir
+        for fname in sorted(os.listdir(artifacts_dir)):
+            cand = os.path.join(artifacts_dir, fname)
+            if os.path.isdir(cand) and _is_ckpt_root(cand):
+                print(f"Using cached checkpoint: {cand}")
+                return cand
+
+    # W&B artifact reference, e.g. "melkisedeath/AnalysisGNN/model-xyz:v3"
+    # (reference :107-125); requires network + wandb login.  Filesystem
+    # paths never qualify: artifact ids are relative and carry a :version.
+    looks_like_artifact = (
+        not os.path.isabs(checkpoint_dir)
+        and ":" in os.path.basename(checkpoint_dir)
+        and checkpoint_dir.count("/") >= 2
+    )
+    if looks_like_artifact:
+        try:
+            import wandb  # noqa: F401  (not baked in: optional)
+        except ImportError as e:
+            raise ImportError(
+                "wandb package is required to download artifacts; "
+                f"no local checkpoint at {local} and no cached copy in "
+                f"{artifacts_dir}"
+            ) from e
+        os.makedirs(artifacts_dir, exist_ok=True)
+        print(f"Downloading checkpoint from W&B: {checkpoint_dir}")
+        run = wandb.init()
+        artifact = run.use_artifact(checkpoint_dir, type="model")
+        art_dir = artifact.download(root=artifacts_dir)
+        wandb.finish()
+        if _is_ckpt_root(art_dir):
+            return art_dir
+        for fname in sorted(os.listdir(art_dir)):
+            cand = os.path.join(art_dir, fname)
+            if os.path.isdir(cand) and _is_ckpt_root(cand):
+                return cand
+        raise FileNotFoundError(
+            f"W&B artifact {checkpoint_dir} contains no checkpoint "
+            f"with tag {tag!r}"
+        )
+    raise FileNotFoundError(
+        f"no checkpoint {tag!r} under {checkpoint_dir} and no cached copy "
+        f"in {artifacts_dir}"
+    )
 
 
 def get_parser() -> argparse.ArgumentParser:
@@ -46,8 +121,11 @@ def get_parser() -> argparse.ArgumentParser:
                    help="encode the full graph as this many partitions on a line (overlap-region graph "
                         "partition, all on --device; for long scores; note-node model configs only)")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints",
-                   help="directory with model_config.json and <checkpoint>.pt")
+                   help="directory with model_config.json and <checkpoint>.pt, OR W&B artifact id "
+                        "(entity/project/name:version)")
     p.add_argument("--checkpoint", type=str, default="best", help="state-dict tag inside checkpoint_dir")
+    p.add_argument("--artifacts_dir", type=str, default="./artifacts/models",
+                   help="cache dir for downloaded checkpoints")
     p.add_argument("--conv_impl", type=str, default=None, choices=["node", "edge", "edge-zxp"],
                    help="override the fused-SAGE layout for this run (parameter-compatible)")
     p.add_argument("--hgt_stage_dtype", type=str, default=None, choices=["float32", "bfloat16"],
@@ -100,7 +178,8 @@ def main(argv=None) -> None:
     )
 
     device = resolve_device(args.device)
-    model, cfg = load_model(args.checkpoint_dir, args.checkpoint, device, args.conv_impl, args.hgt_stage_dtype)
+    ckpt_dir = resolve_checkpoint(args.checkpoint_dir, args.checkpoint, args.artifacts_dir)
+    model, cfg = load_model(ckpt_dir, args.checkpoint, device, args.conv_impl, args.hgt_stage_dtype)
     tasks = args.tasks.split(",") if args.tasks else None
 
     if args.score_dir:

@@ -21,6 +21,10 @@ parser types them:
 operations the corpus readers use; :func:`to_numeric` is
 ``pandas.to_numeric(errors="coerce")``.  The whole file is typed at once, as
 ``low_memory=False`` asks.
+
+The other way, :func:`table_from_records` types records as
+``pandas.DataFrame.from_records`` does, and :func:`write_tsv` writes a table
+as ``DataFrame.to_csv(path, sep="\\t", index=False)`` does.
 """
 
 from __future__ import annotations
@@ -311,3 +315,43 @@ def fillna(values: np.ndarray, value) -> np.ndarray:
         out[mask] = value
         return out
     return values
+
+
+def _record_column(values: List) -> np.ndarray:
+    """One column of records, typed as ``DataFrame.from_records`` types it:
+    bools bool, integers int64, real numbers float64, anything else (strings,
+    None and NaN among them) object."""
+    if all(isinstance(v, (bool, np.bool_)) for v in values):
+        return np.array(values, dtype=bool)
+    if all(isinstance(v, (int, np.integer)) and not isinstance(v, (bool, np.bool_)) for v in values):
+        return np.array(values, dtype=np.int64)
+    if all(isinstance(v, (int, float, np.integer, np.floating)) and not isinstance(v, (bool, np.bool_))
+           for v in values):
+        return np.array(values, dtype=np.float64)
+    return object_array(values)
+
+
+def table_from_records(records: List[Dict[str, object]]) -> Table:
+    """A table of dicts with the same keys, in the first record's key order."""
+    names = list(records[0]) if records else []
+    return Table({k: _record_column([r[k] for r in records]) for k in names}, len(records))
+
+
+def _cell(v) -> str:
+    if is_na(v):
+        return ""
+    if isinstance(v, (float, np.floating)):
+        return repr(float(v))
+    return str(v)
+
+
+def write_tsv(table: Table, path: str) -> None:
+    """The table as ``DataFrame.to_csv(path, sep="\\t", index=False)`` writes
+    it: a header line, then one line a row; missing cells empty, floats as
+    Python prints them, fields quoted only where they must be."""
+    cols = [table[name] for name in table.columns]
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f, delimiter="\t", quotechar='"', doublequote=True, lineterminator="\n",
+                       quoting=csv.QUOTE_MINIMAL)
+        w.writerow(table.columns)
+        w.writerows([_cell(c[i]) for c in cols] for i in range(len(table)))

@@ -205,3 +205,65 @@ def build_score_graph(
     return ScoreGraphArrays(
         num_notes=n, num_beats=num_beats, num_measures=num_measures, edges=edges
     )
+
+
+def reference_edges_bruteforce(note_array: np.ndarray) -> Dict[str, np.ndarray]:
+    """O(N²) straight-from-the-spec edge builder, used only in tests to
+    validate the vectorized builder (semantics of utils/hgraph.py:214-300)."""
+    onset = np.asarray(note_array["onset_div"], dtype=np.int64)
+    dur = np.asarray(note_array["duration_div"], dtype=np.int64)
+    n = len(onset)
+    src = {k: [] for k in ("onset", "consecutive", "during", "rest")}
+    dst = {k: [] for k in ("onset", "consecutive", "during", "rest")}
+    for i in range(n):
+        for j in np.flatnonzero(onset == onset[i]):
+            if i != j:
+                src["onset"].append(i)
+                dst["onset"].append(j)
+        for j in np.flatnonzero(onset == onset[i] + dur[i]):
+            src["consecutive"].append(i)
+            dst["consecutive"].append(j)
+        for j in np.flatnonzero((onset[i] < onset) & (onset[i] + dur[i] > onset)):
+            src["during"].append(i)
+            dst["during"].append(j)
+    end_times = onset + dur
+    for et in np.sort(np.unique(end_times))[:-1]:
+        if et not in onset:
+            scr = np.flatnonzero(end_times == et)
+            diffs = onset - et
+            tmp = np.where(diffs > 0, diffs, np.inf)
+            if np.isfinite(tmp.min()):
+                dsts = np.flatnonzero(tmp == tmp.min())
+                for i in scr:
+                    for j in dsts:
+                        src["rest"].append(i)
+                        dst["rest"].append(j)
+    return {
+        k: np.stack([np.array(src[k], np.int64), np.array(dst[k], np.int64)])
+        if src[k]
+        else np.zeros((2, 0), np.int64)
+        for k in src
+    }
+
+
+# canonical homogeneous edge-type ids (reference HeteroScoreGraph.etypes,
+# analysisgnn/utils/hgraph.py:17-26 / legacy graph.py:145-256)
+ETYPE_IDS = {"onset": 0, "consecutive": 1, "during": 2, "rest": 3}
+
+
+def homogeneous_graph_from_note_array(note_array: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Legacy homogeneous view: one ``[2, E]`` edge index + an ``[E]``
+    edge-type id vector over the 4 base note relations (reference
+    ``graph_from_note_array``, analysisgnn/utils/graph.py:145-256, and the
+    ``HeteroScoreGraph`` etype map, hgraph.py:17-26).  Built from the same
+    vectorized typed builder as the hetero path."""
+    g = build_score_graph(note_array, add_beats=False, add_measures=False)
+    parts, types = [], []
+    for rel, tid in ETYPE_IDS.items():
+        for et, ei in g.edges.items():
+            if et[1] == rel:
+                parts.append(np.asarray(ei))
+                types.append(np.full(ei.shape[1], tid, np.int64))
+    if not parts:
+        return np.zeros((2, 0), np.int64), np.zeros(0, np.int64)
+    return np.concatenate(parts, axis=1), np.concatenate(types)

@@ -31,7 +31,7 @@ Relations are stacked on axis 0.  Two layouts, as in the JAX package:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -44,15 +44,33 @@ from analysisgnn_tpu_torch.models.mlp import promote
 CONV_IMPLS = ("node", "edge", "edge-zxp")
 
 
+def stack_relations(
+    edge_index_dict: Dict[object, torch.Tensor], relations: Sequence[object]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The given relations' edges end to end, with an int32 relation-id
+    vector (position in ``relations``)."""
+    eis = [edge_index_dict[et] for et in relations]
+    rel = [torch.full((ei.shape[1],), i, dtype=torch.int32, device=ei.device) for i, ei in enumerate(eis)]
+    return torch.cat([ei[0] for ei in eis]), torch.cat([ei[1] for ei in eis]), torch.cat(rel)
+
+
+def stack_relations_padded(
+    edge_index_dict: Dict[object, torch.Tensor], relations: Sequence[object], n_nodes: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[T, E_max]`` src and dst stacks of the relations, each padded with
+    ``n_nodes``, the relations' own one-past-the-end padding."""
+    e_max = max(edge_index_dict[et].shape[1] for et in relations)
+    pad = lambda row: torch.nn.functional.pad(row, (0, e_max - row.shape[0]), value=n_nodes)
+    return (torch.stack([pad(edge_index_dict[et][0]) for et in relations]),
+            torch.stack([pad(edge_index_dict[et][1]) for et in relations]))
+
+
 def fused_plan(edge_indices: Sequence[torch.Tensor], n: int) -> SegmentPlan:
     """Edge order of T stacked relations over one node set of capacity ``n``,
     sorted by ``rel * n + src`` (padding last); computed once per graph."""
-    src = torch.cat([ei[0] for ei in edge_indices])
-    dst = torch.cat([ei[1] for ei in edge_indices])
-    rel = torch.cat(
-        [torch.full((ei.shape[1],), i, dtype=src.dtype, device=src.device) for i, ei in enumerate(edge_indices)]
-    )
     t = len(edge_indices)
+    src, dst, rel = stack_relations(dict(enumerate(edge_indices)), range(t))
+    rel = rel.to(src.dtype)
     padding = src >= n
     seg = torch.where(padding, t * n, rel * n + src)
     gather = torch.where(padding, spread_rows(src.shape[0], t * n, src.device), rel * n + dst.clamp(max=n - 1))
@@ -80,13 +98,12 @@ class EdgePlan:
 
 
 def edge_plan(edge_indices: Sequence[torch.Tensor], n: int) -> EdgePlan:
-    """The JAX ``stack_relations_padded`` stack (padding ``src = dst = n``)
+    """The :func:`stack_relations_padded` stack (padding ``src = dst = n``)
     with its counts; computed once per graph."""
-    e_max = max(ei.shape[1] for ei in edge_indices)
     t = len(edge_indices)
-    pad = lambda row, ei: torch.nn.functional.pad(ei[row], (0, e_max - ei.shape[1]), value=n)
-    src = torch.stack([pad(0, ei) for ei in edge_indices]).long()  # [T, E_max]
-    dst = torch.stack([pad(1, ei) for ei in edge_indices]).long()
+    src, dst = stack_relations_padded(dict(enumerate(edge_indices)), range(t), n)
+    src, dst = src.long(), dst.long()  # [T, E_max]
+    e_max = src.shape[1]
     padding = src >= n
     rel = torch.arange(t, device=src.device)[:, None]
     seg = torch.where(padding, t * n, rel * n + src).reshape(-1)

@@ -313,6 +313,10 @@ INVERSION_FIGURES = {
 }
 
 
+def cosine_similarity(v1: np.ndarray, v2: np.ndarray) -> float:
+    return float(np.dot(v1, v2) / (np.linalg.norm(v1) * np.linalg.norm(v2)))
+
+
 @lru_cache(maxsize=1)
 def _pcset_vectors() -> Tuple[Tuple[Tuple[int, ...], ...], np.ndarray, np.ndarray]:
     """(the vocabulary's pcsets in table order, their 0/1 vectors [P, 12],
@@ -411,6 +415,14 @@ def resolve_roman_numeral_cosine(
 # ---------------------------------------------------------------------------
 # Presentation / segmentation helpers
 # ---------------------------------------------------------------------------
+
+
+def format_chord_label(label: str) -> str:
+    """End-user chord label (reference formatChordLabel,
+    chord_representations.py:638-643)."""
+    if label.endswith("maj"):
+        label = label.replace("maj", "")
+    return label.replace("-", "b")
 
 
 def format_roman_numeral(rn: str, key: str) -> str:

@@ -19,8 +19,9 @@ the whole training state (parameters, ``mt_params``, both Adam moments with
 their count, the step, the dropout generator, the teacher, the EWC fisher
 and means, and FAMO's state) for ``resume``.
 
-Not ported, and refused: W&B logging (ROADMAP queue 1 item 7.3: it needs the
-network).
+``use_wandb`` logs every record's numbers to W&B as the JAX Trainer does: the
+``wandb`` package is imported when a record is logged, and any failure (no
+package, no network) is swallowed, so the run trains to its end without it.
 """
 
 from __future__ import annotations
@@ -131,9 +132,6 @@ class TrainConfig:
 
 class Trainer:
     def __init__(self, config: TrainConfig, datamodule: AnalysisDataModule):
-        if config.use_wandb:
-            raise NotImplementedError("TrainConfig use_wandb is not ported (ROADMAP queue 1 item 7.3: W&B needs the "
-                                      "network)")
         self.cfg = config
         self.dm = datamodule
         self.device = resolve_device(config.device)
@@ -227,6 +225,19 @@ class Trainer:
             os.makedirs(os.path.dirname(self.cfg.log_path) or ".", exist_ok=True)
             with open(self.cfg.log_path, "a") as f:
                 f.write(json.dumps(record) + "\n")
+        if self.cfg.use_wandb:
+            try:  # optional dependency (reference logs via WandbLogger)
+                import wandb
+
+                if wandb.run is None:
+                    wandb.init(
+                        project="analysisgnn-tpu",
+                        name=f"{self.cfg.model}_{self.cfg.num_layers}x{self.cfg.hidden_channels}-lr={self.cfg.lr}",
+                        config=dataclasses.asdict(self.cfg),
+                    )
+                wandb.log({k: v for k, v in record.items() if isinstance(v, (int, float))})
+            except Exception:
+                pass
 
     def _path(self, tag: str) -> str:
         return os.path.abspath(os.path.join(self.cfg.checkpoint_dir, f"{tag}.pt"))

@@ -1,8 +1,8 @@
-"""General utilities: the parse-time watchdog.
+"""General utilities: the parse-time watchdog and the attribute dict.
 
 Reference: analysisgnn/utils/general.py — the ``exit_after`` decorator that
 bounds per-score parse time with a timer thread (:10-32; applied at
-hgraph.py:111,303).
+hgraph.py:111,303) and the ``MapDict`` attr-dict (:35-63).
 """
 
 from __future__ import annotations
@@ -61,3 +61,22 @@ def exit_after(seconds: float) -> Callable[[F], F]:
         return wrapped  # type: ignore[return-value]
 
     return decorator
+
+
+class MapDict(dict):
+    """dict with attribute access (reference MapDict, general.py:35-63)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def __delattr__(self, name: str) -> None:
+        try:
+            del self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e

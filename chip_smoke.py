@@ -79,7 +79,12 @@ Phases, each on its own line with elapsed seconds:
      times of each kernel, its plain version and, for K4, an index_add_
      yardstick, and the profiler's device time (K5: one launch a call and no
      other kernel), beside the bytes bound; no path launches K5 (only tests
-     call it), and K4's path is phase 27's;
+     call it), and K4's path is phase 27's; then the generic segment ops of
+     kernels/segment_ops.py (plain PyTorch, as they are XLA code in the JAX
+     package: segment_mean, segment_mean_or, segment_softmax,
+     gather_scatter_sum / _mean, sddmm_dot with 4 heads, coalesce) on CUDA
+     tensors against CPU copies at the bench batch's fused-layer shape
+     (E = 82,176, F = 256, S = 37,632) with padding and negative ids;
  13. trainer: the training entry point, analysisgnn_tpu_torch.cli.train.main,
      at full width (HybridGNN 3 x 256 -> 128, JK, final norm) on the demo
      corpus with --use_metrical --use_pallas --conv_impl edge-zxp, one
@@ -93,8 +98,13 @@ Phases, each on its own line with elapsed seconds:
  14. raw-dir trainer: cli.train.main on file corpora with
      scripts/parity_experiment.py's recipe at full width (HybridGNN 3 x 256
      -> 128, subgraph 500, batch 80, --main_tasks all --use_transpositions,
-     conv_impl node) on a temporary copy of data_synth/ and its split file,
-     two epochs: the corpus build's seconds and its 227 samples per
+     conv_impl node, --use_wandb with the wandb package's import blocked, as
+     on a host without it, since a real wandb.init could try the network)
+     on data_synth/ and
+     its split file as the port's synth_dlc.write_corpus writes them into a
+     temporary directory (the generator's seconds; all 24 TSVs and the split
+     byte-equal to the committed data_synth/), two epochs: the corpus build's
+     seconds and its 227 samples per
      interval (the JAX corpus's list), steps per epoch, median ms per train
      step, K1 launches against the code's prediction, finite losses and
      --do_eval metrics, whether pandas is importable on the host (the port
@@ -149,7 +159,12 @@ Phases, each on its own line with elapsed seconds:
      MusicXML score of 2,000 notes (seconds, K1 launches against the code's
      prediction, the RNA MusicXML's bytes and harmony labels), with
      --conv_impl edge-zxp (K3 forward launches against the prediction, the
-     ids that differ from the node run) and on a .krn score it writes;
+     ids that differ from the node run) and on a .krn score it writes; then
+     one request with --checkpoint_dir entity/project/model-rna:v0
+     --artifacts_dir pointing at a cached copy of the checkpoint, under
+     utils/profiling.py's trace: it prints "Using cached checkpoint", its ids
+     equal the local run's, K1 launches as predicted, and the Chrome trace it
+     writes names K1's kernel (segment_mean_base_kernel);
  21. chord chain: predict_chords.main at the CLI's defaults (hidden 256, one
      HybridGNN layer, the 14 latest tasks, the BiGRU smoother) with
      --romantext on a generated 2,000-note score: seconds per request after
@@ -250,6 +265,7 @@ import collections
 import contextlib
 import csv
 import dataclasses
+import importlib.metadata
 import importlib.util
 import io
 import json
@@ -266,10 +282,14 @@ import warnings
 import numpy as np
 import torch
 
+from analysisgnn_tpu_torch.utils.profiling import GPU_PEAKS
+
 T0 = time.perf_counter()
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-TF32_OPS_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
+# the card's published peaks (H100 SXM at 700 W, dense): device memory, float32 outside the tensor cores, TF32 and
+# bf16 on the tensor cores
+H100 = GPU_PEAKS["NVIDIA H100 80GB HBM3"]
+HBM_BYTES_PER_S, FP32_OPS_PER_S = H100["hbm_bw"], H100["fp32_flops"]
+TF32_OPS_PER_S, BF16_OPS_PER_S = H100["tf32_flops"], H100["bf16_flops"]
 K1_RTOL = 1e-5  # kernel vs plain: f32 sums of the same terms in another order
 LOGIT_ATOL = 1e-3  # GPU vs CPU logits of the whole model at full width
 REQUEST_NOTES = (2000, 8000, 20000)
@@ -317,7 +337,6 @@ FALL_ARMS = ("edge-zxp", "hgt", "edge-zxp-bf16")  # the metrical Trainer runs of
 PARITY_ARMS = ("edge-zxp", "hgt", "metrical", "node-bf16", "edge-zxp-bf16")
 PARITY_BATCH = 2
 FALL_STEPS = 6
-BF16_OPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # K3's bf16 forward vs its plain version (the f32 einsum of the upcast
 # operands), elementwise, relative to the sum of |terms|: products of bf16
 # values are exact in f32, so the two differ only in the order of f32 sums
@@ -1661,6 +1680,91 @@ def k5_checks(batch) -> list:
     return rows
 
 
+# the generic segment ops of kernels/segment_ops.py (plain PyTorch, XLA code in the JAX package) on the card against
+# the same calls on CPU copies, at the bench batch's fused-note-layer shape of PERF.md section 6
+SEG_OPS_SHAPE = {"E": 82_176, "F": 256, "S": 37_632, "H": 4, "D": 64}
+# sums and means: f32 sums of the same terms in another order (the card's atomics add in no fixed order), so
+# elementwise within SEG_OPS_RTOL of the same op on |data| (the sum of |terms|, which bounds f32 rounding); a wrong
+# index is O(1) of it
+SEG_OPS_RTOL = 1e-5
+# softmax weights, elementwise relative: expf within 2 ulp and a positive denominator summed in another order (a
+# few ulp); relative, since an edge of a negative id reads another segment's max and sum, as in the JAX package,
+# and its weight may exceed 1
+SEG_OPS_SOFTMAX_RTOL = 1e-5
+
+
+def segment_ops_checks() -> dict:
+    """segment_mean, segment_mean_or, segment_softmax, gather_scatter_sum /
+    _mean, sddmm_dot (4 heads) and coalesce on CUDA tensors against the same
+    calls on CPU copies, with padding ids (== S and past it) and negative
+    ids; coalesce exactly."""
+    from analysisgnn_tpu_torch.kernels import segment_ops as ops
+
+    shp = SEG_OPS_SHAPE
+    e, f, s, h, d = shp["E"], shp["F"], shp["S"], shp["H"], shp["D"]
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    ids = torch.randint(0, s, (e,), generator=gen)
+    pick = torch.rand(e, generator=gen)
+    ids[pick < 0.12] = s  # padding
+    ids[(pick >= 0.12) & (pick < 0.14)] = s + 7
+    ids[(pick >= 0.14) & (pick < 0.17)] = -1  # negative ids: dropped from sums, gathered as numpy counts them
+    src = torch.randint(0, s, (e,), generator=gen)
+    src[pick < 0.12] = s
+    edges = torch.stack([src, ids])
+    data = torch.randn(e, f, generator=gen)
+    x = torch.randn(s, f, generator=gen)
+    default = torch.randn(s, f, generator=gen)
+    weight = torch.rand(e, generator=gen)
+    logits = torch.randn(e, h, generator=gen) * 3
+    q, k = torch.randn(s, h, d, generator=gen), torch.randn(s, h, d, generator=gen)
+    cases = {
+        "segment_mean": (lambda t: ops.segment_mean(t["data"], t["ids"], s),
+                         lambda t: ops.segment_mean(t["data"].abs(), t["ids"], s)),
+        "segment_mean_or": (lambda t: ops.segment_mean_or(t["data"], t["ids"], t["default"]),
+                            lambda t: ops.segment_mean_or(t["data"].abs(), t["ids"], t["default"].abs())),
+        "gather_scatter_sum": (lambda t: ops.gather_scatter_sum(t["x"], t["edges"], s, t["weight"]),
+                               lambda t: ops.gather_scatter_sum(t["x"].abs(), t["edges"], s, t["weight"])),
+        "gather_scatter_mean": (lambda t: ops.gather_scatter_mean(t["x"], t["edges"], s),
+                                lambda t: ops.gather_scatter_mean(t["x"].abs(), t["edges"], s)),
+        "sddmm_dot": (lambda t: ops.sddmm_dot(t["q"], t["k"], t["edges"]),
+                      lambda t: ops.sddmm_dot(t["q"].abs(), t["k"].abs(), t["edges"])),
+    }
+    cpu = {"data": data, "ids": ids, "default": default, "x": x, "edges": edges, "weight": weight, "logits": logits,
+           "q": q, "k": k}
+    gpu = {key: v.cuda() for key, v in cpu.items()}
+    out = {}
+    for name, (fn, scale_fn) in cases.items():
+        got, want, scale = fn(gpu).cpu(), fn(cpu), scale_fn(cpu)
+        err = float((got - want).abs().max())
+        ratio = float(((got - want).abs() / (scale + 1e-30)).max())
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) or ratio > SEG_OPS_RTOL:
+            raise AssertionError(f"segment ops {name}: max|d| {err:.3e}, {ratio:.3e} of the sum of |terms| "
+                                 f"(tol {SEG_OPS_RTOL})")
+        out[name] = {"max_abs_err": err, "rel_of_abs_terms": ratio}
+    got, want = ops.segment_softmax(gpu["logits"], gpu["ids"], s).cpu(), ops.segment_softmax(logits, ids, s)
+    err = float((got - want).abs().max())
+    ratio = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()) or ratio > SEG_OPS_SOFTMAX_RTOL:
+        raise AssertionError(f"segment ops segment_softmax: max|d| {err:.3e}, relative {ratio:.3e} "
+                             f"(tol {SEG_OPS_SOFTMAX_RTOL})")
+    out["segment_softmax"] = {"max_abs_err": err, "max_rel_err": ratio}
+    dup = torch.cat([edges, edges[:, : e // 10]], dim=1)  # duplicates for sure
+    (got, count), (want, want_count) = ops.coalesce(dup.cuda(), s), ops.coalesce(dup, s)
+    if not torch.equal(got.cpu(), want) or int(count) != int(want_count):
+        raise AssertionError(f"segment ops coalesce: {int(count)} unique edges on the card, {int(want_count)} on "
+                             f"the CPU, or another order")
+    out["coalesce"] = {"max_abs_err": 0.0, "unique": int(count)}
+    phase(f"segment ops: E={e} F={f} S={s} (H={h} D={d} for sddmm_dot and softmax), padding and negative ids, on "
+          f"the card against the CPU: " + ", ".join(
+              f"{name} max|d| {r['max_abs_err']:.3e}" + (f" ({r['rel_of_abs_terms']:.2e} of the sum of |terms|)"
+                                                        if "rel_of_abs_terms" in r else "")
+              for name, r in out.items())
+          + f" (tol {SEG_OPS_RTOL} of the sum of |terms|, softmax {out['segment_softmax']['max_rel_err']:.2e} "
+          f"relative, tol {SEG_OPS_SOFTMAX_RTOL}; coalesce exact, "
+          f"{out['coalesce']['unique']} unique edges)")
+    return out
+
+
 # ------------------------------------------------------------- the Trainer
 
 
@@ -1903,11 +2007,17 @@ def raw_dir_trainer_phase(tmp: str) -> dict:
     import analysisgnn_tpu_torch.cli.train as cli
 
     raw = f"{tmp}/data_synth"  # the CLI caches under <raw_dir>/.cache, so never in the checkout
-    shutil.copytree(os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_synth"), raw,
-                    ignore=shutil.ignore_patterns(".cache"))
+    gen_s = write_synth_corpus(raw)
     data = ["--raw_dir", raw, "--test_split_file", f"{raw}/test_split.json"]
+    # W&B logging as on a host without the wandb package: the Trainer imports it at each record and goes on
+    # without it.  Where the package is installed its import is blocked for the run (sys.modules entry None), since
+    # a real wandb.init could try to reach the network
+    try:
+        wandb_installed = importlib.metadata.version("wandb")
+    except importlib.metadata.PackageNotFoundError:
+        wandb_installed = None
     argv = [*data, *RAW_DIR_FLAGS, "--num_epochs", str(RAW_DIR_EPOCHS), "--do_train", "--do_eval",
-            "--checkpoint_dir", f"{tmp}/ckpt"]
+            "--checkpoint_dir", f"{tmp}/ckpt", "--use_wandb"]
     build, build_s = cli.build_datamodule, []
 
     def timed_build(config):
@@ -1919,6 +2029,8 @@ def raw_dir_trainer_phase(tmp: str) -> dict:
     printed = io.StringIO()
     t = time.perf_counter()
     cli.build_datamodule = timed_build
+    blocked = sys.modules.get("wandb", False)
+    sys.modules["wandb"] = None  # any import of wandb raises ImportError
     _reset_counts()  # the raw-dir Trainer path's run starts here
     try:
         with contextlib.redirect_stdout(printed):  # --do_eval prints the test metrics as JSON
@@ -1926,6 +2038,10 @@ def raw_dir_trainer_phase(tmp: str) -> dict:
         torch.cuda.synchronize()
     finally:
         cli.build_datamodule = build
+        if blocked is False:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = blocked
     counts = _counts()
     wall = time.perf_counter() - t
     samples = trainer.dm.task_samples["all"]
@@ -1934,7 +2050,9 @@ def raw_dir_trainer_phase(tmp: str) -> dict:
         raise AssertionError(f"raw-dir trainer: {len(samples)} samples {dict(per_interval)}, want 227 "
                              f"{RAW_DIR_COUNTS}")
     pandas = importlib.util.find_spec("pandas")
-    phase(f"raw-dir trainer: corpus of {len(samples)} samples from {len(os.listdir(f'{raw}/all'))} DLC TSVs "
+    phase(f"raw-dir trainer: --use_wandb with wandb's import blocked trained to the end (wandb installed on this "
+          f"host: {wandb_installed}); corpus of {len(samples)} samples "
+          f"from {len(os.listdir(f'{raw}/all'))} DLC TSVs "
           f"built in {build_s[0]:.2f} s (" + ", ".join(f"{k} {v}" for k, v in per_interval.items())
           + f"); test pieces {sorted(s.name for s in samples if s.test)}; pandas importable on this host: "
           f"{pandas is not None}{f' ({pandas.origin})' if pandas else ''} (the port does not use it)")
@@ -1971,7 +2089,31 @@ def raw_dir_trainer_phase(tmp: str) -> dict:
           f"{cache_s:.2f} s, its {len(cached.task_samples['all'])} samples array for array the built ones")
     return {"samples": len(samples), "build_s": build_s[0], "cache_s": cache_s, "epochs": epochs,
             "steps_per_epoch": per_epoch, "median_step_ms": median_ms, "secs": [r["secs"] for r in hist],
-            "launches": launches, "wall_s": wall, "flags": [*data, *RAW_DIR_FLAGS], "raw": raw}
+            "launches": launches, "wall_s": wall, "flags": [*data, *RAW_DIR_FLAGS], "raw": raw, "gen_s": gen_s}
+
+
+def write_synth_corpus(raw: str) -> float:
+    """data_synth/ written by the port's generator as scripts/parity_experiment.py
+    writes it (24 pieces of 10 phrases, seed 7, test fraction 0.2), held byte
+    for byte against the committed files; returns the generator's seconds."""
+    from analysisgnn_tpu_torch.data import synth_dlc
+
+    t = time.perf_counter()
+    split = synth_dlc.write_corpus(f"{raw}/all", 24, 10, seed=7, test_fraction=0.2)
+    with open(f"{raw}/test_split.json", "w") as f:
+        json.dump(split["test"], f)
+    gen_s = time.perf_counter() - t
+    committed = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_synth")
+    names = sorted(os.listdir(f"{committed}/all"))
+    if sorted(os.listdir(f"{raw}/all")) != names or len(names) != 24:
+        raise AssertionError(f"synth corpus: wrote {sorted(os.listdir(f'{raw}/all'))}, committed {names}")
+    for rel in [f"all/{n}" for n in names] + ["test_split.json"]:
+        with open(f"{raw}/{rel}", "rb") as a, open(f"{committed}/{rel}", "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"synth corpus: {rel} differs from the committed data_synth/{rel}")
+    phase(f"raw-dir trainer: data_synth/ written by the port's synth_dlc.write_corpus in {gen_s:.3f} s, all "
+          f"{len(names)} TSVs and test_split.json byte-equal to the committed files")
+    return gen_s
 
 
 # ------------------------------------------------- continual-learning training
@@ -2749,6 +2891,7 @@ def rna_serve(model, cfg: dict, tmp: str) -> dict:
     krn_notes = len(parse_kern(f"{tmp}/rna.krn").note_array)
     if len(krn["ids"]) != krn_notes:
         raise AssertionError(f"RNA serve .krn: {len(krn['ids'])} CSV rows for {krn_notes} notes")
+    cached = cached_artifact_request(ckpt, f"{tmp}/rna.musicxml", tmp, node["ids"], node_expected)
     differ = sum(a != b for row_a, row_b in zip(node["ids"], zxp["ids"]) for a, b in zip(row_a, row_b))
     zxp_err = _zxp_logits_against_node(ckpt, f"{tmp}/rna.musicxml")
     phase(f"RNA serve: cli.predict.main --output_musicxml on a MusicXML score of {notes} notes: {node['s']:.3f} s "
@@ -2765,7 +2908,47 @@ def rna_serve(model, cfg: dict, tmp: str) -> dict:
     return {"notes": notes, "seconds": node["s"], "first_s": first["s"], "k1_launches": node["counts"][
         "segment_mean_base"], "k3_launches": zxp["counts"]["relation_weighted_matmul"], "zxp_s": zxp["s"],
             "ids_differing": differ, "zxp_logit_max_abs": zxp_err, "xml_bytes": node["bytes"], "labels": node["labels"], "krn_notes": krn_notes,
-            "krn_s": krn["s"]}
+            "krn_s": krn["s"], "cached": cached}
+
+
+@torch.no_grad()
+def cached_artifact_request(ckpt: str, score: str, tmp: str, want_ids: list, expected: dict) -> dict:
+    """The predict CLI given a W&B artifact id whose copy lies in the
+    artifact cache (--artifacts_dir): it serves the cached checkpoint without
+    wandb or the network, under utils/profiling.py's trace, whose Chrome
+    trace must name K1's kernel."""
+    from analysisgnn_tpu_torch.cli.predict import main as predict_main
+    from analysisgnn_tpu_torch.utils.profiling import trace as profiling_trace
+
+    name = "model-rna:v0"
+    shutil.copytree(ckpt, f"{tmp}/artifacts/{name}")
+    printed = io.StringIO()
+    _reset_counts()  # this CLI run starts here
+    t = time.perf_counter()
+    with profiling_trace(f"{tmp}/cached_trace"), contextlib.redirect_stdout(printed):
+        predict_main(["--checkpoint_dir", f"entity/project/{name}", "--artifacts_dir", f"{tmp}/artifacts",
+                      "--score", score, "--output_csv", f"{tmp}/cached.csv", "--device", "cuda"])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    counts = _counts()
+    if f"Using cached checkpoint: {tmp}/artifacts/{name}" not in printed.getvalue():
+        raise AssertionError(f"RNA serve cached: the CLI printed {printed.getvalue()!r}")
+    if _csv_ids(f"{tmp}/cached.csv") != want_ids:
+        raise AssertionError("RNA serve cached: the ids differ from the local checkpoint's run")
+    if counts != expected:
+        raise AssertionError(f"RNA serve cached: launches {counts}, the code predicts {expected}")
+    (trace_file,) = os.listdir(f"{tmp}/cached_trace")
+    with open(f"{tmp}/cached_trace/{trace_file}") as f:
+        text = f.read()
+    k1_events = text.count("segment_mean_base_kernel")
+    if not k1_events:
+        raise AssertionError("RNA serve cached: the profiling trace names no segment_mean_base_kernel")
+    phase(f"RNA serve: cli.predict.main --checkpoint_dir entity/project/{name} --artifacts_dir served the cached "
+          f"copy in {seconds * 1e3:.1f} ms under utils.profiling.trace (its ids equal the local run's; K1 launches "
+          f"{counts['segment_mean_base']}, as predicted); the trace ({len(text)} bytes) names "
+          f"segment_mean_base_kernel {k1_events} times")
+    return {"ms": seconds * 1e3, "k1_launches": counts["segment_mean_base"], "trace_bytes": len(text),
+            "k1_trace_events": k1_events}
 
 
 def chord_chain(tmp: str) -> dict:
@@ -3978,6 +4161,7 @@ def main() -> None:
     k4_rows = k4_checks(batches[0])
     k5_rows = k5_checks(batches[0])
     phase("kernel check: K4 and K5 done")
+    segment_ops_checks()
     zoo = zoo_and_pretrain(batches, parity_batch)
     with tempfile.TemporaryDirectory() as tmp:
         trainer = trainer_phase(f"{tmp}/trainer")

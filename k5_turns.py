@@ -96,7 +96,8 @@ def main() -> None:
     other_root = Path(sys.argv[1]).resolve()
     smi = cs.environment()
     other = import_from_tree(other_root, f"{PACKAGE}.kernels.segment_softmax")
-    from analysisgnn_tpu_torch.kernels import segment_softmax as this
+    # the module, not the package's segment_softmax primitive of the same name
+    this = importlib.import_module(f"{PACKAGE}.kernels.segment_softmax")
 
     if Path(other.__file__).resolve() == Path(this.__file__).resolve():
         raise SystemExit(f"{other_root} is this checkout")

@@ -14,6 +14,7 @@ import dataclasses
 import functools
 import json
 import shutil
+import sys
 from pathlib import Path
 
 import jax
@@ -80,8 +81,13 @@ def _trainer_dm(jax_side):
     return (dm.AnalysisDataModule(tasks, cfg) if jax_side else dm.AnalysisDataModule(tasks, cfg, device="cpu")).setup()
 
 
-def test_trainer_matches_jax(tmp_path):
-    jt = jloop.Trainer(jloop.TrainConfig(**TRAINER, checkpoint_dir=str(tmp_path / "j"),
+def test_trainer_matches_jax(tmp_path, monkeypatch):
+    from tests.test_torch_port_wandb import StubWandb
+
+    # both Trainers log to W&B, each into its own stub module
+    jwandb, twandb = StubWandb(), StubWandb()
+    monkeypatch.setitem(sys.modules, "wandb", jwandb)
+    jt = jloop.Trainer(jloop.TrainConfig(**TRAINER, checkpoint_dir=str(tmp_path / "j"), use_wandb=True,
                                          log_path=str(tmp_path / "j" / "log.jsonl")), _trainer_dm(True))
     init = []
     jinit = jt._init_state
@@ -96,8 +102,9 @@ def test_trainer_matches_jax(tmp_path):
     jtest = jt.evaluate(jstate, split="test")
 
     ckpt = tmp_path / "t"
+    monkeypatch.setitem(sys.modules, "wandb", twandb)
     tt = tloop.Trainer(tloop.TrainConfig(**TRAINER, checkpoint_dir=str(ckpt), log_path=str(ckpt / "log.jsonl"),
-                                         device="cpu"), _trainer_dm(False))
+                                         use_wandb=True, device="cpu"), _trainer_dm(False))
     tstate = tt.fit(max_steps_per_epoch=2, initial_state_dict=state_dict_from_flax(init[0], {"num_layers": 1}))
     ttest = tt.evaluate(tstate, split="test")
 
@@ -112,6 +119,23 @@ def test_trainer_matches_jax(tmp_path):
     for k, v in jtest.items():
         assert ttest[k] == pytest.approx(v, rel=TRAINER_RTOL, abs=TRAINER_ATOL), k
     assert tt.history[1]["train_loss"] < tt.history[0]["train_loss"]
+    # W&B: one init with the same project, name and configuration (the port's has "device" besides), then the
+    # same numbers logged record by record
+    (jinit,), (tinit,) = [[c[1] for c in w.calls if c[0] == "init"] for w in (jwandb, twandb)]
+    assert (tinit["project"], tinit["name"]) == (jinit["project"], jinit["name"]) == ("analysisgnn-tpu",
+                                                                                      "HybridGNN_1x16-lr=0.005")
+    assert set(tinit["config"]) - set(jinit["config"]) == {"device"} and set(jinit["config"]) <= set(tinit["config"])
+    for k, v in jinit["config"].items():
+        if k in ("checkpoint_dir", "log_path"):
+            v = v.replace(str(tmp_path / "j"), str(ckpt))
+        assert tinit["config"][k] == v, k
+    jlogs, tlogs = [[c[1] for c in w.calls if c[0] == "log"] for w in (jwandb, twandb)]
+    assert [sorted(d) for d in tlogs] == [sorted(d) for d in jlogs] and len(tlogs) == 2
+    for tlog, jlog in zip(tlogs, jlogs):
+        assert "train_loss" in tlog
+        for k, v in jlog.items():
+            if k != "secs":  # the epoch's wall seconds
+                assert tlog[k] == pytest.approx(v, rel=TRAINER_RTOL, abs=TRAINER_ATOL), k
     # what it wrote: the log, the test curve, the checkpoints, the full state
     assert [json.loads(line) for line in open(ckpt / "log.jsonl")] == tt.history
     (tcurve,), (jcurve,) = [[json.loads(line) for line in open(p / "test_curve.jsonl")] for p in (ckpt, tmp_path / "j")]
@@ -144,8 +168,8 @@ def test_full_state_round_trip_and_resume(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported():
     dm = _trainer_dm(False)
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        tloop.Trainer(tloop.TrainConfig(**TRAINER, use_wandb=True, device="cpu"), dm)
+    # W&B logging is ported: use_wandb builds a Trainer, as in the JAX package (tests/test_torch_port_wandb.py)
+    assert tloop.Trainer(tloop.TrainConfig(**TRAINER, use_wandb=True, device="cpu"), dm).cfg.use_wandb
     # SMOTE, the edge-consistency loss (with the edge decoder) and HGT bf16 staging are ported
     assert not hasattr(tloop.Trainer(tloop.TrainConfig(**TRAINER, use_smote=True, device="cpu"), dm).model,
                        "edge_decoder")

@@ -20,6 +20,7 @@ the config byte-equal and the served CSVs equal.
 
 import csv
 import functools
+import importlib
 import json
 
 import jax
@@ -43,7 +44,7 @@ from analysisgnn_tpu_torch.cli import train as tcli
 from analysisgnn_tpu_torch.cli.predict import load_model
 from analysisgnn_tpu_torch.cli.predict import main as port_cli
 from analysisgnn_tpu_torch.convert import flax_tree_from_state_dict, state_dict_from_flax
-from analysisgnn_tpu_torch.kernels import relmm, segment_mean
+from analysisgnn_tpu_torch.kernels import relmm
 from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
 from analysisgnn_tpu_torch.models.encoders import HybridGNN
 from analysisgnn_tpu_torch.models.hetero import HeteroConv, fusion_groups, plan_hetero
@@ -53,6 +54,9 @@ from analysisgnn_tpu_torch.train.step import cast_parameters
 from tests.test_torch_port_models import HIDDEN, _graph, _np_tree, _sub_state, _torch_dict
 from tests.test_torch_port_predict import SCORE_XML
 from tests.test_torch_port_train import TASKS, batches  # noqa: F401 (the fixture)
+
+# K1's wrapper module: the package's attribute of that name is the segment_mean primitive
+segment_mean = importlib.import_module("analysisgnn_tpu_torch.kernels.segment_mean")
 
 ACTIVE = tuple(t for t, _ in TASKS)
 GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-4
