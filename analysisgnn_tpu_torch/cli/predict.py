@@ -16,9 +16,12 @@ layout), and
 an HGT checkpoint the saved one by default).
 
 ``--partition_devices N`` serves a long score through N graph partitions on
-a line, all on the one device (the overlap-region regime of
-``distributed/partition_encoder.py``; note-node HybridGNN and HybridHGT
-configs without ``use_rnn`` only).
+a line (the overlap-region regime of ``distributed/partition_encoder.py``;
+note-node HybridGNN and HybridHGT configs without ``use_rnn`` only), spread
+over the visible cards as the JAX CLI spreads them over its devices: C of
+them, the largest count up to ``min(N, cards)`` that divides N, the model's
+card first (C = 1 on one card or on the CPU).  The CLI prints C and the
+devices; the CSV is the one written without the flag.
 
 ``--checkpoint_dir`` is resolved as the JAX CLI resolves it
 (:func:`resolve_checkpoint`): the local directory, then a cached copy under
@@ -119,7 +122,8 @@ def get_parser() -> argparse.ArgumentParser:
                         "growth factor (0 disables bucketing)")
     p.add_argument("--partition_devices", type=int, default=0,
                    help="encode the full graph as this many partitions on a line (overlap-region graph "
-                        "partition, all on --device; for long scores; note-node model configs only)")
+                        "partition), spread over the visible cards; for long scores; note-node model "
+                        "configs only")
     p.add_argument("--checkpoint_dir", type=str, default="checkpoints",
                    help="directory with model_config.json and <checkpoint>.pt, OR W&B artifact id "
                         "(entity/project/name:version)")
@@ -205,12 +209,18 @@ def main(argv=None) -> None:
             "--partition_devices covers note-node model configs only "
             "(this checkpoint was trained with beat/measure nodes)"
         )
+    if args.partition_devices:
+        from analysisgnn_tpu_torch.distributed.partition_encoder import spread_devices, visible_devices
+
+        spread = spread_devices(args.partition_devices, visible_devices(device))
+        print(f"--partition_devices {args.partition_devices}: {args.partition_devices} partitions over "
+              f"{len(spread)} device(s): {', '.join(str(d) for d in spread)}")
     for path in paths:
         parsed = load_score(path)
         if args.partition_devices:
             ids = predict_score_partitioned(
                 model, parsed.note_array, tasks=tasks, feature_type=feature_type,
-                num_devices=args.partition_devices, ids_only=True, device=device,
+                num_devices=args.partition_devices, ids_only=True, device=device, devices=spread,
             )
         else:
             ids = predict_score_ids(

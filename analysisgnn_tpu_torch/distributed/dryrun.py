@@ -24,9 +24,12 @@ K6 between a rank's own partitions) against its encoder, each within 2e-4 of
 the largest value + 2e-5.
 
 A world of more than one rank is started by :func:`launch.spawn` unless the
-caller runs inside a process group already; a world of one rank runs in the
-caller's process, over the caller's process group when there is one (its
-collectives then run, as on a card over NCCL).
+caller runs inside a process group already (NCCL rank r on card r modulo the
+visible cards, the kernels of its path built once before the ranks start);
+a world of one rank runs in the caller's process, over the caller's process
+group when there is one (its collectives then run, as on a card over NCCL).
+Rank 0 replays the cycle alone while the other ranks wait in certification
+2's first collective, so the group's timeout covers the replay.
 """
 
 from __future__ import annotations
@@ -80,6 +83,9 @@ from analysisgnn_tpu_torch.train.step import StepConfig
 
 TASKS = tuple(TASK_DICT.items())  # the full 21-task reference set
 PART_RTOL, PART_ATOL = 2e-4, 2e-5
+# what a rank's path builds at first use, built in the parent before the ranks start: K1 and K6 on the cards,
+# csrc/graphbuild.cpp either way
+RANK_SOURCES = {"nccl": ("segment_mean_base", "halo_pull", "graphbuild"), "gloo": ("graphbuild",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,7 +273,7 @@ def dryrun_multichip(n_devices: int, device=None, slots_per_rank: int = 1, timeo
     if n_devices > 1 and not (dist.is_available() and dist.is_initialized()):
         backend = "nccl" if torch.device("cuda" if device is None else device).type == "cuda" else "gloo"
         return spawn(_dryrun, n_devices, backend, timeout_s, n_devices, device, slots_per_rank, cfg,
-                     return_params)[0]
+                     return_params, sources=RANK_SOURCES[backend])[0]
     return _dryrun(n_devices, device, slots_per_rank, cfg, return_params)
 
 

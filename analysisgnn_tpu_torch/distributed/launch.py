@@ -12,7 +12,10 @@ and never hangs it.
 
 Each rank runs ``fn(*args)``; ``fn`` must be importable by name (a module's
 top-level function), and what it returns comes back to the caller, one entry
-a rank, through a file of the temporary directory.
+a rank, through a file of the temporary directory.  The kernels the ranks'
+path launches are built once, in the parent, before the ranks start
+(``sources``): otherwise every rank would run ``nvcc`` on the same sources at
+first use, all at once.
 """
 
 from __future__ import annotations
@@ -22,11 +25,18 @@ import os
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Sequence
 
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from analysisgnn_tpu_torch.kernels import build
+
+
+def rank_device(rank: int) -> torch.device:
+    """The card of NCCL rank ``rank``: ``rank`` modulo the visible cards."""
+    return torch.device("cuda", rank % torch.cuda.device_count())
 
 
 def init_process_group(backend: str, store_path: str, rank: int, world_size: int, timeout_s: float) -> None:
@@ -37,7 +47,7 @@ def init_process_group(backend: str, store_path: str, rank: int, world_size: int
     caller chose another (every rank of such a group lives on this host)."""
     if backend == "nccl":
         os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        torch.cuda.set_device(rank_device(rank))
     dist.init_process_group(
         backend,
         store=dist.FileStore(store_path, world_size),
@@ -63,12 +73,15 @@ def _rank_main(rank: int, world_size: int, backend: str, tmp: str, timeout_s: fl
         os._exit(1)
 
 
-def spawn(fn: Callable, world_size: int, backend: str = "gloo", timeout_s: float = 120.0, *args: Any) -> List[Any]:
+def spawn(fn: Callable, world_size: int, backend: str = "gloo", timeout_s: float = 120.0, *args: Any,
+          sources: Sequence[str] = ()) -> List[Any]:
     """Run ``fn(*args)`` on ``world_size`` ranks of a ``backend`` process
-    group and return what each rank returned, in rank order.  Raises
-    ``RuntimeError`` when a rank fails and ``TimeoutError`` when the ranks have
-    not all finished ``timeout_s`` seconds after the start; either way no
-    rank is left running."""
+    group and return what each rank returned, in rank order, after building
+    ``sources`` (names of ``csrc/`` sources, ``kernels/build.py``) here.
+    Raises ``RuntimeError`` when a rank fails and ``TimeoutError`` when the
+    ranks have not all finished ``timeout_s`` seconds after the start; either
+    way no rank is left running."""
+    build.build_all(sources)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="agnn-ranks-") as tmp:
         procs = [ctx.Process(target=_rank_main, args=(r, world_size, backend, tmp, timeout_s, fn, args), daemon=True)

@@ -39,6 +39,7 @@ from torch import nn
 
 from analysisgnn_tpu_torch.convert import _GRU_KEY, flax_tree_from_state_dict
 from analysisgnn_tpu_torch.core.graph import HeteroGraph, resolve_device
+from analysisgnn_tpu_torch.distributed.launch import rank_device
 from analysisgnn_tpu_torch.train.state import AdamWState, ClippedAdamW, TrainState
 from analysisgnn_tpu_torch.train.state import update_teacher as _copy_into_teacher
 from analysisgnn_tpu_torch.train.step import StepConfig, compute_losses
@@ -83,9 +84,13 @@ def mesh_shape(n_devices: int, model_size: Optional[int] = None) -> Tuple[int, i
 
 
 def _device(device) -> torch.device:
+    """``device`` with its card named: in a process group, an index-less
+    "cuda" is the rank's own card (``launch.rank_device``), whatever the
+    current device; outside one, the current card."""
     dev = resolve_device("cuda" if device is None else device)
     if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+        in_group = dist.is_available() and dist.is_initialized()
+        dev = rank_device(dist.get_rank()) if in_group else torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

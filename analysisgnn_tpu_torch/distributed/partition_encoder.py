@@ -17,21 +17,30 @@ Two regimes, both exact for the owned rows:
    HybridGNN's own parameters.
 
 The JAX package runs one partition per device of a 1-D mesh under
-``shard_map``.  The port stacks the D partitions of the line on one device:
-regime 1 runs the D windows one after another (each with its own K1 plan),
-regime 2 runs them together as ``[D, ...]`` tensors.  Given a process group of
-W ranks (``group``), rank r takes partitions ``r * D / W`` to ``(r + 1) * D /
-W - 1`` of the line and stacks those: regime 2 exchanges the halos at its ends
-with the neighbouring ranks (``kernels/halo.py::halo_pull_across_ranks``), and
-both regimes all-gather the owned rows over the group in rank order, so that
-every rank returns the whole ``[D, N_local, F]``.  Without a group it is the
-one-device form.
+``shard_map``, in one process.  The port's regime 1 spreads the D windows
+over a list of C devices in one process as well (``devices``, the counterpart
+of the mesh): device k takes windows ``k * D / C`` to ``(k + 1) * D / C - 1``,
+each on a replica of the model made once per model and device, every
+device's windows issued without a host sync in between, and the owned rows
+come back to the model's device in partition order.  C = 1, the default, is
+the line on the model's own device, one window after another (each with its
+own K1 plan).  Regime 2 runs the partitions of a device together as
+``[D, ...]`` tensors.  Given a process group of W ranks (``group``), rank r
+takes partitions ``r * D / W`` to ``(r + 1) * D / W - 1`` of the line and
+stacks those: regime 2 exchanges the halos at its ends with the neighbouring
+ranks (``kernels/halo.py::halo_pull_across_ranks``), and both regimes
+all-gather the owned rows over the group in rank order, so that every rank
+returns the whole ``[D, N_local, F]``.  Without a group it is the one-process
+form.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, Mapping, Optional, Sequence
+import itertools
+import weakref
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -156,16 +165,91 @@ def _all_gather_parts(owned: torch.Tensor, group) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def make_partitioned_encode(model, group=None):
-    """The model's ``AnalysisGNN.encode`` over the windows of a partition, on
-    the model's device; with a process group ``group``, each rank encodes its
-    share of the windows and the owned rows are all-gathered.
+def spread_count(num_parts: int, available: int) -> int:
+    """C, the devices a line of ``num_parts`` partitions spreads over: the
+    largest count that is at most ``min(num_parts, available)`` and divides
+    ``num_parts`` (1 on one device)."""
+    c = max(1, min(num_parts, available))
+    while num_parts % c:
+        c -= 1
+    return c
+
+
+def check_devices(devices: Sequence) -> List[torch.device]:
+    """``devices`` as ``torch.device``s, each card named by its index; a card
+    that is not visible raises (nothing falls back to fewer cards)."""
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda":
+            visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if d.index is None and visible:
+                d = torch.device("cuda", torch.cuda.current_device())
+            if d.index is None or d.index >= visible:
+                raise ValueError(f"{d} was requested, but {visible} CUDA device(s) are visible")
+        out.append(d)
+    return out
+
+
+def spread_devices(num_parts: int, devices: Sequence) -> List[torch.device]:
+    """The devices a line of ``num_parts`` partitions runs on: the first
+    :func:`spread_count` of ``devices``, each checked (:func:`check_devices`)."""
+    devs = check_devices(devices)
+    return devs[: spread_count(num_parts, len(devs))]
+
+
+def visible_devices(device) -> List[torch.device]:
+    """The devices a model on ``device`` can spread a line over: its own card
+    first, then the other visible cards in order; the CPU alone for a CPU
+    model."""
+    (dev,) = check_devices([device])
+    if dev.type != "cuda":
+        return [dev]
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", (dev.index + k) % count) for k in range(count)]
+
+
+_replicas: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()  # model -> {device: (replica, stamp)}
+
+
+def model_replica(model, device: torch.device):
+    """``model`` on ``device``: the model itself on its own device, else its
+    copy there, made once per model and device and refreshed (copied into)
+    only when a parameter or buffer of the model has changed since (an
+    in-place update moves a tensor's version, a replaced tensor its
+    pointer)."""
+    if device == next(model.parameters()).device:
+        return model
+    tensors = list(itertools.chain(model.parameters(), model.buffers()))
+    stamp = tuple((t.data_ptr(), t._version) for t in tensors)
+    per_model = _replicas.setdefault(model, {})
+    replica, seen = per_model.get(device, (None, None))
+    if replica is None:
+        replica = copy.deepcopy(model).to(device)
+    elif seen != stamp:
+        with torch.no_grad():
+            for r, t in zip(itertools.chain(replica.parameters(), replica.buffers()), tensors):
+                r.copy_(t)
+    per_model[device] = (replica, stamp)
+    return replica.train(model.training)
+
+
+def make_partitioned_encode(model, group=None, devices: Optional[Sequence] = None):
+    """The model's ``AnalysisGNN.encode`` over the windows of a partition,
+    spread over ``devices`` (default: the model's device alone) and returned
+    on the model's device; with a process group ``group``, each rank encodes
+    its share of the windows and the owned rows are all-gathered.
 
     Returns ``fn(part: FullGraphPartition) -> [D, N_local, F_out]``: every
     window is encoded on its own (all D share one shape; each gets its own
     edge plan, ``num_target_nodes = N_ext`` and dropout off) and keeps its
-    owned rows.  Rows past ``part.num_nodes`` (tail padding of the last
-    partition) are garbage and are dropped by :func:`unpartition`.
+    owned rows.  Device k of the C in ``devices`` encodes the k-th run of
+    ``D / C`` windows (of the rank's share) on :func:`model_replica`; C must
+    divide them (:func:`spread_count` picks such a C).  The windows' inputs
+    go to their devices first, then the windows are issued round-robin over
+    the devices with no host sync, so the devices work at once.  Rows past
+    ``part.num_nodes`` (tail padding of the last partition) are garbage and
+    are dropped by :func:`unpartition`.
 
     A MetricalGNN encoder or a ``use_rnn`` model is refused: their sequence
     models run over a whole graph, so no halo of edge spans bounds their
@@ -177,20 +261,28 @@ def make_partitioned_encode(model, group=None):
             "use_rnn's sequence model reads the whole graph, which a window's halo cannot hold"
         )
     dev = next(model.parameters()).device
+    devs = [dev] if devices is None else check_devices(devices)
+    replicas = [model_replica(model, d) for d in devs]
 
     @torch.no_grad()
     def fn(part: FullGraphPartition) -> torch.Tensor:
-        x = torch.from_numpy(part.x).to(dev)
-        ps = torch.from_numpy(part.pitch_spelling).to(dev).long()
-        ks = torch.from_numpy(part.key_signature).to(dev).long()
-        ei = {et: torch.from_numpy(v).to(dev).long() for et, v in part.edge_index.items()}
-        owned = []
         share = _rank_share(part.num_devices, group)
-        for d in range(share.start, share.stop):
-            out = model.encode({NOTE: x[d]}, {et: v[d] for et, v in ei.items()}, ps[d], ks[d], part.n_ext,
+        if (share.stop - share.start) % len(devs):
+            raise ValueError(f"{share.stop - share.start} windows do not split over {len(devs)} devices")
+        per = (share.stop - share.start) // len(devs)
+        inputs = []
+        for k, d in enumerate(devs):
+            w = slice(share.start + k * per, share.start + (k + 1) * per)
+            x, ps, ks = (torch.from_numpy(a[w]).to(d) for a in (part.x, part.pitch_spelling, part.key_signature))
+            inputs.append((x, ps.long(), ks.long(),
+                           {et: torch.from_numpy(v[w]).to(d).long() for et, v in part.edge_index.items()}))
+        owned = [None] * (share.stop - share.start)
+        for j in range(per):
+            for k, (m, (x, ps, ks, ei)) in enumerate(zip(replicas, inputs)):
+                out = m.encode({NOTE: x[j]}, {et: v[j] for et, v in ei.items()}, ps[j], ks[j], part.n_ext,
                                deterministic=True)
-            owned.append(out[part.halo : part.halo + part.num_local])
-        return _all_gather_parts(torch.stack(owned), group)
+                owned[k * per + j] = out[part.halo : part.halo + part.num_local]
+        return _all_gather_parts(torch.stack([o.to(dev) for o in owned]), group)
 
     return fn
 

@@ -25,7 +25,9 @@ from analysisgnn_tpu_torch.data.graph_build import build_score_graph
 from analysisgnn_tpu_torch.distributed.partition_encoder import (
     make_partitioned_encode,
     partition_full_graph,
+    spread_devices,
     unpartition,
+    visible_devices,
 )
 from analysisgnn_tpu_torch.theory.encoders import KeySignatureEncoder, PitchEncoder
 from analysisgnn_tpu_torch.theory.vocab import available_representations
@@ -302,6 +304,7 @@ def predict_score_partitioned(
     feature_type: str = "voice",
     ids_only: bool = False,
     device: "str | torch.device" = "cuda",
+    devices: Optional[Sequence["str | torch.device"]] = None,
 ) -> Dict[str, np.ndarray]:
     """Long-score serving: the full-graph encode over ``num_devices``
     partitions on a line (the overlap-region regime of
@@ -310,11 +313,16 @@ def predict_score_partitioned(
     embeddings.  Per-note probabilities, or class ids with ``ids_only`` (the
     CLI's decode, as ``predict_score_ids``).
 
-    ``num_devices`` is the number of partitions on the line (default 1); all
-    of them run on ``device`` (the GPU unless the caller passes
-    ``device="cpu"``; the model must already be there).  Covers note-node
-    HybridGNN and HybridHGT models without ``use_rnn``; configs with beat or
-    measure nodes, a MetricalGNN or ``use_rnn`` use ``predict_score``.
+    ``num_devices`` is the number of partitions on the line (default 1).  The
+    windows spread over the first C of ``devices`` (default: the visible
+    cards, the model's first, ``partition_encoder.visible_devices``), C from
+    ``partition_encoder.spread_count``, as the JAX function spreads them over
+    its devices; on one card, or on the CPU, C = 1.  The model must already
+    be on ``device`` (the GPU unless the caller passes ``device="cpu"``); the
+    heads and the decode run there.  A requested card that is not visible
+    raises.  Covers note-node HybridGNN and HybridHGT models without
+    ``use_rnn``; configs with beat or measure nodes, a MetricalGNN or
+    ``use_rnn`` use ``predict_score``.
     """
     param_dev = _model_device(model, device, "predict_score_partitioned")
     with record_function("predict.graph"):
@@ -328,8 +336,9 @@ def predict_score_partitioned(
             feats, ps, ks, edges, num_devices=num_devices or 1,
             num_message_hops=len(model.encoder.layers) + 2,
         )
+    spread = spread_devices(part.num_devices, visible_devices(param_dev) if devices is None else devices)
     with record_function("predict.forward"):
-        emb = unpartition(make_partitioned_encode(model)(part), part)
+        emb = unpartition(make_partitioned_encode(model, devices=spread)(part), part)
         logits = model.classify(emb)
     onset_key = (NOTE, "onset", NOTE)
     with record_function("predict.decode"):

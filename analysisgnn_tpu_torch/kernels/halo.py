@@ -39,7 +39,12 @@ and ``torch.distributed`` point-to-point for the two at its ends (the last H
 rows of its last partition to the next rank, the first H rows of its first to
 the previous one; zeros at the ends of the line, as ``ppermute`` gives).  The
 TPU's remote DMA becomes NCCL on cards and gloo on CPUs, the process group's
-own backend.
+own backend.  Under NCCL, a ``batch_isend_irecv`` that is the first
+collective call of its group must be joined by every rank of the group
+(PyTorch's documented rule; the ranks at the ends of the line have one
+neighbour each), so the first exchange on a group is preceded by one
+all-reduce of a single element on it (:func:`_join`), whatever the caller
+ran on the group before.
 
 The TPU kernel has no ``custom_vjp``, and the partitioned forward only
 serves, so inputs that require a gradient are refused.  On a CPU tensor the
@@ -153,6 +158,19 @@ def _ranks(group) -> tuple:
     return dist.get_rank(group), dist.get_world_size(group)
 
 
+_joined: set = set()  # the process groups of this process whose first exchange has run; held, so no id is reused
+
+
+def _join(group, device: torch.device) -> None:
+    """An all-reduce of one element on ``group`` before its first
+    ``batch_isend_irecv`` in this process: that call is then never the
+    group's first collective, which NCCL would have every rank join.  Every
+    rank reaches it, since every rank of the line exchanges."""
+    if group not in _joined:
+        dist.all_reduce(torch.zeros(1, device=device), group=group)
+        _joined.add(group)
+
+
 def halo_pull_across_ranks(x_parts: torch.Tensor, halo: int, group=None, out: Optional[torch.Tensor] = None,
                            plan: Optional[HaloPlan] = None) -> torch.Tensor:
     """``[D_local, 2H, F]`` halos of this rank's ``D_local`` partitions
@@ -166,6 +184,7 @@ def halo_pull_across_ranks(x_parts: torch.Tensor, halo: int, group=None, out: Op
     if world == 1:
         return out
     n_local = x_parts.shape[1]
+    _join(group, x_parts.device)
     ops = []
     if rank > 0:
         peer = dist.get_global_rank(group, rank - 1)

@@ -9,14 +9,19 @@ between calls are done once:
   once per process;
 * :func:`launch`: calls it on the current stream of the tensors' device,
   passed as a plain integer, and enters a device guard only when that device
-  is not the current one; it raises if the launcher reports a CUDA error.
+  is not the current one (a card other than the process's current one: the
+  replicas of partitioned serving on cards 1-3); it raises if the launcher
+  reports a CUDA error, and refuses the index of a CPU tensor.
 
 The stream is read on every call, never cached: the caller may have switched
-streams between two calls.
+streams between two calls.  :data:`launches_by_device` counts every launch
+by launcher and card, beside each wrapper's own count, so a run across cards
+can show which card ran what.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Sequence
 
@@ -25,6 +30,7 @@ import torch
 from analysisgnn_tpu_torch.kernels import build
 
 _bound: dict = {}  # (source name, symbol) -> bound ctypes function
+launches_by_device: collections.Counter = collections.Counter()  # (symbol, card index) -> launches
 
 
 def bind(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int):
@@ -48,7 +54,11 @@ def _raw_stream(index: int) -> int:
 
 def launch(fn, index: int, *args) -> None:
     """``fn(*args, stream)`` on device ``index``'s current stream; the launcher
-    returns ``cudaGetLastError()``, and anything but 0 raises."""
+    returns ``cudaGetLastError()``, and anything but 0 raises.  ``index`` is
+    ``Tensor.get_device()`` of the tensors, -1 for a CPU tensor, which is
+    refused: a wrapper takes its plain version on the CPU."""
+    if index < 0:
+        raise ValueError(f"{fn.__name__} launches on a card; it was given a CPU tensor (device index {index})")
     if index == torch.cuda.current_device():
         rc = fn(*args, _raw_stream(index))
     else:
@@ -56,3 +66,4 @@ def launch(fn, index: int, *args) -> None:
             rc = fn(*args, _raw_stream(index))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
+    launches_by_device[fn.__name__, index] += 1

@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them.
+check them; with ``--cards N``, only its paths across N cards of one host.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4
 
 Phases, each on its own line with elapsed seconds:
   1. environment: torch / CUDA versions, the card's name and power limit,
@@ -257,6 +258,34 @@ Phases, each on its own line with elapsed seconds:
      cycle and each parameter's move.
 The last lines are the card's nvidia-smi line, one JSON object describing
 each kernel, and the result line.  Any failure raises and exits nonzero.
+
+With ``--cards N`` (N cards must be visible, else it fails; nothing of the
+default run runs), the build, then:
+  (a) every card's name and power limit, the peer-access matrix
+      (torch.cuda.can_device_access_peer) and nvidia-smi topo -m;
+  (b) every kernel (K1, K4, K5, K6 in both forms, K2, K3's f32 forward, dx,
+      dw and d alpha and its bf16 forward) launched on every card from this
+      process, whose current card stays 0, against its plain version on that
+      card, each launch counted on its card (kernels/launch.py's
+      launches_by_device);
+  (c) the serve model on a 20,000-note and a 100,000-note score through 4
+      partitions spread over the cards by predict_score_partitioned (one a
+      card on 4) against the same partitions on card 0: ids equal, the ids
+      that differ from predict_score_ids counted, probabilities within phase
+      18's tolerance, K1 launches on every card as predicted, each card's
+      peak memory, the first request (the replicas made in it) and 3 warm
+      requests of each line in turns; the spread's embeddings against the
+      single-window encode; K1 timed at a window's fused note layer; then
+      cli.predict.main --partition_devices 4 against the CLI without the
+      flag and the one-card line's CSV;
+  (d) dryrun_multichip(N) over NCCL, one rank a card, 2 data slots a rank
+      (on 4: data 2 x 2 slots x model 2): both certifications, K1 and K6
+      launches on every rank as predicted; on every rank the sharded step
+      (median ms of 3 after a warm-up, one traced step with NCCL's kernels),
+      the gradients' all-reduce over the data group alone beside its NVLink
+      bound, and the end-halo exchange against its plain version in turns;
+      NCCL's channels from its INFO logs; K6 timed at a rank's partitions.
+Then the same closing lines, with K1's and K6's entries of this run.
 """
 
 from __future__ import annotations
@@ -2399,8 +2428,9 @@ def _within(got, want) -> tuple:
     return err, scale, err <= PART_RTOL * scale + PART_ATOL
 
 
-def _regime1_check(model, full, host: dict, partitions: int, label: str) -> dict:
-    """The overlap-region encode over ``partitions`` windows against the
+def _regime1_check(model, full, host: dict, partitions: int, label: str, devices=None) -> dict:
+    """The overlap-region encode over ``partitions`` windows (spread over
+    ``devices``; the model's card alone by default) against the
     single-window encode ``full`` (``_full_encode``)."""
     from analysisgnn_tpu_torch.distributed.partition_encoder import (
         make_partitioned_encode, partition_full_graph, unpartition,
@@ -2408,7 +2438,7 @@ def _regime1_check(model, full, host: dict, partitions: int, label: str) -> dict
 
     part = partition_full_graph(host["x"], host["ps"], host["ks"], host["edges"], partitions,
                                 len(model.encoder.layers) + 2)
-    emb = unpartition(make_partitioned_encode(model)(part), part)
+    emb = unpartition(make_partitioned_encode(model, devices=devices)(part), part)
     err, scale, ok = _within(emb, full)
     if emb.shape != full.shape or not torch.isfinite(emb).all() or not ok:
         raise AssertionError(f"{label}: partitioned vs single-window embeddings max|d| {err:.3e} > "
@@ -2453,11 +2483,13 @@ def partitioned_serve(model, cfg: dict, tmp: str) -> dict:
     from analysisgnn_tpu_torch.distributed.partition import partition_graph
     from analysisgnn_tpu_torch.distributed.partition_encoder import make_partitioned_fused_sage
     from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.distributed.partition_encoder import spread_devices, visible_devices
     from analysisgnn_tpu_torch.inference.predict import predict_score_ids, predict_score_partitioned
     from analysisgnn_tpu_torch.kernels.halo import halo_pull
     from analysisgnn_tpu_torch.models.encoders import l2_normalize
 
     na = synthetic_score(PART_NOTES, seed=PART_SEED)
+    spread = spread_devices(PARTITIONS, visible_devices("cuda"))  # C = 1 on one card
     n, layers = len(na), len(model.encoder.layers)
     per_window = predicted_launches(model)["segment_mean_base"]
     serve = lambda: predict_score_partitioned(model, na, num_devices=PARTITIONS, ids_only=True, device="cuda")
@@ -2484,7 +2516,7 @@ def partitioned_serve(model, cfg: dict, tmp: str) -> dict:
     regime1 = {"launches": counts["segment_mean_base"], "first_s": first_s, "median_s": statistics.median(lat),
                "ids_differing": differ, "ids": n * len(ids)}
     phase(f"partitioned serve: regime 1, predict_score_partitioned(ids_only=True) of {n} notes on "
-          f"{PARTITIONS} partitions: K1 launches {counts['segment_mean_base']} ({per_window} a window, as "
+          f"{PARTITIONS} partitions over C = {len(spread)} card(s) ({', '.join(str(d) for d in spread)}): K1 launches {counts['segment_mean_base']} ({per_window} a window, as "
           f"predicted), first call {first_s * 1e3:.1f} ms, median of {REPEATS} {statistics.median(lat) * 1e3:.1f} ms; "
           f"{differ} of {n * len(ids)} ids differ from predict_score_ids")
     g, full, h0, host = _full_encode(model, na)
@@ -4108,6 +4140,540 @@ def zoo_and_pretrain(batches: list, parity_batch) -> dict:
     return {"pretrain": pre, "k4_plan": k4, "zoo": zoo, "unet": unet, "fidelity": fid}
 
 
+# ------------------------------------------- across cards (python3 chip_smoke.py --cards 4), phases (a)-(d)
+
+CARDS_NOTES = (20000, 100000)  # phase (c)'s requests: phase 18's score, then one five times as long
+CARDS_PARTITIONS = 4  # partitions of phase (c)'s line: one a card on 4 cards
+CARDS_TURNS = 5  # warm requests of the spread and of the one-card line, timed in turns
+CARDS_SLOTS = 2  # data slots a rank of the dry run: data 2 x 2 slots x model 2 on 4 ranks, the logical
+# configuration of JAX's 8-device run (MULTICHIP_r05.json: data 4, model 2)
+CARDS_TIMED_STEPS = 3
+CARDS_TIMEOUT_S = 600.0  # the NCCL ranks' deadline and their groups' timeout: it covers rank 0's replay
+NVLINK_BYTES_PER_S = 450e9  # NVLink between two H100s of one host, one direction (NVIDIA's data sheet)
+K1_SYMBOL, K6_SYMBOL = "segment_mean_base_launch", "halo_pull_launch"  # kernels/launch.py's per-card counts
+
+
+def _sync_cards(cards: int) -> None:
+    for k in range(cards):
+        torch.cuda.synchronize(k)
+
+
+def _card_counts(symbol: str, cards: int) -> list:
+    from analysisgnn_tpu_torch.kernels.launch import launches_by_device
+
+    return [launches_by_device[symbol, k] for k in range(cards)]
+
+
+def cards_environment(cards: int) -> str:
+    """Phase (a): every card's name and power limit, the peer-access matrix
+    and ``nvidia-smi topo -m``; fails unless ``cards`` cards are visible."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs NVIDIA GPUs")
+    count = torch.cuda.device_count()
+    if count < cards:
+        raise SystemExit(f"chip_smoke --cards {cards}: {count} CUDA device(s) visible, this mode needs {cards}")
+    smi = environment()
+    lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    for k, line in enumerate(lines):
+        phase(f"cards: card {k}: nvidia-smi name,power.limit = {line}")
+    rows = ["".join("-" if i == j else "y" if torch.cuda.can_device_access_peer(i, j) else "n" for j in range(count))
+            for i in range(count)]
+    phase(f"cards: peer access, card i (row) to card j's memory (column): {' '.join(rows)}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True, timeout=60)
+    for line in (topo.stdout or topo.stderr).splitlines():
+        if line.strip():
+            phase(f"cards: nvidia-smi topo -m: {line.rstrip()}")
+    if torch.cuda.current_device() != 0:
+        raise AssertionError(f"the process's current card is {torch.cuda.current_device()}, not 0")
+    return smi
+
+
+def _held(name: str, card: int, got, want, scale, rtol: float) -> float:
+    """``got`` (a kernel's, on ``card``) within ``rtol`` of ``scale`` (the sum
+    of |terms|) of ``want`` (its plain version's, on the same card)."""
+    if got.device != torch.device("cuda", card) or got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name} on card {card}: {got.device} {tuple(got.shape)} against {tuple(want.shape)}, "
+                             f"or non-finite values")
+    err = (got - want).abs()
+    if not bool((err <= rtol * scale).all()):
+        raise AssertionError(f"{name} on card {card}: |kernel - plain| up to {float(err.max()):.3e}, beyond {rtol} "
+                             f"of the sum of |terms|")
+    return float(err.max())
+
+
+def card_kernel_checks(cards: int) -> dict:
+    """Phase (b): every kernel launched on every card from this process, whose
+    current card stays 0 (``kernels/launch.py`` enters the others), held
+    against its plain version on the same card, every launch counted on its
+    card (``launch.launches_by_device``): K1, K4, K5, K6 (allocating and
+    planned), K2, K3's f32 forward, dx, dw and d alpha, and its bf16 forward
+    (wgmma)."""
+    from analysisgnn_tpu_torch.kernels import launch, relmm
+    from analysisgnn_tpu_torch.kernels.halo import HaloPlan, halo_pull, halo_pull_plain
+    from analysisgnn_tpu_torch.kernels.segment_mean import segment_mean_base, segment_mean_base_plain
+    from analysisgnn_tpu_torch.kernels.segment_softmax import segment_softmax_sorted, segment_softmax_sorted_plain
+    from analysisgnn_tpu_torch.kernels.segment_sum import segment_sum_sorted, segment_sum_sorted_plain
+    from analysisgnn_tpu_torch.kernels.softmax_agg import (
+        plan_softmax_agg, segment_softmax_agg, segment_softmax_agg_plain,
+    )
+
+    gen = torch.Generator(device="cpu").manual_seed(22)
+    e, f, s, m, h, n, t = 20000, 256, 4000, 1000, 4, 3000, 7
+    host = {"seg": torch.randint(0, s + s // 10, (e,), generator=gen).sort().values.int(),  # ids past s: padding
+            "msgs": torch.randn(e, f, generator=gen), "base": torch.randn(m, f, generator=gen),
+            "logits": torch.randn(e, h, generator=gen),
+            "block": torch.randint(0, 3, (e,), generator=gen).sort().values,
+            "x_parts": torch.randn(4, 2500, f, generator=gen),
+            "x": torch.randn(n, f, generator=gen), "w": torch.randn(t, f, f, generator=gen) / f**0.5,
+            "alpha": torch.rand(t, n, generator=gen), "gout": torch.randn(n, f, generator=gen)}
+    rows = {}
+    for k in range(cards):
+        dev = torch.device("cuda", k)
+        a = {key: v.to(dev) for key, v in host.items()}
+        before = dict(launch.launches_by_device)
+        errs = {}
+        out, _ = segment_mean_base(a["msgs"], a["seg"], a["base"], s)
+        errs["K1"] = _held("K1", k, out, segment_mean_base_plain(a["msgs"], a["seg"], a["base"], s)[0],
+                           segment_mean_base_plain(a["msgs"].abs(), a["seg"], a["base"].abs(), s)[0], K1_RTOL)
+        errs["K4"] = _held("K4", k, segment_sum_sorted(a["msgs"], a["seg"], s),
+                           segment_sum_sorted_plain(a["msgs"], a["seg"], s),
+                           segment_sum_sorted_plain(a["msgs"].abs(), a["seg"], s), K4_RTOL)
+        errs["K5"] = _held("K5", k, segment_softmax_sorted(a["logits"], a["seg"], s),
+                           segment_softmax_sorted_plain(a["logits"], a["seg"], s), 1.0, K5_ATOL)
+        plan = plan_softmax_agg(a["seg"], a["block"], s, 3)  # H = 4 heads of 64 over the 256 columns
+        errs["K2"] = _held("K2", k, segment_softmax_agg(a["logits"], a["msgs"], plan),
+                           segment_softmax_agg_plain(a["logits"], a["msgs"], plan),
+                           segment_softmax_agg_plain(a["logits"], a["msgs"].abs(), plan), K2_RTOL)
+        halos = halo_pull(a["x_parts"], 24)
+        hplan = HaloPlan(a["x_parts"], 24)
+        planned = halo_pull(a["x_parts"], 24, out=torch.full(hplan.out_shape, float("nan"), device=dev), plan=hplan)
+        want = halo_pull_plain(a["x_parts"], 24)
+        if not (torch.equal(halos, want) and torch.equal(planned, want)):
+            raise AssertionError(f"K6 on card {k}: the halos differ from the plain version's")
+        leaves = [a[key].clone().requires_grad_(True) for key in ("x", "w", "alpha")]
+        out = relmm.relation_weighted_matmul(*leaves)
+        got = (out.detach(), *torch.autograd.grad(out, leaves, a["gout"]))
+        plain = [a[key].clone().requires_grad_(True) for key in ("x", "w", "alpha")]
+        ref = relmm.relation_weighted_matmul_plain(*plain)
+        ref = (ref.detach(), *torch.autograd.grad(ref, plain, a["gout"]))
+        absl = [a[key].abs().requires_grad_(True) for key in ("x", "w", "alpha")]
+        sc = relmm.relation_weighted_matmul_plain(*absl)
+        sc = (sc.detach(), *torch.autograd.grad(sc, absl, a["gout"].abs()))
+        for part, g_, r_, c_ in zip(("forward", "dx", "dw", "dalpha"), got, ref, sc):
+            errs[f"K3 {part}"] = _held(f"K3 {part}", k, g_, r_, c_, K3_RTOL)
+        xb, wb = a["x"].bfloat16(), a["w"].bfloat16()
+        if relmm.forward_kernel(xb, wb) != "wgmma":
+            raise AssertionError(f"K3 bf16 on card {k}: the wrapper would not take the wgmma kernel")
+        errs["K3 bf16"] = _held("K3 bf16", k, relmm.relation_weighted_matmul(xb, wb, a["alpha"]),
+                                relmm.relation_weighted_matmul_plain(xb, wb, a["alpha"]),
+                                relmm.relation_weighted_matmul_plain(xb.abs(), wb.abs(), a["alpha"]), K3_BF16_RTOL)
+        torch.cuda.synchronize(k)
+        launched = {sym: c - before.get((sym, i), 0) for (sym, i), c in launch.launches_by_device.items()
+                    if i == k and c != before.get((sym, i), 0)}
+        elsewhere = {key: c - before.get(key, 0) for key, c in launch.launches_by_device.items()
+                     if key[1] != k and c != before.get(key, 0)}
+        # K1 and K4 build their row pointers without a plan (searchsorted, no kernel of ours); K6 twice
+        want_launched = {K1_SYMBOL: 1, "segment_sum_launch": 1, "segment_softmax_launch": 1,
+                         "segment_softmax_agg_launch": 1, K6_SYMBOL: 2, "rwm_forward_launch": 1, "rwm_dx_launch": 1,
+                         "rwm_dw_launch": 1, "rwm_dalpha_launch": 1, "rwm_bf16_wgmma_launch": 1}
+        if launched != want_launched or elsewhere:
+            raise AssertionError(f"card {k}: launched {launched} there (expected {want_launched}) and {elsewhere} "
+                                 f"on other cards")
+        rows[k] = {"max_abs_err": errs, "launched": launched}
+        phase(f"cards: kernel check on card {k} from current card {torch.cuda.current_device()}: "
+              + ", ".join(f"{name} max|d| {v:.2e}" for name, v in errs.items())
+              + f"; K6 bit-equal in both forms; launched on card {k} as expected ("
+              + ", ".join(f"{sym} {c}" for sym, c in launched.items()) + "), none on another card")
+    return rows
+
+
+def _window_k1(model, host: dict) -> dict:
+    """K1 timed on card 0 at the fused note layer of the first window of
+    phase (c)'s 20,000-note line (the shape each card's first layer gives
+    it), against its plain version and the index_add_ yardstick."""
+    from analysisgnn_tpu_torch.core.graph import NOTE
+    from analysisgnn_tpu_torch.distributed.partition_encoder import partition_full_graph
+    from analysisgnn_tpu_torch.models.hetero import plan_hetero
+
+    part = partition_full_graph(host["x"], host["ps"], host["ks"], host["edges"], CARDS_PARTITIONS,
+                                len(model.encoder.layers) + 2)
+    edges = {et: torch.from_numpy(v[0]).long().cuda() for et, v in part.edge_index.items()}
+    fused = plan_hetero(edges, model.edge_types, {NOTE: part.n_ext})[NOTE]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    f = model.encoder.final.fused[NOTE].w_neigh.shape[1]
+    msgs = torch.randn(fused.seg.shape[0], f, generator=gen).cuda()
+    x_base = torch.randn(fused.base_rows, f, generator=gen).cuda()
+    return check_k1(f"fused note layer of a {part.n_ext}-row window", msgs, fused.seg, x_base, fused.num_segments,
+                    timed=True, row_ptr=fused.row_ptr)
+
+
+@torch.no_grad()
+def cards_serve(cards: int, tmp: str) -> dict:
+    """Phase (c): the serve model (phase 4's weights) on phase 18's
+    20,000-note score and on a 100,000-note one through CARDS_PARTITIONS
+    partitions spread over the cards (``predict_score_partitioned``'s
+    default: the visible cards) against the one-card line (the same
+    partitions on card 0): ids equal, probabilities within phase 18's
+    tolerance, K1's launches on every card as the code predicts, each card's
+    peak memory, the first request (the replicas made in it) and warm
+    requests of both lines in turns; the embeddings of the spread against the
+    single-window encode; then ``cli.predict.main --partition_devices``
+    against the CLI without the flag and the one-card line's CSV."""
+    from analysisgnn_tpu_torch.cli.predict import main as predict_main
+    from analysisgnn_tpu_torch.data.musicxml import load_score
+    from analysisgnn_tpu_torch.data.note_array import synthetic_score
+    from analysisgnn_tpu_torch.distributed.partition_encoder import spread_devices, visible_devices
+    from analysisgnn_tpu_torch.inference.predict import (
+        decode_predictions, export_predictions_csv, predict_score_ids, predict_score_partitioned,
+    )
+    from analysisgnn_tpu_torch.models.analysis import SERVE_CONFIG as CFG
+    from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
+
+    model = model_from_config(CFG, device="cuda").eval()
+    init_parameters(model, torch.Generator(device="cpu").manual_seed(0))  # phase 4's weights
+    spread = spread_devices(CARDS_PARTITIONS, visible_devices("cuda"))
+    one = spread[:1]
+    if len(spread) != cards:
+        raise AssertionError(f"{CARDS_PARTITIONS} partitions spread over {spread}, not over {cards} cards")
+    per_card = predicted_launches(model)["segment_mean_base"] * CARDS_PARTITIONS // cards
+    rows = {}
+    for notes in CARDS_NOTES:
+        na = synthetic_score(notes, seed=PART_SEED)
+
+        def serve(devs, ids_only=True):
+            return predict_score_partitioned(model, na, num_devices=CARDS_PARTITIONS, ids_only=ids_only,
+                                             device="cuda", devices=devs)
+
+        _sync_cards(cards)
+        base = [torch.cuda.memory_allocated(k) for k in range(cards)]
+        for k in range(cards):
+            torch.cuda.reset_peak_memory_stats(k)
+        before = _card_counts(K1_SYMBOL, cards)
+        t = time.perf_counter()
+        ids = serve(spread)  # the first request over the cards: the replicas are made in the first of them
+        _sync_cards(cards)
+        row = {"notes": notes, "first_ms": (time.perf_counter() - t) * 1e3, "base_bytes": base,
+               "peak_bytes": [torch.cuda.max_memory_allocated(k) for k in range(cards)],
+               "k1_launches": [a - b for a, b in zip(_card_counts(K1_SYMBOL, cards), before)]}
+        if row["k1_launches"] != [per_card] * cards:
+            raise AssertionError(f"{notes} notes over {cards} cards: K1 launched {row['k1_launches']} a card, the "
+                                 f"code predicts {per_card} on each")
+        row["one_card_base_bytes"] = torch.cuda.memory_allocated(0)
+        torch.cuda.reset_peak_memory_stats(0)
+        line = serve(one)
+        _sync_cards(cards)
+        row["one_card_peak_bytes"] = torch.cuda.max_memory_allocated(0)
+        if set(ids) != set(line) or not all(np.array_equal(ids[k], line[k]) for k in line):
+            raise AssertionError(f"{notes} notes: the ids over {cards} cards differ from the one-card line's")
+        ref = predict_score_ids(model, na, add_beats=False, add_measures=False, device="cuda")
+        row["ids"] = sum(v.size for v in ref.values())
+        row["ids_differing_from_predict_score_ids"] = sum(int((ids[k] != ref[k]).sum()) for k in ref)
+        probs, probs_line = serve(spread, ids_only=False), serve(one, ids_only=False)
+        # where an id differs from predict_score_ids: the gap between the two likeliest classes there
+        top2 = {k: np.sort(v, axis=-1)[:, -2:] for k, v in probs_line.items()}
+        gaps = [float(top2[k][i, 1] - top2[k][i, 0]) for k in ref for i in np.flatnonzero(ids[k] != ref[k])]
+        row["differing_top2_gap_max"] = max(gaps, default=0.0)
+        row["prob_max_abs_err"] = max(float(np.abs(probs[k] - probs_line[k]).max()) for k in probs_line)
+        row["prob_bit_equal"] = all(np.array_equal(probs[k], probs_line[k]) for k in probs_line)
+        scale = max(float(np.abs(v).max()) for v in probs_line.values())
+        if not row["prob_max_abs_err"] <= PART_RTOL * scale + PART_ATOL:
+            raise AssertionError(f"{notes} notes: probabilities over {cards} cards max|d| {row['prob_max_abs_err']:.3e}"
+                                 f" from the one-card line (tol {PART_RTOL} * {scale:.4f} + {PART_ATOL})")
+        if notes == CARDS_NOTES[0]:
+            times = {"one_card": [], "spread": []}
+            for i in range(CARDS_TURNS):  # one card, spread, spread, one card, ...
+                for which in ("one_card", "spread")[:: 1 if i % 2 == 0 else -1]:
+                    t = time.perf_counter()
+                    serve(spread if which == "spread" else one)
+                    _sync_cards(cards)
+                    times[which].append((time.perf_counter() - t) * 1e3)
+            row.update({f"{k}_ms": statistics.median(v) for k, v in times.items()})
+            row["times_ms"] = times
+            _, full, _, host = _full_encode(model, na)
+            row["regime1"] = _regime1_check(model, full, host, CARDS_PARTITIONS,
+                                            f"cards: regime 1 over {cards} card(s)", devices=spread)
+            del full
+            k1_row = _window_k1(model, host)
+        gib = lambda b: b / 2**30  # noqa: E731
+        phase(f"cards: {notes} notes, {CARDS_PARTITIONS} partitions over {cards} card(s) "
+              f"({', '.join(str(d) for d in spread)}): first request {row['first_ms']:.1f} ms (replicas made"
+              f"{' in it' if notes == CARDS_NOTES[0] else ' before'}); K1 launches a card {row['k1_launches']} (the "
+              f"code predicts {per_card}); ids equal to the one-card line's, "
+              f"{row['ids_differing_from_predict_score_ids']} of {row['ids']} differ from predict_score_ids on one "
+              f"card (the two likeliest classes there at most {row['differing_top2_gap_max']:.2e} apart); "
+              f"probabilities max|d| {row['prob_max_abs_err']:.3e} from the one-card line (bit-equal "
+              f"{row['prob_bit_equal']}; tol {PART_RTOL} * {scale:.4f} + {PART_ATOL}); peak memory a card (GiB) "
+              + ", ".join(f"{gib(p):.3f} (base {gib(b):.3f})" for p, b in zip(row["peak_bytes"], row["base_bytes"]))
+              + f", one-card line {gib(row['one_card_peak_bytes']):.3f} (base {gib(row['one_card_base_bytes']):.3f})"
+              + (f"; warm requests in turns, median of {CARDS_TURNS}: spread {row['spread_ms']:.1f} ms, one card "
+                 f"{row['one_card_ms']:.1f} ms" if "spread_ms" in row else ""))
+        rows[notes] = row
+
+    # the CLI: a checkpoint of the serve model, a MusicXML score, with and without the flag
+    ckpt, score = f"{tmp}/serve_ckpt", f"{tmp}/score.musicxml"
+    os.makedirs(ckpt)
+    with open(f"{ckpt}/model_config.json", "w") as f:
+        json.dump(CFG, f)
+    torch.save(model.state_dict(), f"{ckpt}/best.pt")
+    with open(score, "w") as f:
+        f.write(synthetic_score_xml(CARDS_NOTES[0], seed=8))
+    cli = {}
+    for label, flags in (("spread", ["--partition_devices", str(CARDS_PARTITIONS)]), ("no flag", [])):
+        before = _card_counts(K1_SYMBOL, cards)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            predict_main(["--checkpoint_dir", ckpt, "--score", score, "--output_csv", f"{tmp}/{label}.csv",
+                          "--device", "cuda", *flags])
+        _sync_cards(cards)
+        with open(f"{tmp}/{label}.csv") as f:
+            cli[label] = {"s": time.perf_counter() - t, "stdout": out.getvalue().strip(), "csv": f.read().splitlines(),
+                          "k1_launches": [a - b for a, b in zip(_card_counts(K1_SYMBOL, cards), before)]}
+    parsed = load_score(score)
+    line_ids = predict_score_partitioned(model, parsed.note_array, num_devices=CARDS_PARTITIONS, ids_only=True,
+                                         device="cuda", devices=one,
+                                         feature_type=CFG["feature_type"].replace("simple", "voice"))
+    export_predictions_csv(f"{tmp}/line.csv", parsed.note_array, decode_predictions(line_ids))
+    with open(f"{tmp}/line.csv") as f:
+        line_csv = f.read().splitlines()
+    got = cli["spread"]
+    said = f"{CARDS_PARTITIONS} partitions over {cards} device(s)"
+    if said not in got["stdout"] or got["k1_launches"] != [per_card] * cards or got["csv"] != line_csv:
+        raise AssertionError(f"CLI --partition_devices {CARDS_PARTITIONS}: printed {got['stdout']!r}, K1 launches a "
+                             f"card {got['k1_launches']} (expected {per_card}), CSV equal to the one-card line's "
+                             f"{got['csv'] == line_csv}")
+    differ = sum(a != b for a, b in zip(got["csv"], cli["no flag"]["csv"])) + abs(
+        len(got["csv"]) - len(cli["no flag"]["csv"]))
+    phase(f"cards: cli.predict.main --partition_devices {CARDS_PARTITIONS} on a MusicXML score of "
+          f"{len(got['csv']) - 1} notes printed {got['stdout'].splitlines()[0]!r}, {got['s']:.2f} s (model load, "
+          f"parse and the replicas included), K1 launches a card {got['k1_launches']}; its CSV equal to the one-card "
+          f"line's; {differ} of {len(got['csv']) - 1} rows differ from the CLI's without the flag "
+          f"({cli['no flag']['s']:.2f} s)")
+    return {"rows": rows, "per_card": per_card, "k1": k1_row, "cli_rows_differing": differ,
+            "cli_s": {k: v["s"] for k, v in cli.items()}}
+
+
+def _cards_rank(cards: int) -> dict:
+    """Phase (d) on one NCCL rank (its card: ``launch.rank_device``):
+    ``dryrun_multichip(cards)`` with CARDS_SLOTS data slots a rank, K1's and
+    K6's launches against the code's prediction (and on which card); then the
+    sharded step timed and traced (NCCL's kernels), the gradients' all-reduce
+    over the data group alone, and the end-halo exchange against its plain
+    version in turns, at regime 2's shape of the dry run."""
+    import torch.distributed as dist
+
+    from analysisgnn_tpu_torch.distributed import dryrun
+    from analysisgnn_tpu_torch.distributed import mesh as tmesh
+    from analysisgnn_tpu_torch.kernels.halo import HaloPlan, halo_pull_across_ranks, halo_pull_across_ranks_plain
+    from analysisgnn_tpu_torch.kernels.launch import launches_by_device
+    from analysisgnn_tpu_torch.train.state import ClippedAdamW, create_train_state
+    from analysisgnn_tpu_torch.train.step import StepConfig
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dryrun.DryrunConfig()
+    data, _ = tmesh.mesh_shape(world)
+    model = dryrun.build_model(cfg, dev)
+    note_model = dryrun.build_model(cfg, dev, seed=3, with_metrical=False)
+    per_pass = predicted_launches(model)["segment_mean_base"]
+    parts_here = max(1, 8 // world)  # certification 2's partitions on a rank
+    # the sharded cycle: 3 passes a slot ("all"; "cadence" and its teacher); rank 0's replay: every slot of the
+    # mesh; certification 2: the full encode, this rank's windows of regime 1, the encoder's convs for regime 2
+    k1 = (3 * CARDS_SLOTS * per_pass + (rank == 0) * 3 * data * CARDS_SLOTS * per_pass
+          + (1 + parts_here) * predicted_launches(note_model)["segment_mean_base"]
+          + (cfg.layers + 1) * _per_conv(note_model)[0])
+    expected = {k: 0 for k in _counts()}
+    expected.update({"segment_mean_base": k1, "halo_pull": cfg.layers + 1})
+    del note_model
+    _reset_counts()  # the dry run's path starts here
+    before = dict(launches_by_device)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as summary:
+        result = dryrun.dryrun_multichip(world, device="cuda", slots_per_rank=CARDS_SLOTS, cfg=cfg)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "card": dev.index, "dryrun_s": time.perf_counter() - t, "summary": summary.getvalue().strip(),
+           "counts": _counts(), "expected": expected, "mesh": result["mesh"]}
+    out["by_card"] = {f"{sym}@{i}": c - before.get((sym, i), 0) for (sym, i), c in launches_by_device.items()
+                      if c != before.get((sym, i), 0)}
+    if out["counts"] != expected or set(out["by_card"]) - {f"{K1_SYMBOL}@{dev.index}", f"{K6_SYMBOL}@{dev.index}"}:
+        raise AssertionError(f"rank {rank}: the dry run launched {out['counts']} ({out['by_card']}), the code "
+                             f"predicts {expected} on card {dev.index}")
+    out.update({k: result[k] for k in ("loss_all", "loss_cad", "notes_per_step") if k in result})
+    out["partitioned"] = result["partitioned"]
+    if rank == 0:
+        out.update({k: result[k] for k in ("params_max_abs", "delta_norm", "delta_norm_unsharded",
+                                           "loss_all_unsharded", "loss_cad_unsharded")})
+
+    # the sharded step alone: timed, traced, its gradients' all-reduce timed alone
+    mesh = tmesh.make_mesh(world, slots=CARDS_SLOTS, device="cuda")
+    hosts = dist.new_group(backend="gloo")  # a barrier of the hosts alone: it launches no kernel on the cards
+
+    def aligned():
+        """Every rank here, its card idle, before a profiler window's work: the
+        profiler starts in each rank at its own pace, and an NCCL kernel
+        would count the wait for the last one as device time."""
+        torch.cuda.synchronize()
+        dist.barrier(group=hosts)
+
+    sampler = dryrun.build_sampler(cfg.num_notes, cfg.subgraph, cfg.graphs // mesh.num_slots, tasks=cfg.tasks)
+    stacked = tmesh.stack_batches([sampler.sample_batch(device="cpu") for _ in range(mesh.num_slots)])
+    slots = tmesh.shard_stacked_batch(stacked, mesh)
+    opt = ClippedAdamW(lambda _step: PARITY_LR)
+    state = tmesh.shard_train_state(create_train_state(model, len(cfg.tasks), opt, 1), model, mesh)
+    step = tmesh.make_sharded_train_step(
+        model, opt, StepConfig(task_dict=cfg.tasks, active_tasks=tuple(t for t, _ in cfg.tasks)), mesh)
+    step(state, slots)
+    step_ms = []
+    for _ in range(CARDS_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, loss = step(state, slots)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    if not torch.isfinite(loss):
+        raise AssertionError(f"rank {rank}: the sharded step's loss is {float(loss)}")
+    wall = {}
+
+    def traced_step():
+        aligned()
+        t = time.perf_counter()
+        step(state, slots)
+        torch.cuda.synchronize()
+        wall["ms"] = (time.perf_counter() - t) * 1e3
+
+    kernels = [e for e in _cuda_window(traced_step) if not e.is_user_annotation]
+    nccl = [e for e in kernels if "nccl" in e.key.lower()]
+    out.update({"step_ms": statistics.median(step_ms), "step_ms_all": step_ms, "wall_ms": wall["ms"],
+                "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+                "launches": sum(e.count for e in kernels),
+                "nccl": {e.key[:60]: (e.count, e.self_device_time_total / 1e3) for e in nccl}})
+    out["compute_busy_ms"] = out["busy_ms"] - sum(e.self_device_time_total for e in nccl) / 1e3
+    packed = torch.zeros(state.params.layout.total + len(cfg.tasks) + 1, device=dev)
+    out["allreduce_bytes"] = packed.numel() * 4
+    out["allreduce_ms"] = cuda_ms(lambda: dist.all_reduce(packed, group=mesh.data_group))
+    reduce = [e for e in _cuda_window(lambda: [aligned()] + [dist.all_reduce(packed, group=mesh.data_group)
+                                                             for _ in range(20)])
+              if "nccl" in e.key.lower()]
+    out["allreduce_device_ms"] = sum(e.self_device_time_total for e in reduce) / 1e3 / 20
+    out["allreduce_bound_ms"] = 2 * (data - 1) / data * out["allreduce_bytes"] / NVLINK_BYTES_PER_S * 1e3
+
+    # the end halos of regime 2 across the ranks, at the dry run's shape: D_local partitions of N_local rows
+    p = result["partitioned"]
+    halo, n_local = p["regime2_halo"], -(-p["notes"] // p["partitions"])
+    x = torch.randn(parts_here, n_local, cfg.hidden, generator=torch.Generator().manual_seed(rank)).to(dev)
+    plan, group = HaloPlan(x, halo), dist.group.WORLD
+    buf = torch.empty(plan.out_shape, device=dev)
+    got = halo_pull_across_ranks(x, halo, group, out=buf, plan=plan).clone()
+    if not torch.equal(got, halo_pull_across_ranks_plain(x, halo, group)):
+        raise AssertionError(f"rank {rank}: the end-halo exchange differs from its plain version")
+    out.update({"halo": halo, "d_local": parts_here, "n_local": n_local,
+                **{f"exchange_{k}": v for k, v in cuda_ms_turns({
+                    "ms": lambda: halo_pull_across_ranks(x, halo, group, out=buf, plan=plan),
+                    "plain_ms": lambda: halo_pull_across_ranks_plain(x, halo, group)}).items()}})
+    # the bytes each rank sends to a neighbour (H rows of F floats) over NVLink, one direction
+    out["exchange_bound_ms"] = halo * cfg.hidden * 4 / NVLINK_BYTES_PER_S * 1e3
+    return out
+
+
+def _nccl_transports(log_dir: str) -> dict:
+    """How NCCL's channels connected the ranks: the counts of each transport
+    named by the ``... via <transport>`` lines of NCCL_DEBUG=INFO logs."""
+    seen = collections.Counter()
+    for name in os.listdir(log_dir):
+        if name.startswith("nccl."):
+            with open(os.path.join(log_dir, name), errors="replace") as f:
+                for line in f:
+                    if " via " in line:
+                        seen[line.split(" via ", 1)[1].split()[0]] += 1
+    return dict(seen)
+
+
+def cards_dryrun(cards: int) -> dict:
+    """Phase (d): ``_cards_rank`` on ``cards`` NCCL ranks, one a card, started
+    by ``distributed/launch.py::spawn`` after K1, K6 and csrc/graphbuild.cpp
+    are built here; NCCL's channels read from its INFO logs."""
+    from analysisgnn_tpu_torch.distributed.dryrun import RANK_SOURCES
+    from analysisgnn_tpu_torch.distributed.launch import spawn
+
+    with tempfile.TemporaryDirectory() as logs:
+        env = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_FILE": f"{logs}/nccl.%h.%p.log"}
+        set_here = {k: v for k, v in env.items() if k not in os.environ}
+        os.environ.update(set_here)
+        t = time.perf_counter()
+        try:
+            ranks = spawn(_cards_rank, cards, "nccl", CARDS_TIMEOUT_S, cards, sources=RANK_SOURCES["nccl"])
+        finally:
+            for k in set_here:
+                os.environ.pop(k)
+        seconds = time.perf_counter() - t
+        transports = _nccl_transports(logs)
+    r0 = ranks[0]
+    phase(f"cards: {r0['summary']}")
+    phase(f"cards: dryrun_multichip({cards}, slots_per_rank={CARDS_SLOTS}) over NCCL, mesh {r0['mesh']}, in "
+          f"{seconds:.1f} s with the ranks' start (the dry run {max(r['dryrun_s'] for r in ranks):.1f} s on the "
+          f"slowest rank); NCCL's channels: "
+          + (", ".join(f"{k} x{v}" for k, v in sorted(transports.items())) or "no 'via' line in its logs"))
+    for r in ranks:
+        phase(f"cards: rank {r['rank']} on card {r['card']}: K1 {r['counts']['segment_mean_base']} and K6 "
+              f"{r['counts']['halo_pull']} launches, as the code predicts ({r['by_card']}); a sharded step "
+              f"{r['step_ms']:.2f} ms (median of {CARDS_TIMED_STEPS}: {', '.join(f'{v:.1f}' for v in r['step_ms_all'])}); "
+              f"one traced step busy {r['busy_ms']:.2f} of {r['wall_ms']:.2f} ms ({100 * r['busy_ms'] / r['wall_ms']:.1f}%), "
+              f"{r['launches']} kernel launches, the kernels other than NCCL's {r['compute_busy_ms']:.2f} ms "
+              f"({100 * r['compute_busy_ms'] / r['step_ms']:.1f}% of the median step), NCCL's "
+              + ("; ".join(f"{k} x{c} {ms:.4f} ms" for k, (c, ms) in r["nccl"].items()) or "none")
+              + f"; the gradients' all-reduce alone ({r['allreduce_bytes']} bytes over the data group) "
+              f"{r['allreduce_ms']:.4f} ms a call, {r['allreduce_device_ms']:.4f} ms on the device, NVLink bound "
+              f"{r['allreduce_bound_ms']:.4f} ms; the end-halo exchange (D_local {r['d_local']}, N_local "
+              f"{r['n_local']}, H {r['halo']}) {r['exchange_ms']:.4f} ms a call against the plain all-gather's "
+              f"{r['exchange_plain_ms']:.4f} ms, in turns (bound {r['exchange_bound_ms']:.6f} ms)")
+    return {"ranks": ranks, "seconds": seconds, "transports": transports}
+
+
+def cards_main(cards: int) -> None:
+    """``python3 chip_smoke.py --cards N``: only what needs several cards,
+    phases (a)-(d), then the closing lines."""
+    smi = cards_environment(cards)
+    build_kernels()
+    phase("build: done")
+    checks = card_kernel_checks(cards)
+    with tempfile.TemporaryDirectory() as tmp:
+        served = cards_serve(cards, tmp)
+    dry = cards_dryrun(cards)
+    r = dry["ranks"][0]
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    k6 = check_k6(f"regime 2's shape across {cards} ranks", torch.randn(r["d_local"], r["n_local"], 256,
+                                                                        generator=gen).cuda(), r["halo"], timed=True)
+    k1 = served["k1"]
+    k1_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
+    first = served["rows"][CARDS_NOTES[0]]
+    kernels = [{
+        "name": "segment_mean_base", "route": "cuda", "source": "analysisgnn_tpu_torch/csrc/segment_mean_base.cu",
+        "replaces": "analysisgnn_tpu/kernels/pallas_segment.py:263", "launches": sum(first["k1_launches"]),
+        "max_abs_err": max(k1["max_abs_err"], max(c["max_abs_err"]["K1"] for c in checks.values())),
+        **{k: k1[k] for k in k1_keys}, "shape": f"{k1['case']}: E={k1['E']} (valid {k1['E_valid']}) F={k1['F']} "
+                                                f"S={k1['S']}, timed on card 0",
+        "launches_by_card": {str(n): row["k1_launches"] for n, row in served["rows"].items()},
+        "dryrun_launches_by_rank": [x["counts"]["segment_mean_base"] for x in dry["ranks"]],
+    }, {
+        "name": "halo_pull", "route": "cuda", "source": "analysisgnn_tpu_torch/csrc/halo_pull.cu",
+        "replaces": "analysisgnn_tpu/kernels/halo.py:97",
+        "launches": sum(x["counts"]["halo_pull"] for x in dry["ranks"]),
+        "max_abs_err": 0.0, **{k: k6[k] for k in k1_keys}, "alloc_ms": k6["alloc_ms"],
+        "shape": f"D={k6['D']} N_local={k6['N_local']} H={k6['H']} F={k6['F']}, a rank's partitions, timed on card 0",
+        "dryrun_launches_by_rank": [x["counts"]["halo_pull"] for x in dry["ranks"]],
+        "exchange_ms_by_rank": [x["exchange_ms"] for x in dry["ranks"]],
+        "exchange_plain_ms_by_rank": [x["exchange_plain_ms"] for x in dry["ranks"]],
+    }]
+    phase(f"cards: done; {CARDS_PARTITIONS} partitions of {CARDS_NOTES[0]} notes over {cards} cards "
+          f"{first['spread_ms']:.1f} ms a warm request against {first['one_card_ms']:.1f} ms on one card; a sharded "
+          f"step {statistics.median(x['step_ms'] for x in dry['ranks']):.2f} ms (median over the ranks)")
+    phase(f"all phases passed in {time.perf_counter() - T0:.1f}s")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> None:
     smi = environment()
     from analysisgnn_tpu_torch.core.graph import NOTE
@@ -4432,4 +4998,14 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cards", type=int, default=None,
+                    help="run only the phases across N cards (a)-(d) (python3 chip_smoke.py --cards 4); fails "
+                         "unless N cards are visible")
+    args = ap.parse_args()
+    if args.cards is None:
+        main()
+    else:
+        cards_main(args.cards)
