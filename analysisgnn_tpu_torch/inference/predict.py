@@ -55,31 +55,40 @@ def graph_from_note_array(
     bucket_factor: Optional[float] = None,
     device: "str | torch.device" = "cpu",
 ) -> HeteroGraph:
-    feats = select_features(note_array, feature_type)
-    g = build_score_graph(note_array, measures=measures, add_beats=add_beats, add_measures=add_measures)
-    features = {NOTE: feats}
-    if add_beats:
-        features["beat"] = np.zeros((max(g.num_beats, 1), feats.shape[1]), np.float32)
-    if add_measures:
-        features["measure"] = np.zeros((max(g.num_measures, 1), feats.shape[1]), np.float32)
-    attrs = {
-        "pitch_spelling": PitchEncoder().encode(note_array).astype(np.int64),
-        "key_signature": KeySignatureEncoder().encode(note_array).astype(np.int64),
-        "onset_div": note_array["onset_div"].astype(np.int64),
-    }
-    node_capacity = edge_capacity = None
-    if bucket_factor and bucket_factor > 1.0:
-        node_capacity = {t: bucket_capacity(x.shape[0], bucket_factor) for t, x in features.items()}
-        edge_capacity = {et: bucket_capacity(ei.shape[1], bucket_factor) for et, ei in g.edges.items()}
-    return HeteroGraph.from_numpy(
-        features,
-        g.edges,
-        node_attrs={NOTE: attrs},
-        num_target_nodes=len(note_array),
-        node_capacity=node_capacity,
-        edge_capacity=edge_capacity,
-        device=device,
-    )
+    """The score's graph on ``device``, padded to the capacity ladder's rungs
+    under ``bucket_factor``.  Its three stages are spans of a
+    ``torch.profiler`` trace: ``predict.graph.features`` (the note features
+    and the pitch-spelling and key-signature encodings),
+    ``predict.graph.edges`` (the edge build) and ``predict.graph.stage``
+    (padding and the copy to ``device``)."""
+    with record_function("predict.graph.features"):
+        feats = select_features(note_array, feature_type)
+        attrs = {
+            "pitch_spelling": PitchEncoder().encode(note_array).astype(np.int64),
+            "key_signature": KeySignatureEncoder().encode(note_array).astype(np.int64),
+            "onset_div": note_array["onset_div"].astype(np.int64),
+        }
+    with record_function("predict.graph.edges"):
+        g = build_score_graph(note_array, measures=measures, add_beats=add_beats, add_measures=add_measures)
+    with record_function("predict.graph.stage"):
+        features = {NOTE: feats}
+        if add_beats:
+            features["beat"] = np.zeros((max(g.num_beats, 1), feats.shape[1]), np.float32)
+        if add_measures:
+            features["measure"] = np.zeros((max(g.num_measures, 1), feats.shape[1]), np.float32)
+        node_capacity = edge_capacity = None
+        if bucket_factor and bucket_factor > 1.0:
+            node_capacity = {t: bucket_capacity(x.shape[0], bucket_factor) for t, x in features.items()}
+            edge_capacity = {et: bucket_capacity(ei.shape[1], bucket_factor) for et, ei in g.edges.items()}
+        return HeteroGraph.from_numpy(
+            features,
+            g.edges,
+            node_attrs={NOTE: attrs},
+            num_target_nodes=len(note_array),
+            node_capacity=node_capacity,
+            edge_capacity=edge_capacity,
+            device=device,
+        )
 
 
 def _ids_from_logits(
@@ -198,7 +207,10 @@ def predict_score_ids(
             logits, graph.edges((NOTE, "onset", NOTE)), torch.from_numpy(rep_padded).to(param_dev), n
         )
         keys = sorted(t for t, _ in model.task_dict)
-        return _smooth_ids_host(stacked.cpu().numpy(), keys, uniq, onsets, u, n, tasks)
+        # the host waits here for the card's forward and decode
+        with record_function("predict.decode.fetch"):
+            stacked = stacked.cpu()
+        return _smooth_ids_host(stacked.numpy(), keys, uniq, onsets, u, n, tasks)
 
 
 def onsetwise_smooth(

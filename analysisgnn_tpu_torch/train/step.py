@@ -22,6 +22,13 @@ parameters, which the optimizer keeps in float32 with its moments.  The
 feature loss is taken on the f32 embeddings.  ``torch.autocast`` is not
 used: its op-by-op dtype policy is not the JAX cast.  The train, eval and
 fisher steps cast; the test step runs in float32, as the JAX test step does.
+
+The train step's stages are spans of a ``torch.profiler`` trace, each opened
+once a step, in this order: ``step.forward`` (the model's encode and
+classify), ``step.losses`` (the loss assembly, the EWC term and the sum),
+``step.backward``, ``step.sync`` (the NaN/Inf check, where the host waits for
+the card) and ``step.optimizer``.  The eval and fisher steps open the first
+two.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph
 from analysisgnn_tpu_torch.models.analysis import restrict_edges_to_targets
@@ -153,72 +161,82 @@ def compute_losses(
     0); the FAMO surrogate needs ``famo`` (else the total is the plain
     combiner's).  SMOTE runs in training only (``deterministic`` False), its
     draws from ``generator``, as the JAX step draws from its dropout key."""
+    with _loss_stages(model, mt_params, batch, cfg, deterministic, generator, teacher, famo) as out:
+        return out
+
+
+@contextlib.contextmanager
+def _loss_stages(model, mt_params, batch, cfg, deterministic, generator, teacher, famo):
+    """:func:`compute_losses` as two stages, each a span of a
+    ``torch.profiler`` trace: the model's encode and classify under
+    ``step.forward``, then the loss assembly under ``step.losses``, which
+    stays open over the caller's block (the train step adds its sum and EWC
+    term there).  The block gets ``compute_losses``'s tuple."""
     dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     with cast_parameters(model, dtype), cast_parameters(teacher, dtype):
-        return _compute_losses(model, mt_params, batch, cfg, deterministic, generator, teacher, famo, dtype)
-
-
-def _compute_losses(model, mt_params, batch, cfg, deterministic, generator, teacher, famo, dtype):
-    task_sizes = dict(cfg.task_dict)
-    attrs = batch.node_attrs[NOTE]
-    base_w, task_w = _task_weights(batch, cfg)
-    features = {t: v.to(dtype) if v.dtype == torch.float32 else v for t, v in batch.node_features.items()}
-    args = (features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"], batch.num_target_nodes)
-    x = model.encode(*args, deterministic, generator, batch.batch)
-    # feature-norm regularizer over the valid target rows
-    fw = base_w.float()
-    feature_loss = ((x.float() ** 2).sum(-1) * fw).sum() / (fw.sum() * x.shape[-1]).clamp_min(1.0)
-    logits = model.classify(x, deterministic, generator)
-    # SMOTE in embedding space for single-task cadence training: synthetic
-    # minority rows add a CE term, and their distance penalty joins the feature loss
-    smote = None
-    if cfg.use_smote and cfg.active_tasks == ("cadence",) and not deterministic and "cadence" in attrs:
-        n_cls = task_sizes["cadence"]
-        y = torch.where(attrs["cadence"] < n_cls, attrs["cadence"], 0)
-        draws = smote_draws(y, base_w, n_cls, cfg.smote_synthetic, x.shape[1], generator)
-        x_syn, y_syn, w_syn = smote_oversample(x, y, base_w, n_cls, draws)
-        feature_loss = feature_loss + smote_feature_penalty(x_syn, w_syn, x, y, y_syn, base_w)
-        smote = x_syn, y_syn, w_syn
-    task_losses: Dict[str, torch.Tensor] = {}
-    metrics: Dict[str, torch.Tensor] = {}
-    for task in cfg.active_tasks:
-        n_cls = task_sizes[task]
-        labels = attrs[task]
-        labels = torch.where(labels < n_cls, labels, 0)  # out-of-range labels -> 0
-        w = task_w[task]
-        task_losses[task] = masked_cross_entropy(logits[task], labels, w, cfg.label_smoothing)
-        if task == "cadence" and smote is not None:
-            x_syn, y_syn, w_syn = smote
-            syn_logits = model.classify(x_syn, deterministic, generator)["cadence"]
-            task_losses[task] = 0.5 * task_losses[task] + 0.5 * masked_cross_entropy(
-                syn_logits, y_syn, w_syn, cfg.label_smoothing)
-        metrics[f"{task}_acc"] = masked_accuracy(logits[task], labels, w)
-        metrics[f"{task}_acc__w"] = w.sum().float()
-    task_order = tuple(t for t, _ in cfg.task_dict)
-    if cfg.mt_strategy == "famo" and famo is not None:
-        zero = x.new_zeros(())
-        loss_vec = torch.stack([task_losses.get(t, zero) for t in task_order])
-        mask = torch.tensor([t in task_losses for t in task_order], device=x.device)
-        total = famo_weighted_loss(famo, loss_vec, mask)
-    else:
-        # the weighted task losses are summed, NOT divided by the task count
-        total = multi_task_loss(task_losses, mt_params, task_order, cfg.mt_strategy)
-    if cfg.use_edge_loss and all(k in attrs for k in EDGE_LOSS_RNA_KEYS):
-        edge_loss = _edge_loss(model, x, batch, cfg, deterministic, generator)
-        if edge_loss is not None:
-            total = total + edge_loss
-            metrics["edge_loss"] = edge_loss
-    memory_loss = x.new_zeros((), dtype=torch.float32)
-    if teacher is not None and cfg.previous_tasks and cfg.lambda_dctn > 0:
-        # the student's heads read the TEACHER's embedding, so the memory
-        # loss reaches the heads and never the encoder
-        with torch.no_grad():
-            x_t = teacher.encode(*args, True, batch=batch.batch)
-            teacher_logits = teacher.classify(x_t)
-        memory_loss = cfg.lambda_dctn * distillation_loss(
-            model.classify(x_t, deterministic, generator), teacher_logits, base_w, cfg.previous_tasks
-        )
-    return total, feature_loss, memory_loss, task_losses, metrics
+        task_sizes = dict(cfg.task_dict)
+        attrs = batch.node_attrs[NOTE]
+        features = {t: v.to(dtype) if v.dtype == torch.float32 else v for t, v in batch.node_features.items()}
+        args = (features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"], batch.num_target_nodes)
+        with record_function("step.forward"):
+            x = model.encode(*args, deterministic, generator, batch.batch)
+            logits = model.classify(x, deterministic, generator)
+        with record_function("step.losses"):
+            base_w, task_w = _task_weights(batch, cfg)
+            # feature-norm regularizer over the valid target rows (it draws
+            # nothing, so taking it after the heads moves no dropout draw)
+            fw = base_w.float()
+            feature_loss = ((x.float() ** 2).sum(-1) * fw).sum() / (fw.sum() * x.shape[-1]).clamp_min(1.0)
+            # SMOTE in embedding space for single-task cadence training: synthetic
+            # minority rows add a CE term, and their distance penalty joins the feature loss
+            smote = None
+            if cfg.use_smote and cfg.active_tasks == ("cadence",) and not deterministic and "cadence" in attrs:
+                n_cls = task_sizes["cadence"]
+                y = torch.where(attrs["cadence"] < n_cls, attrs["cadence"], 0)
+                draws = smote_draws(y, base_w, n_cls, cfg.smote_synthetic, x.shape[1], generator)
+                x_syn, y_syn, w_syn = smote_oversample(x, y, base_w, n_cls, draws)
+                feature_loss = feature_loss + smote_feature_penalty(x_syn, w_syn, x, y, y_syn, base_w)
+                smote = x_syn, y_syn, w_syn
+            task_losses: Dict[str, torch.Tensor] = {}
+            metrics: Dict[str, torch.Tensor] = {}
+            for task in cfg.active_tasks:
+                n_cls = task_sizes[task]
+                labels = attrs[task]
+                labels = torch.where(labels < n_cls, labels, 0)  # out-of-range labels -> 0
+                w = task_w[task]
+                task_losses[task] = masked_cross_entropy(logits[task], labels, w, cfg.label_smoothing)
+                if task == "cadence" and smote is not None:
+                    x_syn, y_syn, w_syn = smote
+                    syn_logits = model.classify(x_syn, deterministic, generator)["cadence"]
+                    task_losses[task] = 0.5 * task_losses[task] + 0.5 * masked_cross_entropy(
+                        syn_logits, y_syn, w_syn, cfg.label_smoothing)
+                metrics[f"{task}_acc"] = masked_accuracy(logits[task], labels, w)
+                metrics[f"{task}_acc__w"] = w.sum().float()
+            task_order = tuple(t for t, _ in cfg.task_dict)
+            if cfg.mt_strategy == "famo" and famo is not None:
+                zero = x.new_zeros(())
+                loss_vec = torch.stack([task_losses.get(t, zero) for t in task_order])
+                mask = torch.tensor([t in task_losses for t in task_order], device=x.device)
+                total = famo_weighted_loss(famo, loss_vec, mask)
+            else:
+                # the weighted task losses are summed, NOT divided by the task count
+                total = multi_task_loss(task_losses, mt_params, task_order, cfg.mt_strategy)
+            if cfg.use_edge_loss and all(k in attrs for k in EDGE_LOSS_RNA_KEYS):
+                edge_loss = _edge_loss(model, x, batch, cfg, deterministic, generator)
+                if edge_loss is not None:
+                    total = total + edge_loss
+                    metrics["edge_loss"] = edge_loss
+            memory_loss = x.new_zeros((), dtype=torch.float32)
+            if teacher is not None and cfg.previous_tasks and cfg.lambda_dctn > 0:
+                # the student's heads read the TEACHER's embedding, so the memory
+                # loss reaches the heads and never the encoder
+                with torch.no_grad():
+                    x_t = teacher.encode(*args, True, batch=batch.batch)
+                    teacher_logits = teacher.classify(x_t)
+                memory_loss = cfg.lambda_dctn * distillation_loss(
+                    model.classify(x_t, deterministic, generator), teacher_logits, base_w, cfg.previous_tasks
+                )
+            yield total, feature_loss, memory_loss, task_losses, metrics
 
 
 def _edge_loss(model, x, batch, cfg, deterministic, generator) -> Optional[torch.Tensor]:
@@ -256,27 +274,29 @@ def make_train_step(
 
     def step_body(state: TrainState, batch: HeteroGraph) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         trainables = [*params, state.mt_params]
-        total, feature_loss, memory_loss, task_losses, metrics = compute_losses(
-            model, state.mt_params, batch, cfg, False, state.generator, teacher=state.teacher, famo=state.famo
-        )
-        loss = total + memory_loss + cfg.lambda_featl * feature_loss
-        if cfg.use_ewc:
-            loss = loss + cfg.lambda_ewc * ewc_penalty(params, state.means, state.fisher)
-        grads = torch.autograd.grad(loss, trainables, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainables, grads)]
+        with _loss_stages(model, state.mt_params, batch, cfg, False, state.generator, state.teacher,
+                          state.famo) as (total, feature_loss, memory_loss, task_losses, metrics):
+            loss = total + memory_loss + cfg.lambda_featl * feature_loss
+            if cfg.use_ewc:
+                loss = loss + cfg.lambda_ewc * ewc_penalty(params, state.means, state.fisher)
+        with record_function("step.backward"):
+            grads = torch.autograd.grad(loss, trainables, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainables, grads)]
         # NaN/Inf-loss skip: params, mt_params, the optimizer and FAMO's state
         # stay as they were; the step count and the generator still advance
-        finite = bool(torch.isfinite(loss))
-        if finite:
-            optimizer.update(trainables, grads, state.opt_state)
-            if famo_opt is not None and state.famo is not None:
-                # the task logits move on this step's losses against the
-                # previous step's, then this step's become the anchor
-                zero = loss.new_zeros(())
-                curr = torch.stack([task_losses.get(t, zero).detach() for t in task_order])
-                famo_update(state.famo, famo_opt, curr)
-                active = torch.tensor([t in cfg.active_tasks for t in task_order], device=curr.device)
-                state.famo.prev_loss = torch.where(active, curr, state.famo.prev_loss)
+        with record_function("step.sync"):
+            finite = bool(torch.isfinite(loss))
+        with record_function("step.optimizer"):
+            if finite:
+                optimizer.update(trainables, grads, state.opt_state)
+                if famo_opt is not None and state.famo is not None:
+                    # the task logits move on this step's losses against the
+                    # previous step's, then this step's become the anchor
+                    zero = loss.new_zeros(())
+                    curr = torch.stack([task_losses.get(t, zero).detach() for t in task_order])
+                    famo_update(state.famo, famo_opt, curr)
+                    active = torch.tensor([t in cfg.active_tasks for t in task_order], device=curr.device)
+                    state.famo.prev_loss = torch.where(active, curr, state.famo.prev_loss)
         state.step += 1
         aux = {
             "total_loss": loss,

@@ -866,7 +866,9 @@ def trace(model, notes: int, top: int = 10) -> None:
     # host side of each stage span (each span also has a device-side range, without host time)
     spans = {e.key: e.cpu_time_total / 1e3 for e in events
              if e.key.startswith("predict.") and e.device_type == torch.autograd.DeviceType.CPU}
-    if sorted(spans) != ["predict.decode", "predict.forward", "predict.graph"] or min(spans.values()) <= 0:
+    stages = ["predict.decode", "predict.decode.fetch", "predict.forward", "predict.graph", "predict.graph.edges",
+              "predict.graph.features", "predict.graph.stage"]
+    if sorted(spans) != stages or min(spans.values()) <= 0:
         raise AssertionError(f"the profiled request lacks its stage spans: {spans}")
     # kernel entries only: CPU ops and the spans' device-side ranges (user annotations) would count the same
     # time again
