@@ -520,7 +520,7 @@ def metrical_links(links: torch.Tensor, num_notes: int, num_rows: int,
     links = links.long()
     if batch_ids is None:
         starts = torch.zeros(num_rows, dtype=torch.bool, device=links.device)
-        starts[0] = True
+        starts[0].fill_(True)
     else:
         starts = segment_starts(batch_ids)
     return MetricalLinks(num_rows, _links(links[0], links[1], num_notes, num_rows),

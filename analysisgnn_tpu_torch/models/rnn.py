@@ -61,7 +61,7 @@ class FlaxGRU(nn.GRU):
 def segment_starts(batch_ids: torch.Tensor) -> torch.Tensor:
     """``[T]`` bool: True where a new segment (graph) begins, padding included."""
     starts = batch_ids != torch.roll(batch_ids, 1)
-    starts[0] = True
+    starts[0].fill_(True)  # a fill on the card, where ``starts[0] = True`` copies a host scalar
     return starts
 
 
@@ -169,7 +169,7 @@ class AssocResetGRU(nn.Module):
         ``reverse``)."""
         if self.reverse:
             resets = torch.roll(starts, -1)
-            resets[-1] = True
+            resets[-1].fill_(True)
             xs, resets = xs.flip(0), resets.flip(0)
         else:
             resets = starts

@@ -14,7 +14,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 from collections.abc import Mapping
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,11 +28,39 @@ from analysisgnn_tpu_torch.train.losses import FAMOState, famo_init, init_mt_par
 B1, B2, WEIGHT_DECAY, CLIP_NORM = 0.9, 0.999, 5e-3, 1.0
 
 
-@dataclasses.dataclass
 class AdamWState:
-    count: int  # updates applied (the schedule's step and Adam's bias correction)
-    mu: List[torch.Tensor]
-    nu: List[torch.Tensor]
+    """Both Adam moments and ``count``, the updates applied (the schedule's
+    step and Adam's bias correction).
+
+    A replayed train step (``train/graphed.py``) decides on the card whether
+    its update applied and sends that flag to the host without waiting for
+    it (:meth:`defer_count`); ``count`` adds it when read, so any reader
+    between steps gets the exact count."""
+
+    def __init__(self, count: int, mu: List[torch.Tensor], nu: List[torch.Tensor]):
+        self._count = count
+        self.mu, self.nu = mu, nu
+        self._pending = None  # (pinned bool flag, event after its copy) of a replayed step
+
+    @property
+    def count(self) -> int:
+        if self._pending is not None:
+            flag, copied = self._pending
+            self._pending = None
+            copied.synchronize()
+            self._count += int(flag)
+        return self._count
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._pending = None
+        self._count = value
+
+    def defer_count(self, flag: torch.Tensor, copied) -> None:
+        """One more update if ``flag`` (a pinned host bool, written by a copy
+        that the event ``copied`` follows) reads true once it has arrived."""
+        self._count = self.count  # an older flag first
+        self._pending = (flag, copied)
 
 
 class ClippedAdamW:
@@ -63,6 +91,11 @@ class ClippedAdamW:
     def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
         return AdamWState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
 
+    def rates(self, count: int) -> Tuple[float, float, float]:
+        """The scheduled rate at ``count`` and the bias corrections ``1 -
+        B1**(count + 1)``, ``1 - B2**(count + 1)`` of the update it scales."""
+        return self.lr_schedule(count), 1.0 - B1 ** (count + 1), 1.0 - B2 ** (count + 1)
+
     @torch.no_grad()
     def update(
         self,
@@ -70,12 +103,31 @@ class ClippedAdamW:
         grads: Sequence[torch.Tensor],
         state: AdamWState,
         global_norm: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None,
+        finite: Optional[torch.Tensor] = None,
+        rates: Optional[torch.Tensor] = None,
     ) -> None:
         """One update of ``params`` and ``state``, in place.  ``global_norm``
         replaces the clip's norm of ``grads`` where they are a part of the
         tree: the tensor-parallel step (``distributed/mesh.py``) passes one that
-        adds the other model ranks' shards."""
+        adds the other model ranks' shards.
+
+        ``finite`` (a 0-d bool tensor on the parameters' device) gates the
+        update on the card, with no host read: where it reads false, every
+        parameter and both moments stay bitwise as they were.  The gradients
+        become negative zeros, which leave a moment as it is; the moments'
+        factors become 1 (``nu`` is never a negative zero); the direction
+        becomes a positive zero, which leaves a parameter as it is.  Where it
+        reads true the arithmetic is the ungated update's, bit for bit.
+        ``rates``, a device tensor ``[lr, 1 - B1**(count + 1), 1 - B2**(count
+        + 1)]`` (:meth:`rates`), replaces the scalars the host computes from
+        ``state.count``: a captured CUDA graph reads them there on every
+        replay; the rate then scales the direction before the subtraction,
+        one rounding more than the fused ungated form.  With ``finite`` or
+        ``rates`` the caller advances ``state.count``: only the caller
+        learns the flag."""
         params, grads = list(params), list(grads)
+        if finite is not None:
+            grads = [torch.where(finite, g, -0.0) for g in grads]
         if self.clip_norm is not None:
             if global_norm is None:
                 norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
@@ -83,18 +135,26 @@ class ClippedAdamW:
                 norm = global_norm(grads)
             scale = torch.where(norm < self.clip_norm, 1.0, self.clip_norm / norm)
             grads = torch._foreach_mul(grads, scale)
-        count = state.count + 1
-        torch._foreach_mul_(state.mu, B1)
+        lr, bc1, bc2 = self.rates(state.count) if rates is None else rates.unbind()
+        if finite is None and rates is None:
+            state.count += 1
+        b1, b2 = (B1, B2) if finite is None else (torch.where(finite, B1, 1.0), torch.where(finite, B2, 1.0))
+        torch._foreach_mul_(state.mu, b1)
         torch._foreach_add_(state.mu, grads, alpha=1.0 - B1)
-        torch._foreach_mul_(state.nu, B2)
+        torch._foreach_mul_(state.nu, b2)
         torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - B2)
-        mu_hat = torch._foreach_div(state.mu, 1.0 - B1**count)
-        denom = torch._foreach_sqrt(torch._foreach_div(state.nu, 1.0 - B2**count))
+        mu_hat = torch._foreach_div(state.mu, bc1)
+        denom = torch._foreach_sqrt(torch._foreach_div(state.nu, bc2))
         torch._foreach_add_(denom, self.eps)
         direction = torch._foreach_div(mu_hat, denom)
         torch._foreach_add_(direction, params, alpha=self.weight_decay)
-        torch._foreach_add_(params, direction, alpha=-self.lr_schedule(state.count))
-        state.count = count
+        if finite is not None:
+            direction = [torch.where(finite, d, 0.0) for d in direction]
+        if isinstance(lr, torch.Tensor):
+            torch._foreach_mul_(direction, lr)
+            torch._foreach_sub_(params, direction)
+        else:
+            torch._foreach_add_(params, direction, alpha=-lr)
 
 
 def make_optimizer(

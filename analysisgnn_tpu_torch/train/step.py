@@ -28,7 +28,10 @@ once a step, in this order: ``step.forward`` (the model's encode and
 classify), ``step.losses`` (the loss assembly, the EWC term and the sum),
 ``step.backward``, ``step.sync`` (the NaN/Inf check, where the host waits for
 the card) and ``step.optimizer``.  The eval and fisher steps open the first
-two.
+two.  Where the train step is replayed as a CUDA graph
+(``train/graphed.py``), the five open only while a graph is captured, inside
+``step.capture``; a replaying call opens ``step.replay`` alone and never
+waits for the card.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from torch.profiler import record_function
 
 from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph
 from analysisgnn_tpu_torch.models.analysis import restrict_edges_to_targets
+from analysisgnn_tpu_torch.train.graphed import GraphedStep
 from analysisgnn_tpu_torch.train.losses import (
     FAMOState,
     distillation_loss,
@@ -263,16 +267,36 @@ def _edge_loss(model, x, batch, cfg, deterministic, generator) -> Optional[torch
     return cfg.lambda_edge * torch.stack(losses).mean() if losses else None
 
 
+def graph_safe(model: nn.Module, cfg: StepConfig) -> bool:
+    """Whether the train step of ``model`` under ``cfg`` may be captured as a
+    CUDA graph (:mod:`analysisgnn_tpu_torch.train.graphed`): no stage of it
+    reads the card's results on the host.  SMOTE, the distillation teacher,
+    FAMO, EWC and the edge loss stay eager, and so does a model that holds a
+    packed ``nn.GRU`` (the segment GRUs of ``models/rnn.py``, which read
+    their segment lengths on the host)."""
+    if cfg.use_smote or cfg.use_ewc or cfg.use_edge_loss or cfg.mt_strategy == "famo":
+        return False
+    if cfg.previous_tasks and cfg.lambda_dctn > 0:
+        return False
+    return not any(isinstance(m, nn.RNNBase) for m in model.modules())
+
+
 def make_train_step(
     model: nn.Module, optimizer: ClippedAdamW, cfg: StepConfig
 ) -> Callable[[TrainState, HeteroGraph], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, aux)``: one optimizer update of the
-    model's parameters (in place) and of ``state``."""
+    model's parameters (in place) and of ``state``.
+
+    Where the step is :func:`graph_safe` it is a
+    :class:`~analysisgnn_tpu_torch.train.graphed.GraphedStep`: on the card,
+    from the second call of a batch signature on, a replayed CUDA graph of
+    the same step whose NaN/Inf skip is decided on the card.  Every other
+    call, and every call on CPU tensors, runs the eager step."""
     params = list(model.parameters())
     task_order = tuple(t for t, _ in cfg.task_dict)
     famo_opt = famo_init(len(task_order))[1] if cfg.mt_strategy == "famo" else None
 
-    def step_body(state: TrainState, batch: HeteroGraph) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def losses_and_grads(state: TrainState, batch: HeteroGraph):
         trainables = [*params, state.mt_params]
         with _loss_stages(model, state.mt_params, batch, cfg, False, state.generator, state.teacher,
                           state.famo) as (total, feature_loss, memory_loss, task_losses, metrics):
@@ -282,6 +306,18 @@ def make_train_step(
         with record_function("step.backward"):
             grads = torch.autograd.grad(loss, trainables, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainables, grads)]
+        aux = {
+            "total_loss": loss,
+            "task_loss": total,
+            "feature_loss": feature_loss,
+            "memory_loss": memory_loss,
+            **{f"{k}_loss": v for k, v in task_losses.items()},
+            **metrics,
+        }
+        return trainables, grads, loss, task_losses, {k: v.detach() for k, v in aux.items()}
+
+    def step_body(state: TrainState, batch: HeteroGraph) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        trainables, grads, loss, task_losses, aux = losses_and_grads(state, batch)
         # NaN/Inf-loss skip: params, mt_params, the optimizer and FAMO's state
         # stay as they were; the step count and the generator still advance
         with record_function("step.sync"):
@@ -298,19 +334,24 @@ def make_train_step(
                     active = torch.tensor([t in cfg.active_tasks for t in task_order], device=curr.device)
                     state.famo.prev_loss = torch.where(active, curr, state.famo.prev_loss)
         state.step += 1
-        aux = {
-            "total_loss": loss,
-            "task_loss": total,
-            "feature_loss": feature_loss,
-            "memory_loss": memory_loss,
-            **{f"{k}_loss": v for k, v in task_losses.items()},
-            **metrics,
-        }
-        aux = {k: v.detach() for k, v in aux.items()}
         aux["skipped_nonfinite"] = torch.tensor(0.0 if finite else 1.0, device=loss.device)
         return state, aux
 
-    return step_body
+    if not graph_safe(model, cfg):
+        return step_body
+
+    def graph_body(state: TrainState, batch: HeteroGraph, rates: torch.Tensor):
+        """The step as a CUDA graph captures it: the skip decided on the
+        card, the rate and bias corrections read from ``rates``."""
+        trainables, grads, loss, _, aux = losses_and_grads(state, batch)
+        with record_function("step.sync"):
+            finite = torch.isfinite(loss)
+        with record_function("step.optimizer"):
+            optimizer.update(trainables, grads, state.opt_state, finite=finite, rates=rates)
+        aux["skipped_nonfinite"] = (~finite).float()
+        return finite, aux
+
+    return GraphedStep(step_body, graph_body, params, optimizer.rates)
 
 
 def make_train_step_multi(
