@@ -25,6 +25,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from analysisgnn_tpu_torch.core.graph import NOTE, EdgeType, metadata, resolve_device
 from analysisgnn_tpu_torch.models.conv import sage_plan
@@ -153,7 +154,9 @@ class AnalysisGNN(nn.Module):
         encoder layers unless ``deterministic``, drawn from ``generator``.
         ``batch`` holds the per-type graph ids (``HeteroGraph.batch``); the
         ``use_rnn`` GRU needs the notes', and MetricalGNN without them runs
-        each metrical axis as one sequence."""
+        each metrical axis as one sequence.  The ``use_rnn`` tail (GRUs,
+        norm, projection) is the span ``model.rnn`` of a ``torch.profiler``
+        trace."""
         emb = torch.cat(
             [
                 x_dict[NOTE],
@@ -175,7 +178,8 @@ class AnalysisGNN(nn.Module):
         if self.use_rnn:
             if batch is None or NOTE not in batch:
                 raise ValueError("use_rnn needs the notes' graph ids (batch[NOTE]) to reset its GRU at each graph")
-            x = self.rnn_proj(self.rnn_norm(self.rnn(x, segment_starts(batch[NOTE]))))
+            with record_function("model.rnn"):
+                x = self.rnn_proj(self.rnn_norm(self.rnn(x, segment_starts(batch[NOTE]))))
         return x
 
     def classify(

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from analysisgnn_tpu_torch.core.graph import BEAT, MEASURE, NOTE, EdgeType
@@ -544,7 +545,8 @@ class MetricalConv(nn.Module):
     ``"scan"``), ``out`` over ``[sums | x_metrical | seq]``, ReLU,
     LayerNorm (``norm_0``, flax's ``LayerNorm_0``) and dropout; the result
     summed back into the notes.  ``features`` is the width of the notes and
-    of the metrical states.  Returns (note messages, new metrical states)."""
+    of the metrical states.  Returns (note messages, new metrical states).
+    A call is the span ``encoder.metrical`` of a ``torch.profiler`` trace."""
 
     def __init__(self, features: int, out: int, dropout: float = 0.0, seq_impl: str = "assoc"):
         super().__init__()
@@ -564,11 +566,12 @@ class MetricalConv(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        h_scatter = scatter_links(self.neigh(x_notes), links.to_metrical, links.num_rows)
-        h_seq = self.seq(h_scatter, links.starts)
-        h = self.norm_0(torch.relu(self.out(torch.cat([h_scatter, x_metrical, h_seq], dim=-1))))
-        h = dropout(h, self.dropout, deterministic, generator)
-        return scatter_links(h, links.to_notes, x_notes.shape[0]), h
+        with record_function("encoder.metrical"):
+            h_scatter = scatter_links(self.neigh(x_notes), links.to_metrical, links.num_rows)
+            h_seq = self.seq(h_scatter, links.starts)
+            h = self.norm_0(torch.relu(self.out(torch.cat([h_scatter, x_metrical, h_seq], dim=-1))))
+            h = dropout(h, self.dropout, deterministic, generator)
+            return scatter_links(h, links.to_notes, x_notes.shape[0]), h
 
 
 @dataclasses.dataclass(frozen=True)

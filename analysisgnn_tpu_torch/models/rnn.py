@@ -65,9 +65,17 @@ def segment_starts(batch_ids: torch.Tensor) -> torch.Tensor:
     return starts
 
 
+# calls of :func:`segment_lengths` in this process: each reads the lengths
+# on the host, so a card's caller waits there for the work queued before it
+segment_length_reads = 0
+
+
 def segment_lengths(starts: torch.Tensor) -> List[int]:
     """Lengths of the contiguous segments that ``starts`` opens (the first
-    step always opens one, as the JAX scan starts from a zero carry)."""
+    step always opens one, as the JAX scan starts from a zero carry).
+    Counted in :data:`segment_length_reads`."""
+    global segment_length_reads
+    segment_length_reads += 1
     opens = torch.nonzero(starts[1:]).flatten().add_(1).tolist()  # one host sync
     bounds = [0] + opens + [starts.shape[0]]
     return [b - a for a, b in zip(bounds[:-1], bounds[1:])]
