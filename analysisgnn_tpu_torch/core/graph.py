@@ -82,6 +82,21 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
     return dev
 
 
+# the longest run of a segment layout is rounded up to a multiple of this, so
+# batches of one capacity whose runs differ a little share one layout
+LAYOUT_RUNG = 64
+
+
+def segment_layout(ids: np.ndarray, rung: int = LAYOUT_RUNG) -> Tuple[int, int]:
+    """``(runs, steps)`` of a padded graph-id array: the number of runs of
+    equal id (the padding run of -1 counted), and the longest run rounded up
+    to a multiple of ``rung``.  A run opens where ``models/rnn.py::
+    segment_starts`` opens a segment."""
+    bounds = np.concatenate([[0], np.flatnonzero(ids[1:] != ids[:-1]) + 1, [ids.shape[0]]])
+    longest = int(np.diff(bounds).max())
+    return bounds.shape[0] - 1, -(-longest // rung) * rung
+
+
 def _padded(x: np.ndarray, cap: int) -> np.ndarray:
     n = x.shape[0]
     if cap == n:
@@ -99,7 +114,10 @@ class HeteroGraph:
     destination); ``num_nodes`` / ``num_edges`` count the valid entries;
     ``num_target_nodes`` counts the target notes, which come first;
     ``batch[t]`` is ``[N_cap]`` int64, the graph id of each node of a packed
-    batch (0 for a single graph, -1 on padding rows).
+    batch (0 for a single graph, -1 on padding rows).  ``segment_layout[t]``
+    is :func:`segment_layout` of ``batch[t]``, as host integers, where the
+    graph was staged from host arrays (:meth:`from_numpy`): the reset GRUs
+    of ``models/rnn.py`` run on that fixed layout without reading the card.
     """
 
     node_features: Dict[str, torch.Tensor]
@@ -109,6 +127,7 @@ class HeteroGraph:
     node_attrs: Dict[str, Dict[str, torch.Tensor]]
     num_target_nodes: int
     batch: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    segment_layout: Dict[str, Tuple[int, int]] = dataclasses.field(default_factory=dict)
 
     def capacity(self, node_type: str) -> int:
         return self.node_features[node_type].shape[0]
@@ -144,7 +163,8 @@ class HeteroGraph:
     ) -> "HeteroGraph":
         """Pad ragged host arrays to the given capacities (exact sizes when
         omitted) and move them to ``device``; ``batch`` gives the graph id of
-        each node (all 0 when omitted)."""
+        each node (all 0 when omitted).  Each node type with rows gets its
+        :func:`segment_layout` from the padded ids."""
         node_attrs = node_attrs or {}
         nf: Dict[str, np.ndarray] = {}
         nn: Dict[str, int] = {}
@@ -190,4 +210,5 @@ class HeteroGraph:
             node_attrs={t: {k: put(v) for k, v in d.items()} for t, d in na.items()},
             num_target_nodes=int(ntn),
             batch={t: put(v) for t, v in bt.items()},
+            segment_layout={t: segment_layout(v) for t, v in bt.items() if v.shape[0]},
         )

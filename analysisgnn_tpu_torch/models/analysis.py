@@ -149,14 +149,17 @@ class AnalysisGNN(nn.Module):
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
         batch: Optional[Mapping[str, torch.Tensor]] = None,
+        layout: Optional[Tuple[int, int]] = None,
     ) -> torch.Tensor:
         """Note embeddings ``[N_cap, out_channels]``.  Dropout runs between the
         encoder layers unless ``deterministic``, drawn from ``generator``.
         ``batch`` holds the per-type graph ids (``HeteroGraph.batch``); the
         ``use_rnn`` GRU needs the notes', and MetricalGNN without them runs
-        each metrical axis as one sequence.  The ``use_rnn`` tail (GRUs,
-        norm, projection) is the span ``model.rnn`` of a ``torch.profiler``
-        trace."""
+        each metrical axis as one sequence.  ``layout`` is the notes'
+        ``HeteroGraph.segment_layout``: with it the ``use_rnn`` GRUs run on
+        that fixed layout and read nothing on the host, without it they read
+        the segments' lengths there.  The ``use_rnn`` tail (GRUs, norm, projection) is the
+        span ``model.rnn`` of a ``torch.profiler`` trace."""
         emb = torch.cat(
             [
                 x_dict[NOTE],
@@ -179,7 +182,7 @@ class AnalysisGNN(nn.Module):
             if batch is None or NOTE not in batch:
                 raise ValueError("use_rnn needs the notes' graph ids (batch[NOTE]) to reset its GRU at each graph")
             with record_function("model.rnn"):
-                x = self.rnn_proj(self.rnn_norm(self.rnn(x, segment_starts(batch[NOTE]))))
+                x = self.rnn_proj(self.rnn_norm(self.rnn(x, segment_starts(batch[NOTE]), layout)))
         return x
 
     def classify(

@@ -7,8 +7,24 @@ LSTM-attention JumpingKnowledge (counterpart of
 The JAX reset GRUs run one ``lax.scan`` over the whole padded axis and zero
 the carry at every segment start (the reverse direction: at every segment
 end).  That is the same as running each contiguous segment on its own from a
-zero state, so here the segments are packed into one ``nn.GRU`` call (one
-cuDNN call on the card, the same code on the CPU).  A flax ``GRUCell`` is
+zero state, so here every segment is a column of one packed ``nn.GRU`` call
+(:func:`_run_packed`: one cuDNN call on the card, the same code on the CPU).
+The rows are placed into the packed sequence's data on the card
+(:func:`_placement`) in one of two ways:
+
+* on a fixed layout ``(runs, steps)`` that the caller knows from host
+  integers (``core/graph.py::segment_layout``, set when a batch is staged):
+  every column runs all the steps, each segment placed so that in the
+  direction the GRU runs padding only ever follows the segment's last row.
+  The GRU is causal, so every row's output and every gradient is what a
+  call over the segment alone computes, and nothing is read on the host:
+  the call can be captured in a CUDA graph;
+* without one, the segments' lengths are read on the host
+  (:func:`segment_lengths`, counted in :data:`segment_length_reads`) and
+  each column ends with its segment, longest first, as ``pack_sequence``
+  lays them out: no padding, whatever the segments' lengths.
+
+A flax ``GRUCell`` is
 ``torch.nn.GRU``'s cell: gates ``r, z, n``, input Denses with bias, hidden
 Denses without bias but ``hn``'s (``b_hh = [0, 0, b_hn]``, kept so in
 training by :class:`FlaxGRU`), and ``h' = (1 - z) * n + z * h``.
@@ -23,11 +39,11 @@ launches each), never a loop over T; autograd gives the backward.
 from __future__ import annotations
 
 import functools
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.nn.utils.rnn import pack_sequence, pad_packed_sequence
+from torch.nn.utils.rnn import PackedSequence
 
 from analysisgnn_tpu_torch.models.mlp import Linear, promote
 
@@ -81,65 +97,141 @@ def segment_lengths(starts: torch.Tensor) -> List[int]:
     return [b - a for a, b in zip(bounds[:-1], bounds[1:])]
 
 
-def _reversed_within_segments(lengths: Sequence[int], device) -> torch.Tensor:
-    """``[T]`` int64 permutation that reverses each segment in place."""
-    n = torch.tensor(lengths, device=device)
-    first = torch.cumsum(n, 0) - n
-    seg = torch.repeat_interleave(torch.arange(len(lengths), device=device), n)
-    pos = torch.arange(int(n.sum()), device=device)
-    return 2 * first[seg] + n[seg] - 1 - pos
+def _no_tf32():
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=b.benchmark, deterministic=b.deterministic, allow_tf32=False)
 
 
-def _run_packed(rnn: nn.GRU, xs: torch.Tensor, lengths: Sequence[int]) -> torch.Tensor:
-    """``rnn`` over each segment of ``xs`` from a zero state, packed into one
-    call; the outputs back in ``xs``'s row order.  f32 throughout: TF32 is
-    off for the call (cuDNN would take it for f32 RNNs by default).  Input
-    and weights meet in their promoted dtype, as in flax's ``GRUCell``: the
+# cuDNN's TF32 flag as it was before the first open bracket of
+# :class:`_Tf32Bracket`, then one False for each further open one
+_tf32_stack: List[bool] = []
+
+
+class _Tf32Bracket(torch.autograd.Function):
+    """Identity on its tensors whose backward turns cuDNN's TF32 off
+    (``opens``) or back to what it was.  Set on a cuDNN RNN's output and on
+    its inputs, the two hold the RNN's backward, which autograd runs after
+    :func:`_no_tf32` has closed, so that it too stays in f32."""
+
+    @staticmethod
+    def forward(ctx, opens: bool, *xs):
+        ctx.opens = opens
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        b = torch.backends.cudnn
+        if ctx.opens:
+            _tf32_stack.append(b.allow_tf32)
+            b.allow_tf32 = False
+        elif _tf32_stack:
+            b.allow_tf32 = _tf32_stack.pop()
+        return (None, *grads)
+
+
+def _run_packed(rnn: nn.GRU, xs: torch.Tensor, slots: torch.Tensor, batch_sizes: torch.Tensor) -> torch.Tensor:
+    """``rnn`` from zero states over the packed sequence whose data holds row
+    ``i`` of ``xs`` at ``slots[i]`` and zeros elsewhere (``batch_sizes``:
+    host int64, the columns that run at each step); the rows' outputs, in
+    ``xs``'s order.  f32 throughout: TF32 is off for the call and its
+    backward (cuDNN would take it for f32 RNNs by default).  Input and
+    weights meet in their promoted dtype, as in flax's ``GRUCell``: the
     bfloat16 weights of the bf16 compute read a float32 input in float32."""
     weights = rnn._flat_weights
     xs, *cast = promote(xs, *weights)
-    packed = pack_sequence(list(xs.split(list(lengths))), enforce_sorted=False)
-    b = torch.backends.cudnn
-    with b.flags(enabled=b.enabled, benchmark=b.benchmark, deterministic=b.deterministic, allow_tf32=False):
+    data = xs.new_zeros((int(batch_sizes.sum()), xs.shape[1])).index_copy(0, slots, xs)
+    data, *cast = _Tf32Bracket.apply(False, data, *cast)
+    with _no_tf32():
         rnn._flat_weights = cast
         try:
-            out, _ = rnn(packed)
+            out, _ = rnn(PackedSequence(data, batch_sizes))
         finally:
             rnn._flat_weights = weights
-    padded, lens = pad_packed_sequence(out, batch_first=True)  # [B, L_max, D], segments in input order
-    keep = torch.arange(padded.shape[1])[None, :] < lens[:, None]
-    return padded[keep.to(padded.device)]
+    (out,) = _Tf32Bracket.apply(True, out.data)
+    return out.index_select(0, slots)
+
+
+def _segment_rows(starts: torch.Tensor, runs: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per row of ``starts`` (``runs`` segments, or more): its segment's
+    index, its position in the segment and the segment's length, reckoned
+    on the card in fixed shapes."""
+    seg = torch.cumsum(starts, 0) - 1
+    lengths = torch.zeros(runs, dtype=seg.dtype, device=seg.device).index_add_(0, seg, torch.ones_like(seg))
+    first = torch.cumsum(lengths, 0) - lengths
+    pos = torch.arange(seg.shape[0], device=seg.device) - first[seg]
+    return seg, pos, lengths[seg]
+
+
+def _placement(starts: torch.Tensor, layout: Optional[Tuple[int, int]],
+               reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(slots, batch_sizes)`` of :func:`_run_packed` for a column a segment,
+    each segment from its first row (its last with ``reverse``).  With
+    ``layout`` every column runs all its ``steps``; without, the columns
+    are the segments longest first, each ending with its segment."""
+    if layout is not None:
+        runs, steps = layout
+        seg, pos, n = _segment_rows(starts, runs)
+        return ((n - 1 - pos) if reverse else pos) * runs + seg, torch.full((steps,), runs, dtype=torch.int64)
+    lengths = torch.tensor(segment_lengths(starts))
+    runs = lengths.shape[0]
+    # the columns still running at step t: the segments longer than t
+    batch_sizes = torch.bincount(lengths).flip(0).cumsum(0).flip(0)[1:]
+    offsets = (batch_sizes.cumsum(0) - batch_sizes).to(starts.device)
+    column = torch.empty(runs, dtype=torch.int64)
+    column[torch.sort(lengths, descending=True).indices] = torch.arange(runs)  # pack_sequence's order
+    seg, pos, n = _segment_rows(starts, runs)
+    return offsets[(n - 1 - pos) if reverse else pos] + column.to(starts.device)[seg], batch_sizes
 
 
 class ResetGRU(nn.Module):
     """Unidirectional GRU with state resets at segment starts.  ``xs``:
-    ``[T, F]``; ``starts``: ``[T]`` bool.  With ``reverse`` it runs right to
-    left and resets at segment ends: each segment reversed."""
+    ``[T, F]``; ``starts``: ``[T]`` bool; ``layout``: ``(runs, steps)``, no
+    fewer runs than ``starts`` opens and no fewer steps than its longest
+    segment (``core/graph.py::segment_layout``), or None (then the lengths
+    are read on the host).  With ``reverse`` it runs right to left and
+    resets at segment ends: each segment reversed."""
 
     def __init__(self, in_features: int, features: int, reverse: bool = False):
         super().__init__()
         self.reverse = reverse
         self.rnn = FlaxGRU(in_features, features)
 
-    def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-        lengths = segment_lengths(starts)
-        if not self.reverse:
-            return _run_packed(self.rnn, xs, lengths)
-        rev = _reversed_within_segments(lengths, xs.device)
-        return _run_packed(self.rnn, xs[rev], lengths)[rev]
+    def forward(self, xs: torch.Tensor, starts: torch.Tensor,
+                layout: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        return _run_packed(self.rnn, xs, *_placement(starts, layout, self.reverse))
 
 
 class BiResetGRU(nn.Module):
     """Bidirectional reset GRU (``[T, 2F]``, forward then backward): one
-    bidirectional ``nn.GRU`` over the packed segments, whose reverse
-    direction runs each segment from its own end."""
+    bidirectional ``nn.GRU`` over the segments, whose reverse direction runs
+    each segment from its own end.  ``layout`` as :class:`ResetGRU`'s.
+
+    Without a layout each column ends with its segment, and the reverse
+    direction starts there.  On a layout every column runs all the steps,
+    so the one call runs over ``2 * runs`` columns: the segments from step
+    0 in the first ``runs`` (the forward direction's outputs are read
+    there) and ending at the last step in the others (the reverse
+    direction's, which runs from the last step down).  Each direction's
+    other half is computed and dropped; at a few segments that costs the
+    card next to nothing, and keeps one call over the module's own
+    weights, whose two directions cuDNN runs side by side."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.rnn = FlaxGRU(in_features, features, bidirectional=True)
 
-    def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
-        return _run_packed(self.rnn, xs, segment_lengths(starts))
+    def forward(self, xs: torch.Tensor, starts: torch.Tensor,
+                layout: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        if layout is None:
+            return _run_packed(self.rnn, xs, *_placement(starts, None))
+        runs, steps = layout
+        seg, pos, n = _segment_rows(starts, runs)
+        first = pos * (2 * runs) + seg
+        last = (steps - n + pos) * (2 * runs) + runs + seg
+        out = _run_packed(self.rnn, torch.cat([xs, xs]), torch.cat([first, last]),
+                          torch.full((steps,), 2 * runs, dtype=torch.int64))
+        f, t = self.rnn.hidden_size, xs.shape[0]
+        return torch.cat([out[:t, :f], out[t:, f:]], dim=1)
 
 
 def linear_recurrence(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -211,7 +303,8 @@ class AssocBiGRU(nn.Module):
 class StackedBiGRU(nn.Module):
     """``num_layers`` bidirectional reset GRUs (``layer_i``, each ``[T, 2F]``)
     with a Linear ``proj_i`` back to ``F`` between them: the analog of
-    ``nn.GRU(..., num_layers, bidirectional=True)``."""
+    ``nn.GRU(..., num_layers, bidirectional=True)``.  ``layout`` reaches
+    every layer."""
 
     def __init__(self, in_features: int, features: int, num_layers: int = 2):
         super().__init__()
@@ -221,10 +314,11 @@ class StackedBiGRU(nn.Module):
             if i < num_layers - 1:
                 self.add_module(f"proj_{i}", Linear(2 * features, features))
 
-    def forward(self, xs: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    def forward(self, xs: torch.Tensor, starts: torch.Tensor,
+                layout: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         h = xs
         for i in range(self.num_layers):
-            h = getattr(self, f"layer_{i}")(h, starts)
+            h = getattr(self, f"layer_{i}")(h, starts, layout)
             if i < self.num_layers - 1:
                 h = getattr(self, f"proj_{i}")(h)
         return h

@@ -9,16 +9,22 @@ check and the gated optimizer update) issues them in one launch.
 :class:`GraphedStep` keeps up to ``MAX_GRAPHS`` graphs, one per signature of
 its calls: the batch's tensors (their places, shapes and dtypes), its
 ``num_target_nodes``, the addresses of the parameters, ``mt_params`` and the
-optimizer's moments, and the dropout generator.  The first call of a
+optimizer's moments, and the dropout generator; for a step given a
+``layout`` reader (a model whose reset GRUs run on the batch's segment
+layout, ``models/rnn.py``), the layout it reads too, which the GRUs' fixed
+shapes follow.  The first call of a
 signature runs the eager step, exactly as a step that is never captured; the
 second captures the step and replays it; later calls replay.  A call on CPU
 tensors and every call of a signature past the first ``MAX_GRAPHS`` run the
 eager step; so does a call inside another capture or under a
 ``TorchDispatchMode`` (which a replay would bypass), and it counts as its
 signature's first call: the benchmark's check records the draws of its
-first steps under such a mode, and those stay the eager steps.  The step reads no count of valid nodes
-or edges: the padding is in the tensors, so batches of one signature differ
-only in their tensors' contents.
+first steps under such a mode, and those stay the eager steps.  A call of a
+step with a ``layout`` reader on a batch whose layout it does not find runs
+the eager step too (its GRUs read their segment lengths on the host, which
+no capture may hold), and counts as no call of a signature.  The step reads no count
+of valid nodes or edges: the padding is in the tensors, so batches of one
+signature differ only in their tensors' contents.
 
 A replay, in this order:
 
@@ -50,7 +56,7 @@ they launch no kernel from the host, so the kernel wrappers' host counters
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -121,13 +127,18 @@ class GraphedStep:
     ``finite`` and scaled by the device tensor ``rates``
     (``ClippedAdamW.update``); it leaves ``state.step`` and
     ``state.opt_state.count`` to this class.  ``params`` are the model's
-    parameters; ``rates(count)`` gives the host's values for ``rates``."""
+    parameters; ``rates(count)`` gives the host's values for ``rates``.
+    ``layout(batch)``, where given, is the segment layout the model's reset
+    GRUs run on, or None where ``batch`` carries none: they then read their
+    segment lengths on the host."""
 
     replays = 0  # calls, over every GraphedStep, that replayed a graph without capturing it
 
-    def __init__(self, eager, body, params: List[torch.Tensor], rates: Callable[[int], Tuple[float, float, float]]):
+    def __init__(self, eager, body, params: List[torch.Tensor], rates: Callable[[int], Tuple[float, float, float]],
+                 layout: Optional[Callable[[HeteroGraph], Optional[Tuple[int, int]]]] = None):
         self.eager, self.body = eager, body
         self.params, self.rates = params, rates
+        self.layout = layout
         self.graphs: Dict[tuple, _Graph] = {}
         self.seen: set = set()
         self.pool = None  # the memory pool this step's graphs share
@@ -137,17 +148,23 @@ class GraphedStep:
         :func:`batch_tensors` of ``batch``)."""
         opt = state.opt_state
         leaves = [*self.params, state.mt_params, *opt.mu, *opt.nu]
-        return (batch.num_target_nodes, tuple((k, t.shape, t.dtype) for k, t in tensors),
-                tuple(p.data_ptr() for p in leaves), state.generator)
+        sig = (batch.num_target_nodes, tuple((k, t.shape, t.dtype) for k, t in tensors),
+               tuple(p.data_ptr() for p in leaves), state.generator)
+        return sig if self.layout is None else sig + (self.layout(batch),)
 
     def on_card(self, tensors: List[Tuple[tuple, torch.Tensor]]) -> bool:
         """Whether the batch's tensors are on the parameters' card."""
         device = self.params[0].device
         return device.type == "cuda" and all(t.device == device for _, t in tensors)
 
+    def replayable(self, batch: HeteroGraph, tensors: List[Tuple[tuple, torch.Tensor]]) -> bool:
+        """Whether a graph may hold the step on ``batch``: its tensors on the
+        card and, for a step with a ``layout`` reader, the layout found."""
+        return self.on_card(tensors) and (self.layout is None or self.layout(batch) is not None)
+
     def __call__(self, state, batch: HeteroGraph):
         tensors = batch_tensors(batch)
-        if not self.on_card(tensors):
+        if not self.replayable(batch, tensors):
             return self.eager(state, batch)
         sig = self.signature(state, batch, tensors)
         # a TorchDispatchMode would miss a replay's operations, and a capture

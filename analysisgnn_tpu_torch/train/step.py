@@ -46,7 +46,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from analysisgnn_tpu_torch.core.graph import NOTE, HeteroGraph
-from analysisgnn_tpu_torch.models.analysis import restrict_edges_to_targets
+from analysisgnn_tpu_torch.models.analysis import AnalysisGNN, restrict_edges_to_targets
 from analysisgnn_tpu_torch.train.graphed import GraphedStep
 from analysisgnn_tpu_torch.train.losses import (
     FAMOState,
@@ -183,7 +183,7 @@ def _loss_stages(model, mt_params, batch, cfg, deterministic, generator, teacher
         features = {t: v.to(dtype) if v.dtype == torch.float32 else v for t, v in batch.node_features.items()}
         args = (features, batch.edge_index, attrs["pitch_spelling"], attrs["key_signature"], batch.num_target_nodes)
         with record_function("step.forward"):
-            x = model.encode(*args, deterministic, generator, batch.batch)
+            x = model.encode(*args, deterministic, generator, batch.batch, batch.segment_layout.get(NOTE))
             logits = model.classify(x, deterministic, generator)
         with record_function("step.losses"):
             base_w, task_w = _task_weights(batch, cfg)
@@ -267,18 +267,32 @@ def _edge_loss(model, x, batch, cfg, deterministic, generator) -> Optional[torch
     return cfg.lambda_edge * torch.stack(losses).mean() if losses else None
 
 
+def _laid_out_rnns(model: nn.Module) -> List[nn.Module]:
+    """The RNNs of ``model`` that run on the batch's segment layout: the note
+    GRUs of an :class:`AnalysisGNN`'s ``use_rnn`` tail, to which
+    :func:`_loss_stages` passes ``batch.segment_layout[NOTE]``."""
+    if not (isinstance(model, AnalysisGNN) and model.use_rnn):
+        return []
+    return [m for m in model.rnn.modules() if isinstance(m, nn.RNNBase)]
+
+
 def graph_safe(model: nn.Module, cfg: StepConfig) -> bool:
     """Whether the train step of ``model`` under ``cfg`` may be captured as a
     CUDA graph (:mod:`analysisgnn_tpu_torch.train.graphed`): no stage of it
     reads the card's results on the host.  SMOTE, the distillation teacher,
-    FAMO, EWC and the edge loss stay eager, and so does a model that holds a
-    packed ``nn.GRU`` (the segment GRUs of ``models/rnn.py``, which read
-    their segment lengths on the host)."""
+    FAMO, EWC and the edge loss stay eager, and so does a model with an RNN
+    that the step does not run on the batch's segment layout (a reset GRU
+    given none reads its segment lengths on the host: ``MetricalConv``'s
+    ``seq_impl="scan"``).  The ``use_rnn`` GRUs read nothing on the host on
+    a batch that carries the notes' layout, and
+    :class:`~analysisgnn_tpu_torch.train.graphed.GraphedStep` runs the eager
+    step on a batch without one."""
     if cfg.use_smote or cfg.use_ewc or cfg.use_edge_loss or cfg.mt_strategy == "famo":
         return False
     if cfg.previous_tasks and cfg.lambda_dctn > 0:
         return False
-    return not any(isinstance(m, nn.RNNBase) for m in model.modules())
+    laid_out = _laid_out_rnns(model)
+    return all(any(m is r for r in laid_out) for m in model.modules() if isinstance(m, nn.RNNBase))
 
 
 def make_train_step(
@@ -351,7 +365,8 @@ def make_train_step(
         aux["skipped_nonfinite"] = (~finite).float()
         return finite, aux
 
-    return GraphedStep(step_body, graph_body, params, optimizer.rates)
+    layout = (lambda batch: batch.segment_layout.get(NOTE)) if _laid_out_rnns(model) else None
+    return GraphedStep(step_body, graph_body, params, optimizer.rates, layout)
 
 
 def make_train_step_multi(

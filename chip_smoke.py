@@ -1509,12 +1509,22 @@ def trace_forward(fn, label: str, prefix: str, top: int, group: str = "", op=())
 
 def trace_train(row: dict, batch, top: int = 12) -> dict:
     """One step of the arm under torch.profiler: the device's busy share of
-    the step and its kernels by device time (and K3's summed, edge-zxp)."""
+    the step and its kernels by device time (and K3's summed, edge-zxp).
+    The step replays its CUDA graph where the arm's timed steps captured
+    one for this batch's signature; the use_rnn arm traces its eager step,
+    whose GRU kernels run under host ops to count them by (a replay runs
+    the same kernels and no host op).  The phase line says which ran."""
     state, step = row["state"], row["step"]
     group = "rwm_" if ARMS[row["arm"]].get("conv_impl") == "edge-zxp" else ""
-    # use_rnn's GRUs: cuDNN's cell kernels and cuBLAS GEMVs, under the forward's and the backward's cuDNN ops
+    # use_rnn's GRUs: cuDNN's cell kernels and cuBLAS products, under the forward's and the backward's cuDNN ops
     gru = ("aten::gru", "aten::_cudnn_rnn_backward") if ARMS[row["arm"]].get("use_rnn") else ()
-    return trace_forward(lambda: step(state, batch), f"one {row['arm']} step", "train trace", top, group, gru)
+    run = getattr(step, "eager", step) if gru else step
+    replays = _replayed()
+    traced = trace_forward(lambda: run(state, batch), f"one {row['arm']} step", "train trace", top, group, gru)
+    traced["replayed"] = _replayed() > replays
+    phase(f"train trace: the traced {row['arm']} step "
+          f"{'replayed its CUDA graph' if traced['replayed'] else 'ran eagerly'}")
+    return traced
 
 
 # ------------------------------------------------------------- K4 and K5

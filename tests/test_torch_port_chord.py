@@ -91,6 +91,162 @@ def test_bi_reset_gru_matches_flax(segments):
     _close(alone, want)
 
 
+# graph ids of packed batches as the samplers stage them: each graph's
+# targets first, then each graph's context rows, then the padding run (-1)
+LAYOUT_IDS = {
+    "targets-first": [0] * 9 + [1] * 7 + [2] * 8 + [0] * 3 + [1] * 2 + [2] * 4 + [-1] * 5,
+    "no-context-rows": [0] * 9 + [1] * 7 + [2] * 8 + [0] * 3 + [2] * 4 + [-1] * 5,
+    "no-padding": [0] * 9 + [1] * 7 + [0] * 4 + [1] * 2,
+}
+# (ids, rung, spare runs): the longest run exactly (rung 1) or rounded far
+# past it (64); a spare run is a column no row lands in (a zero-length run)
+LAYOUT_CASES = {
+    "targets-first-rung64": ("targets-first", 64, 0),
+    "targets-first-exact": ("targets-first", 1, 0),
+    "zero-length-run": ("no-context-rows", 64, 1),
+    "no-padding-rung4": ("no-padding", 4, 0),
+}
+LAYOUT_MODULES = {"forward": lambda f: jrnn.ResetGRU(f), "reverse": lambda f: jrnn.ResetGRU(f, reverse=True),
+                  "bidirectional": lambda f: jrnn.BiResetGRU(f), "stacked": lambda f: jrnn.StackedBiGRU(f)}
+GRAD_ATOL = 2e-5  # the gradients sum over up to 9 steps of O(1) terms
+
+
+def _torch_module(kind, in_features):
+    return {"forward": lambda: trnn.ResetGRU(in_features, HIDDEN),
+            "reverse": lambda: trnn.ResetGRU(in_features, HIDDEN, reverse=True),
+            "bidirectional": lambda: trnn.BiResetGRU(in_features, HIDDEN),
+            "stacked": lambda: trnn.StackedBiGRU(in_features, HIDDEN)}[kind]()
+
+
+def _outputs_and_grads(module, xs, starts, ct, layout):
+    x = _t(xs).requires_grad_(True)
+    out = module(x, starts, layout)
+    names, params = zip(*module.named_parameters())
+    grads = torch.autograd.grad(out, [x, *params], _t(ct))
+    return out, grads[0], dict(zip(names, grads[1:]))
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+@pytest.mark.parametrize("kind", sorted(LAYOUT_MODULES))
+def test_reset_grus_on_a_fixed_layout_match_flax_and_the_packed_path(kind, case):
+    from analysisgnn_tpu_torch.core.graph import segment_layout
+
+    ids_name, rung, spare = LAYOUT_CASES[case]
+    ids = np.asarray(LAYOUT_IDS[ids_name], np.int64)
+    runs, steps = segment_layout(ids, rung)
+    layout = (runs + spare, steps)
+    assert steps >= 9 and (rung > 1 or steps == 9)
+    rng = np.random.default_rng(len(ids) + rung)
+    xs = rng.normal(size=(len(ids), 12)).astype(np.float32)
+    starts = trnn.segment_starts(torch.from_numpy(ids))
+    jstarts = jnp.asarray(starts.numpy())
+    jmod = LAYOUT_MODULES[kind](HIDDEN)
+    params = jmod.init(jax.random.PRNGKey(rung), jnp.asarray(xs), jstarts)
+    width = HIDDEN * (1 if kind in ("forward", "reverse") else 2)
+    ct = rng.normal(size=(len(ids), width)).astype(np.float32)
+    want = jmod.apply(params, jnp.asarray(xs), jstarts)
+    jgrads, jgx = jax.grad(lambda p, x: jnp.sum(jmod.apply(p, x, jstarts) * ct), argnums=(0, 1))(
+        params, jnp.asarray(xs))
+    module = _load(_torch_module(kind, 12), params)
+    reads = trnn.segment_length_reads
+    out, gx, grads = _outputs_and_grads(module, xs, starts, ct, layout)
+    assert trnn.segment_length_reads == reads  # nothing read on the host
+    packed_out, packed_gx, packed_grads = _outputs_and_grads(module, xs, starts, ct, None)
+    assert trnn.segment_length_reads == reads + (2 if kind == "stacked" else 1)
+    _close(out, want)
+    _close(gx, jgx, GRAD_ATOL)
+    jgrads = chord_state_dict_from_flax(_np_tree(jgrads))
+    assert jgrads.keys() == grads.keys()
+    for k, g in grads.items():
+        _close(g, jgrads[k].numpy(), GRAD_ATOL)
+    _close(out, packed_out.detach().numpy())
+    _close(gx, packed_gx.numpy(), GRAD_ATOL)
+    for k, g in grads.items():
+        _close(g, packed_grads[k].numpy(), GRAD_ATOL)
+
+
+# graph ids without a layout, as the serving paths give them: one score and
+# its padding, several graphs, and the chord chain's dropped rows (id -1)
+# between kept ones, which make many short runs of tied lengths
+UNLAID_IDS = {
+    "one-score": [0] * 23 + [-1] * 9,
+    "graphs": [0] * 9 + [1] * 14 + [2] * 3 + [-1] * 6,
+    "dropped-rows": [0, -1, -1, 0, 0, -1, 0, -1, -1, -1, 0, 0, 0, 0, -1, 0, 1, -1, 1, 1, -1, -1, 1, -1, -1],
+}
+
+
+def _pack_sequence_reference(rnn, xs, starts, reverse=False):
+    """The reset GRU as ``torch.nn.utils.rnn.pack_sequence`` packs the
+    segments: their lengths read on the host, each reversed in place for
+    the reverse direction."""
+    from torch.nn.utils.rnn import pack_sequence, pad_packed_sequence
+
+    bounds = list(np.flatnonzero(starts.numpy())) + [starts.shape[0]]
+    parts = [xs[a:b].flip(0) if reverse else xs[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    out, _ = rnn(pack_sequence(parts, enforce_sorted=False))
+    padded, lengths = pad_packed_sequence(out, batch_first=True)
+    rows = [padded[i, :n] for i, n in enumerate(lengths.tolist())]
+    return torch.cat([r.flip(0) for r in rows] if reverse else rows)
+
+
+@pytest.mark.parametrize("ids", sorted(UNLAID_IDS))
+@pytest.mark.parametrize("kind", ["forward", "reverse", "bidirectional"])
+def test_reset_grus_without_a_layout_compute_what_pack_sequence_packs(kind, ids):
+    """A call without a layout reads the lengths once and places the rows as
+    ``pack_sequence`` packs them: outputs and gradients bit for bit."""
+    rng = np.random.default_rng(len(UNLAID_IDS[ids]))
+    starts = trnn.segment_starts(torch.tensor(UNLAID_IDS[ids]))
+    xs = _t(rng.normal(size=(starts.shape[0], 12)).astype(np.float32))
+    torch.manual_seed(0)
+    module = _torch_module(kind, 12)
+    ct = _t(rng.normal(size=(starts.shape[0], HIDDEN * (2 if kind == "bidirectional" else 1))).astype(np.float32))
+    params = list(module.parameters())
+    x = xs.clone().requires_grad_(True)
+    reads = trnn.segment_length_reads
+    got = module(x, starts)
+    assert trnn.segment_length_reads == reads + 1
+    got_grads = torch.autograd.grad(got, [x, *params], ct)
+    x_ref = xs.clone().requires_grad_(True)
+    want = _pack_sequence_reference(module.rnn, x_ref, starts, reverse=kind == "reverse")
+    want_grads = torch.autograd.grad(want, [x_ref, *params], ct)
+    assert torch.equal(got, want)
+    assert all(torch.equal(g, w) for g, w in zip(got_grads, want_grads))
+
+
+@pytest.mark.parametrize("laid_out", [False, True], ids=["lengths-read", "layout"])
+@pytest.mark.parametrize("kind", sorted(LAYOUT_MODULES))
+def test_reset_gru_backward_runs_with_cudnn_tf32_off(kind, laid_out):
+    """Autograd runs the GRUs' backward after their forward's ``_no_tf32``
+    has closed: inside that backward cuDNN's TF32 flag reads False, and
+    after it the flag is back to what it was."""
+    from analysisgnn_tpu_torch.core.graph import segment_layout
+
+    ids = np.asarray(LAYOUT_IDS["targets-first"], np.int64)
+    starts = trnn.segment_starts(torch.from_numpy(ids))
+    module = _torch_module(kind, 12)
+    seen = []
+
+    def watch(gru, args, out):
+        # the GRU's own output: its gradient is ready just before the GRU's backward runs
+        out[0].data.register_hook(lambda g: seen.append(torch.backends.cudnn.allow_tf32))
+
+    for m in module.modules():
+        if isinstance(m, torch.nn.RNNBase):
+            m.register_forward_hook(watch)
+    x = torch.randn(len(ids), 12, requires_grad=True)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            seen.clear()
+            out = module(x, starts, segment_layout(ids) if laid_out else None)
+            torch.autograd.grad(out.square().sum(), [x, *module.parameters()])
+            assert seen == [False] * (2 if kind == "stacked" else 1)
+            assert torch.backends.cudnn.allow_tf32 is flag and not trnn._tf32_stack
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
 def test_segment_starts_and_onset_groups_match_jax():
     rng = np.random.default_rng(3)
     batch = np.sort(rng.integers(0, 4, 50)).astype(np.int64)

@@ -23,6 +23,7 @@ from analysisgnn_tpu_torch.data.features import select_features
 from analysisgnn_tpu_torch.data.graph_build import build_score_graph
 from analysisgnn_tpu_torch.data.note_array import synthetic_score
 from analysisgnn_tpu_torch.models.analysis import init_parameters, model_from_config
+from analysisgnn_tpu_torch.models.encoders import MetricalConv
 from analysisgnn_tpu_torch.theory.encoders import KeySignatureEncoder, PitchEncoder
 from analysisgnn_tpu_torch.theory.vocab import TASK_DICT
 from analysisgnn_tpu_torch.train.graphed import GraphedStep, batch_tensors
@@ -77,7 +78,7 @@ def _small_step(device="cpu", cfg=None):
 # ------------------------------------------------------------ which steps capture
 
 
-@pytest.mark.parametrize("cell", ["hybridgnn", "hybridhgt"])
+@pytest.mark.parametrize("cell", ["hybridgnn", "hybridhgt", "metricalgnn"])
 def test_the_benchmark_train_configurations_may_capture(cell):
     cfg = _cell_config(cell)
     model = model_from_config(cfg, device="cpu")
@@ -85,17 +86,52 @@ def test_the_benchmark_train_configurations_may_capture(cell):
                           mt_strategy=cfg["mt_strategy"], lambda_featl=cfg["lambda_featl"],
                           label_smoothing=cfg["label_smoothing"], compute_dtype=cfg["compute_dtype"])
     assert graph_safe(model, step_cfg)
-    assert isinstance(make_train_step(model, make_optimizer(lambda c: 1e-3), step_cfg), GraphedStep)
+    step = make_train_step(model, make_optimizer(lambda c: 1e-3), step_cfg)
+    assert isinstance(step, GraphedStep)
+    # only the note BiGRU of use_rnn asks for the batch's segment layout
+    assert (step.layout is not None) == cfg["use_rnn"] == (cell == "metricalgnn")
 
 
-@pytest.mark.parametrize("case", ["smote", "teacher", "famo", "ewc", "edge_loss", "use_rnn"])
-def test_host_reading_steps_stay_eager(case):
-    model_cfg = {**SMALL, "use_rnn": True} if case == "use_rnn" else SMALL
+@pytest.mark.parametrize("case", ["smote", "teacher", "famo", "ewc", "edge_loss", "use_rnn", "scan"])
+def test_host_reading_steps_stay_eager(case, monkeypatch):
+    metrical = {"model": "MetricalGNN", "add_beats": True, "add_measures": True, "use_rnn": True}
+    model_cfg = {**SMALL, "use_rnn": True} if case == "use_rnn" else {**SMALL, **metrical} if case == "scan" else SMALL
     step_cfg = {"smote": {"use_smote": True}, "teacher": {"previous_tasks": ("cadence",)},
                 "famo": {"mt_strategy": "famo"}, "ewc": {"use_ewc": True}, "edge_loss": {"use_edge_loss": True},
-                "use_rnn": {}}[case]
+                "use_rnn": {}, "scan": {}}[case]
     model = model_from_config(model_cfg, device="cpu")
+    if case == "scan":
+        # a metrical conv with seq_impl="scan": its reset GRU, given no layout,
+        # reads its segment lengths on the host, beside the use_rnn GRUs that
+        # run on the batch's layout
+        model.encoder.beat_conv_1 = MetricalConv(SMALL["hidden_channels"], SMALL["hidden_channels"],
+                                                 SMALL["dropout"], "scan")
     cfg = StepConfig(task_dict=TASKS, active_tasks=ALL, **step_cfg)
+    if case == "use_rnn":
+        # the reset GRUs read their lengths on the host only on a batch
+        # without the notes' segment layout: a call on one runs the eager step,
+        # and is never captured nor remembered as a signature's first call
+        assert graph_safe(model, cfg)
+        init_parameters(model, torch.Generator().manual_seed(0))
+        opt = make_optimizer(lambda c: 1e-3)
+        state = create_train_state(model, len(TASKS), opt, seed=3)
+        step = make_train_step(model, opt, cfg)
+        assert isinstance(step, GraphedStep) and step.layout is not None
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)  # as on the card
+        step.on_card = lambda tensors: True  # as if on the card: only the layout decides
+        calls = []
+        eager = step.eager
+        step.eager = lambda st, b: calls.append(b) or eager(st, b)
+        (batch,) = _batches(1)
+        unlaid = dataclasses.replace(batch, segment_layout={})
+        assert not step.replayable(unlaid, batch_tensors(unlaid)) and step.replayable(batch, batch_tensors(batch))
+        for _ in range(2):
+            state, aux = step(state, unlaid)
+            assert calls[-1] is unlaid and not step.seen and not step.graphs
+        assert state.step == 2 and np.isfinite(float(aux["total_loss"]))
+        state, _ = step(state, batch)  # with its layout: a signature's first call, eager
+        assert calls[-1] is batch and len(step.seen) == 1 and not step.graphs
+        return
     assert not graph_safe(model, cfg)
     assert not isinstance(make_train_step(model, make_optimizer(lambda c: 1e-3), cfg), GraphedStep)
     # a teacher that computes nothing (no distillation weight) is no reason to stay eager
@@ -159,6 +195,23 @@ def test_the_signature_follows_shapes_targets_relations_and_parameters_not_conte
         p.add_(1.0)
         state.mt_params.mul_(2.0)
     assert sig(b[0]) == before
+    # a step without reset GRUs ignores the segment layout
+    assert step.layout is None
+    assert sig(dataclasses.replace(b[0], segment_layout={NOTE: (9, 640)})) == sig(b[0])
+    assert sig(dataclasses.replace(b[0], segment_layout={})) == sig(b[0])
+
+
+def test_the_signature_of_a_reset_gru_step_follows_the_notes_layout():
+    b = _batches(2)
+    _, _, state, step = _small_step(cfg={"use_rnn": True})
+    sig = lambda batch: step.signature(state, batch, batch_tensors(batch))
+    assert step.layout is not None and b[0].segment_layout == b[1].segment_layout
+    assert sig(b[0]) == sig(b[1])
+    runs, steps = b[0].segment_layout[NOTE]
+    assert sig(dataclasses.replace(b[0], segment_layout={**b[0].segment_layout, NOTE: (runs + 1, steps)})) != sig(b[0])
+    assert sig(dataclasses.replace(b[0], segment_layout={**b[0].segment_layout, NOTE: (runs, steps + 64)})) != sig(b[0])
+    # the other types' layouts are no part of it: the GRUs run on the notes
+    assert sig(dataclasses.replace(b[0], segment_layout={NOTE: (runs, steps), "beat": (3, 64)})) == sig(b[0])
 
 
 # --------------------------------------------------------- the on-device gate
@@ -280,7 +333,9 @@ def cuda():
 CARD_CASES = {"hybridgnn": ("hybridgnn", {}), "hybridhgt": ("hybridhgt", {}),
               "hybridgnn-bf16": ("hybridgnn", {"compute_dtype": "bfloat16"}),
               # beats and measures: the MetricalGNN's metrical convs and its associative GRUs
-              "metricalgnn": ("hybridgnn", {"model": "MetricalGNN", "add_beats": True, "add_measures": True})}
+              "metricalgnn": ("hybridgnn", {"model": "MetricalGNN", "add_beats": True, "add_measures": True}),
+              # the benchmark's MetricalGNN: with the note BiGRU of use_rnn on the batches' segment layout
+              "metricalgnn-rnn": ("metricalgnn", {})}
 # the parity of two trained copies, as the card's other parities hold them
 # (chip_smoke.py's phase 28): each leaf's difference within LEAF_RTOL of the
 # norm of its eager move plus FLOOR_OF_MAX of the largest element of any
@@ -319,7 +374,7 @@ def test_graphed_steps_match_the_eager_steps_on_the_card(cuda, case):
     cell, extra = CARD_CASES[case]
     # the benchmark cell's batch: 3 subgraphs of 500 targets, neighbours (5, 5)
     batches = _batches(10, notes=1500, subgraph=500, batch_size=3, neighbors=(5, 5), scores=4, device="cuda",
-                       metrical=extra.get("add_beats", False))
+                       metrical={**_cell_config(cell), **extra}.get("add_beats", False))
     batches[9] = _nan_batch(batches[0])
     arms = {}
     for graphed in (False, True):
@@ -402,3 +457,30 @@ def test_a_watched_call_runs_eagerly_and_counts_as_the_first_on_the_card(cuda):
         state, aux = step(state, batches[3])
     assert mode.ops > 0 and GraphedStep.replays == replays + 1
     assert state.step == 4 and state.opt_state.count == 4 and float(aux["skipped_nonfinite"]) == 0.0
+
+
+@pytest.mark.parametrize("laid_out", [False, True], ids=["lengths-read", "layout"])
+def test_the_note_grus_backward_ignores_cudnn_tf32_on_the_card(cuda, laid_out):
+    # PyTorch's default lets cuDNN take TF32 for f32 RNNs; the GRUs keep their
+    # forward and their backward (which autograd runs after the forward's
+    # flags have closed) in f32 whatever the flag says: the same bits
+    from analysisgnn_tpu_torch.core.graph import segment_layout
+    from analysisgnn_tpu_torch.models.rnn import StackedBiGRU, segment_starts
+
+    ids = np.concatenate([np.repeat(np.arange(3), 500), np.repeat(np.arange(3), 20), -np.ones(1988 - 1500, np.int64)])
+    starts = segment_starts(torch.from_numpy(ids).to(cuda))
+    gen = torch.Generator().manual_seed(0)
+    gru = StackedBiGRU(128, 128).to(cuda)
+    x = torch.randn(len(ids), 128, generator=gen).to(cuda).requires_grad_(True)
+    ct = torch.randn(len(ids), 256, generator=gen).to(cuda)
+    saved = torch.backends.cudnn.allow_tf32
+    got = {}
+    try:
+        for flag in (False, True):
+            torch.backends.cudnn.allow_tf32 = flag
+            out = gru(x, starts, segment_layout(ids) if laid_out else None)
+            got[flag] = [out.detach(), *torch.autograd.grad(out, [x, *gru.parameters()], ct)]
+            assert torch.backends.cudnn.allow_tf32 is flag
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert all(torch.equal(a, b) for a, b in zip(got[False], got[True]))

@@ -1,10 +1,13 @@
 """The port's spans and counter on the MetricalGNN path: ``encoder.metrical``
 (each ``MetricalConv`` call) and ``model.rnn`` (the ``use_rnn`` tail)
 inside the train step's ``step.forward``, the count of host reads of segment
-lengths (``models/rnn.py::segment_length_reads``), a traced step's numbers
+lengths (``models/rnn.py::segment_length_reads``: two a step on a batch
+without the notes' segment layout, none with it), a traced step's numbers
 equal to an untraced one's, and the benchmark's readers of the three
 (``gpubench/metrics/``) on hand-built trace summaries.  CPU only, small
 models."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,12 +31,16 @@ TASKS = tuple(TASK_DICT.items())
 LAYERS = 3
 MODELS = {
     "MetricalGNN": {"model": "MetricalGNN", "add_beats": True, "add_measures": True, "use_rnn": True},
+    "MetricalGNN-layout": {"model": "MetricalGNN", "add_beats": True, "add_measures": True, "use_rnn": True},
     "MetricalGNN-no-rnn": {"model": "MetricalGNN", "add_beats": True, "add_measures": True},
     "HybridGNN": {},
     "HybridHGT": {"model": "HGT", "heads": 2, "use_pallas": True, "hgt_group_mode": "emax"},
 }
 # host reads of segment lengths a forward: the two layers of the use_rnn GRU
-READS = {"MetricalGNN": 2, "MetricalGNN-no-rnn": 0, "HybridGNN": 0, "HybridHGT": 0}
+# on a batch without the notes' segment layout, none on a batch with it
+READS = {"MetricalGNN": 2, "MetricalGNN-layout": 0, "MetricalGNN-no-rnn": 0, "HybridGNN": 0, "HybridHGT": 0}
+# the cases whose batch is staged without its segment layouts
+UNLAID = {"MetricalGNN"}
 
 
 def _model(name):
@@ -71,6 +78,9 @@ def _one_step(name, traced):
     state = create_train_state(model, len(TASKS), opt, seed=3)
     step = make_train_step(model, opt, StepConfig(task_dict=TASKS, active_tasks=tuple(t for t, _ in TASKS)))
     batch = _batch(name.startswith("Metrical"))
+    assert NOTE in batch.segment_layout
+    if name in UNLAID:
+        batch = dataclasses.replace(batch, segment_layout={})
     reads = rnn.segment_length_reads
     prof = None
     if traced:
@@ -94,7 +104,7 @@ def test_metrical_and_rnn_spans_open_inside_the_forward_and_trace_the_same_numbe
     metrical, tail = _spans(prof, "encoder.metrical"), _spans(prof, "model.rnn")
     is_metrical = name.startswith("Metrical")
     assert len(metrical) == (2 * (LAYERS - 1) if is_metrical else 0)
-    assert len(tail) == (1 if READS[name] else 0)
+    assert len(tail) == (1 if MODELS[name].get("use_rnn") else 0)
     for lo, hi in metrical + tail:
         assert forward[0] <= lo <= hi <= forward[1]
     assert reads == READS[name]
