@@ -65,33 +65,29 @@
 //     [N, G] in f32, as the Pallas forward takes bf16 operands with
 //     preferred_element_type=f32.  One bf16 tensor-core pass per product, f32
 //     accumulation: a product of two bf16 values is exact in f32, so the
-//     kernels differ from the f32 einsum of the upcast operands only in the
-//     order of their sums.  Bound on the H100 at the train shape: operations,
+//     kernel differs from the f32 einsum of the upcast operands only in the
+//     order of its sums.  Bound on the H100 at the train shape: operations,
 //     4.93 GFLOP at 989 TFLOP/s is 5.0 us (x, w, alpha in and out in f32 move
-//     9.3 MB, 2.8 us).  Two kernels, chosen by the shapes and pointers alone
-//     (kernels/relmm.py::forward_kernel; no failure switches kernels):
-//     - rwm_bf16_wgmma_kernel<WIDTH>, wherever TMA can describe the operands
-//       (F and G multiples of 8, x and w 16-byte aligned).  A block owns a
-//       128 x WIDTH tile of out (WIDTH from pick_width, as the f32 forward):
-//       one producer warp issues TMA copies, two consumer warpgroups run
-//       wgmma m64nWIDTHk16 bf16 on 64 rows each.  The block's rows of x are
-//       copied once, a panel of up to 8 chunks of 64 K at a time (all of F
-//       up to 512), K-major with the 128-byte swizzle, and reused for every
-//       relation.  w[t] streams through a ring of 4 chunks of 64 K x WIDTH
-//       behind full and empty mbarriers, in the order (panel, relation, K
-//       chunk), read by wgmma MN-major as stored (G contiguous: the
-//       transpose flag of a 16-bit B), in boxes of 32 columns with the
-//       64-byte swizzle, so nothing is transposed anywhere.  TMA zero-fills
-//       the N, F and G tails; a 3-D map over [T, F, G] keeps a chunk's K
-//       tail out of the next relation.  After a relation's K loop over a
-//       panel each warpgroup adds alpha[t, row] times its per-relation
-//       accumulator into a second register tile, so the [T, N, G]
-//       intermediate never exists.
-//     - rwm_bf16_forward_kernel<VEC> (mma.sync m16n8k16), for the rest: a
-//       block of four warps owns a 64 x 64 tile; for each relation it walks K
-//       in 32-deep chunks, staging the x chunk as stored and the w chunk
-//       transposed to [G, K] (the B fragments read pairs of K), one chunk in
-//       flight, then the same alpha epilogue.
+//     9.3 MB, 2.8 us).  It runs wherever TMA can describe the operands (F and
+//     G multiples of 8, x and w 16-byte aligned); kernels/relmm.py::
+//     forward_kernel sends the rest to the f32 forward above on f32 copies of
+//     x and w, whose lo terms are then zero (a bf16 value is exact in TF32),
+//     so that too differs only in the order of its sums.  No failure switches
+//     kernels.
+//     rwm_bf16_wgmma_kernel<WIDTH>: a block owns a 128 x WIDTH tile of out
+//     (WIDTH from pick_width, as the f32 forward): one producer warp issues TMA
+//     copies, two consumer warpgroups run wgmma m64nWIDTHk16 bf16 on 64 rows
+//     each.  The block's rows of x are copied once, a panel of up to 8 chunks
+//     of 64 K at a time (all of F up to 512), K-major with the 128-byte
+//     swizzle, and reused for every relation.  w[t] streams through a ring of 4
+//     chunks of 64 K x WIDTH behind full and empty mbarriers, in the order
+//     (panel, relation, K chunk), read by wgmma MN-major as stored (G
+//     contiguous: the transpose flag of a 16-bit B), in boxes of 32 columns
+//     with the 64-byte swizzle, so nothing is transposed anywhere.  TMA
+//     zero-fills the N, F and G tails; a 3-D map over [T, F, G] keeps a chunk's
+//     K tail out of the next relation.  After a relation's K loop over a panel
+//     each warpgroup adds alpha[t, row] times its per-relation accumulator into
+//     a second register tile, so the [T, N, G] intermediate never exists.
 //     The backward of a bf16 forward runs the f32 kernels above on f32 copies
 //     of x and w (kernels/relmm.py), as the Pallas backward upcasts.
 
@@ -722,146 +718,6 @@ int sum_splits(const float* part, float* out, long long count, int S, cudaStream
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------------ bf16 forward
-
-constexpr int BF_BM = 64;        // rows of a block's tile
-constexpr int BF_BN = 64;        // columns of a block's tile
-constexpr int BF_BK = 32;        // K depth of one staged chunk: two m16n8k16 steps
-constexpr int BF_LD = BF_BK + 8; // shared row pitch in bf16 (80 bytes: conflict-free fragment reads)
-constexpr int BF_THREADS = 128;  // four warps, 2 x 2 over the tile, 32 x 32 each
-
-// d += a * b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two neighbouring bf16 values as one 32-bit fragment register (the lower index in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// out[n, g] = sum_t alpha[t, n] * sum_f x[n, f] * w[t, f, g].  VEC: F % 8 == 0,
-// G % 8 == 0 and 16-byte aligned x and w, so a thread copies 8 bf16 at once.
-template <bool VEC>
-__global__ void __launch_bounds__(BF_THREADS)
-rwm_bf16_forward_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                        const float* __restrict__ alpha, float* __restrict__ out, int64_t N, int F, int G, int T) {
-  __shared__ __align__(16) __nv_bfloat16 sa[BF_BM][BF_LD];  // x chunk [row][k]
-  __shared__ __align__(16) __nv_bfloat16 sb[BF_BN][BF_LD];  // w chunk transposed [column][k]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;  // fragment row (column) group and pair index
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int64_t m0 = (int64_t)blockIdx.x * BF_BM;
-  const int n0 = blockIdx.y * BF_BN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-
-  float total[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) total[i][j][k] = 0.0f;
-
-  for (int t = 0; t < T; ++t) {
-    const __nv_bfloat16* wt = w + (int64_t)t * F * G;
-    float acc[2][4][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.0f;
-
-    for (int k0 = 0; k0 < F; k0 += BF_BK) {
-      __syncthreads();  // every warp has read the previous chunk's fragments
-      if (VEC) {
-        // x: 64 rows x 4 groups of 8 K; w: 32 K x 8 groups of 8 columns (zeros past the edges)
-        for (int i = tid; i < BF_BM * (BF_BK / 8); i += BF_THREADS) {
-          const int r = i >> 2, c = (i & 3) * 8;
-          const int64_t row = m0 + r;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (row < N && k0 + c < F) v = *reinterpret_cast<const uint4*>(x + row * F + k0 + c);
-          *reinterpret_cast<uint4*>(&sa[r][c]) = v;
-        }
-        for (int i = tid; i < BF_BK * (BF_BN / 8); i += BF_THREADS) {
-          const int kk = i >> 3, c = (i & 7) * 8;
-          uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (k0 + kk < F && n0 + c < G) v = *reinterpret_cast<const uint4*>(wt + (int64_t)(k0 + kk) * G + n0 + c);
-          const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) sb[c + j][kk] = e[j];
-        }
-      } else {
-        for (int i = tid; i < BF_BM * BF_BK; i += BF_THREADS) {
-          const int r = i / BF_BK, c = i % BF_BK;
-          const int64_t row = m0 + r;
-          sa[r][c] = (row < N && k0 + c < F) ? x[row * F + k0 + c] : zero;
-        }
-        for (int i = tid; i < BF_BK * BF_BN; i += BF_THREADS) {
-          const int kk = i / BF_BN, c = i % BF_BN;
-          sb[c][kk] = (k0 + kk < F && n0 + c < G) ? wt[(int64_t)(k0 + kk) * G + n0 + c] : zero;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < BF_BK; ks += 16) {
-        uint32_t a[2][4], b[4][2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int r = wm + i * 16 + g;
-          a[i][0] = ld_pair(&sa[r][ks + 2 * q]);
-          a[i][1] = ld_pair(&sa[r + 8][ks + 2 * q]);
-          a[i][2] = ld_pair(&sa[r][ks + 2 * q + 8]);
-          a[i][3] = ld_pair(&sa[r + 8][ks + 2 * q + 8]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = wn + j * 8 + g;
-          b[j][0] = ld_pair(&sb[c][ks + 2 * q]);
-          b[j][1] = ld_pair(&sb[c][ks + 2 * q + 8]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-      }
-    }
-    // total += alpha[t, row] * (x @ w[t]) on this thread's rows (r0: d[0..1], r1: d[2..3])
-    const float* at = alpha + (int64_t)t * N;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int64_t r0 = m0 + wm + i * 16 + g, r1 = r0 + 8;
-      const float a0 = r0 < N ? at[r0] : 0.0f, a1 = r1 < N ? at[r1] : 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        total[i][j][0] += a0 * acc[i][j][0];
-        total[i][j][1] += a0 * acc[i][j][1];
-        total[i][j][2] += a1 * acc[i][j][2];
-        total[i][j][3] += a1 * acc[i][j][3];
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t r0 = m0 + wm + i * 16 + g, r1 = r0 + 8;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = n0 + wn + j * 8 + 2 * q;
-      if (r0 < N) {
-        if (c < G) out[r0 * G + c] = total[i][j][0];
-        if (c + 1 < G) out[r0 * G + c + 1] = total[i][j][1];
-      }
-      if (r1 < N) {
-        if (c < G) out[r1 * G + c] = total[i][j][2];
-        if (c + 1 < G) out[r1 * G + c + 1] = total[i][j][3];
-      }
-    }
-  }
-}
-
 // ------------------------------------------------------------------ bf16 forward on wgmma
 
 constexpr int BW_BK = 64;                        // K depth of a chunk: one 128-byte swizzled row of bf16
@@ -1278,21 +1134,4 @@ extern "C" int rwm_bf16_wgmma_launch(const __nv_bfloat16* x, const __nv_bfloat16
     case 96: return bf16_wgmma_launch_bn<96>(x_map, w_map, alpha, out, N, F, G, T, st);
     default: return bf16_wgmma_launch_bn<64>(x_map, w_map, alpha, out, N, F, G, T, st);
   }
-}
-
-// the same on mma.sync, for any F, G and alignment
-extern "C" int rwm_bf16_forward_launch(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* alpha,
-                                       float* out, long long N, int F, int G, int T, void* stream) {
-  if (N <= 0 || G <= 0) return (int)cudaSuccess;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (F <= 0 || T <= 0) return (int)cudaMemsetAsync(out, 0, sizeof(float) * N * G, st);
-  const dim3 grid(cdiv(N, BF_BM), cdiv(G, BF_BN));
-  const bool vec = F % 8 == 0 && G % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  if (vec) {
-    rwm_bf16_forward_kernel<true><<<grid, BF_THREADS, 0, st>>>(x, w, alpha, out, N, F, G, T);
-  } else {
-    rwm_bf16_forward_kernel<false><<<grid, BF_THREADS, 0, st>>>(x, w, alpha, out, N, F, G, T);
-  }
-  return (int)cudaGetLastError();
 }

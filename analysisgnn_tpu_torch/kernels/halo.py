@@ -135,7 +135,7 @@ def halo_pull(x_parts: torch.Tensor, halo: int, out: Optional[torch.Tensor] = No
     on a line; see the module docstring.  With ``out`` (a contiguous
     ``[D, 2H, F]`` float32 that does not overlap ``x_parts``) the halos are
     written there; with ``plan`` (a :class:`HaloPlan` of ``x_parts``' layout)
-    the call makes none.  ``halo_pull.launches`` counts kernel launches."""
+    the call makes none."""
     if plan is None:
         plan = HaloPlan(x_parts, halo)
     plan.check(x_parts, halo, out)
@@ -145,11 +145,7 @@ def halo_pull(x_parts: torch.Tensor, halo: int, out: Optional[torch.Tensor] = No
         out = torch.empty(plan.out_shape, dtype=torch.float32, device=x_parts.device)
     fn = launch.bind("halo_pull", "halo_pull_launch", [ctypes.c_void_p] * 4)
     launch.launch(fn, x_parts.get_device(), x_parts.data_ptr(), out.data_ptr(), plan.args_ptr)
-    halo_pull.launches += 1
     return out
-
-
-halo_pull.launches = 0
 
 
 def _ranks(group) -> tuple:

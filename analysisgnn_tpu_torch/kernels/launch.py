@@ -14,9 +14,10 @@ between calls are done once:
   reports a CUDA error, and refuses the index of a CPU tensor.
 
 The stream is read on every call, never cached: the caller may have switched
-streams between two calls.  :data:`launches_by_device` counts every launch
-by launcher and card, beside each wrapper's own count, so a run across cards
-can show which card ran what.
+streams between two calls.  :data:`launches_by_device` is the one count of
+launches, keyed ``(launcher symbol, card index)``: it shows which kernel ran
+on which card, and a caller reads what a call launched as the difference of
+two copies of it.
 """
 
 from __future__ import annotations

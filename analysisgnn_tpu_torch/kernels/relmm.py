@@ -26,19 +26,22 @@ Bound on the H100: operations (``2*T*N*F*G`` multiply-adds per kernel, three
 times over on the tensor cores, against a few tens of MB moved).
 
 Dtypes, as the Pallas kernel takes them: ``x`` and ``w`` float32 or
-bfloat16, ``alpha`` float32, the result float32.  With ``x`` and ``w`` both
-bf16 the forward is one bf16 tensor-core pass per product, accumulated in
-f32, exact products, so it differs from the f32 einsum of the upcast operands
-only in the order of its sums; :func:`forward_kernel` says which kernel takes
-the operands, from their dtypes, shapes and pointers alone:
+bfloat16, ``alpha`` float32, the result float32.  :func:`forward_kernel` says
+which kernel takes the operands, from their dtypes, shapes and pointers alone:
 
-* ``"wgmma"`` (``rwm_bf16_wgmma_launch``): TMA copies into a ring, ``wgmma``
-  reading ``w`` as stored, ``x`` resident across relations; wherever TMA can
-  describe the operands;
-* ``"mma.sync"`` (``rwm_bf16_forward_launch``): the rest (F or G not a
-  multiple of 8, a base not 16-byte aligned);
-* ``"f32"``: where one of them is f32 the other is promoted to f32, as
-  ``jnp.dot`` promotes, and the f32 kernel runs.
+* ``"wgmma"`` (``rwm_bf16_wgmma_launch``): two bf16 operands that TMA can
+  describe; TMA copies into a ring, ``wgmma`` reading ``w`` as stored, ``x``
+  resident across relations, one bf16 tensor-core pass per product,
+  accumulated in f32;
+* ``"f32"``: every other pair.  An f32 operand promotes the other to f32, as
+  ``jnp.dot`` promotes; two bf16 operands that TMA cannot describe (F or G
+  not a multiple of 8, a base not 16-byte aligned) are upcast, and the f32
+  kernel runs on the copies.  A bf16 value is exact in TF32, so the three
+  passes' ``lo`` terms are zero there.
+
+Either way two bf16 operands give exact products summed in f32: the result
+differs from the f32 einsum of the upcast operands only in the order of its
+sums.
 
 No build or launch failure switches kernels: it raises.  The backward always
 runs in f32, on f32 copies of ``x`` and ``w``, and returns each cotangent in
@@ -59,7 +62,7 @@ from analysisgnn_tpu_torch.kernels import launch
 
 _NAME = "relation_weighted_matmul"
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# rwm_forward_launch / rwm_dx_launch / rwm_bf16_forward_launch: a, w, alpha, out, N, F, G, T, stream
+# rwm_forward_launch / rwm_dx_launch / rwm_bf16_wgmma_launch: a, w, alpha, out, N, F, G, T, stream
 _MM_ARGS = [_P] * 4 + [_I64, _I32, _I32, _I32, _P]
 # rwm_dw_launch / rwm_dalpha_launch: a, b, c, out, scratch, N, F, G, T, S, stream
 _SPLIT_ARGS = [_P] * 5 + [_I64, _I32, _I32, _I32, _I32, _P]
@@ -123,12 +126,12 @@ def forward_kernel(x: torch.Tensor, w: torch.Tensor) -> str:
     """The forward kernel that contiguous ``x [N, F]`` and ``w [T, F, G]``
     take: for two bf16 operands ``"wgmma"`` where TMA can describe them as
     stored (16-byte row pitches, i.e. F and G multiples of 8, and 16-byte
-    aligned bases; the launcher refuses anything else), else ``"mma.sync"``;
-    ``"f32"`` for any other pair."""
+    aligned bases; the launcher refuses anything else); ``"f32"`` for any
+    other pair."""
     if x.dtype == w.dtype == torch.bfloat16:
         f, g = w.shape[1], w.shape[2]
-        tma = f % 8 == 0 and g % 8 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-        return "wgmma" if tma else "mma.sync"
+        if f % 8 == 0 and g % 8 == 0 and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0:
+            return "wgmma"
     return "f32"
 
 
@@ -137,62 +140,44 @@ def rwm_forward_bf16_wgmma(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor
     describe, ``alpha`` and the ``[N, G]`` result float32."""
     n, f = x.shape
     t, _, g = w.shape
-    out = _launch("rwm_bf16_wgmma_launch", (n, g), x, w, alpha, n, f, g, t)
-    relation_weighted_matmul.bf16_launches += 1
-    return out
-
-
-def rwm_forward_bf16_mma(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """The bf16 forward on ``mma.sync``, for any F, G and alignment."""
-    n, f = x.shape
-    t, _, g = w.shape
-    out = _launch("rwm_bf16_forward_launch", (n, g), x, w, alpha, n, f, g, t)
-    relation_weighted_matmul.bf16_mma_launches += 1
-    return out
+    return _launch("rwm_bf16_wgmma_launch", (n, g), x, w, alpha, n, f, g, t)
 
 
 def rwm_forward_bf16(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """The bf16 forward kernel that :func:`forward_kernel` picks."""
+    """The forward of two bf16 operands on the kernel that
+    :func:`forward_kernel` picks: ``wgmma``, or the f32 kernel on f32 copies."""
     x, w = x.contiguous(), w.contiguous()
     if forward_kernel(x, w) == "wgmma":
         return rwm_forward_bf16_wgmma(x, w, alpha)
-    return rwm_forward_bf16_mma(x, w, alpha)
+    return rwm_forward(x.float(), w.float(), alpha)
 
 
 def rwm_forward(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """The forward kernel (f32): ``[N, G]``."""
     n, f = x.shape
     t, _, g = w.shape
-    out = _launch("rwm_forward_launch", (n, g), x, w, alpha, n, f, g, t)
-    relation_weighted_matmul.launches += 1
-    return out
+    return _launch("rwm_forward_launch", (n, g), x, w, alpha, n, f, g, t)
 
 
 def rwm_dx(gout: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """``dx [N, F]``: the forward kernel on ``gout``, reading ``w`` as ``w^T``."""
     n, g = gout.shape
     t, f, _ = w.shape
-    out = _launch("rwm_dx_launch", (n, f), gout, w, alpha, n, f, g, t)
-    relation_weighted_matmul.dx_launches += 1
-    return out
+    return _launch("rwm_dx_launch", (n, f), gout, w, alpha, n, f, g, t)
 
 
 def rwm_dw(x: torch.Tensor, gout: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """``dw [T, F, G]``."""
     n, f = x.shape
     t, g = alpha.shape[0], gout.shape[1]
-    out = _launch("rwm_dw_launch", (t, f, g), x, gout, alpha, n, f, g, t, dw_splits(n, f, g, t))
-    relation_weighted_matmul.dw_launches += 1
-    return out
+    return _launch("rwm_dw_launch", (t, f, g), x, gout, alpha, n, f, g, t, dw_splits(n, f, g, t))
 
 
 def rwm_dalpha(x: torch.Tensor, w: torch.Tensor, gout: torch.Tensor) -> torch.Tensor:
     """``d alpha [T, N]``."""
     n, f = x.shape
     t, _, g = w.shape
-    out = _launch("rwm_dalpha_launch", (t, n), x, w, gout, n, f, g, t, dalpha_splits(n, f, g))
-    relation_weighted_matmul.dalpha_launches += 1
-    return out
+    return _launch("rwm_dalpha_launch", (t, n), x, w, gout, n, f, g, t, dalpha_splits(n, f, g))
 
 
 class _RelationWeightedMatmul(torch.autograd.Function):
@@ -215,21 +200,10 @@ class _RelationWeightedMatmul(torch.autograd.Function):
 
 def relation_weighted_matmul(x: torch.Tensor, w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """``[N, G] = sum_t alpha[t, :, None] * (x @ w[t])`` without the
-    ``[T, N, G]`` intermediate.  Counters: ``relation_weighted_matmul.launches``
-    (the f32 forward), ``.bf16_launches`` (the bf16 forward on ``wgmma``),
-    ``.bf16_mma_launches`` (the bf16 forward on ``mma.sync``),
-    ``.dx_launches``, ``.dw_launches``, ``.dalpha_launches``."""
+    ``[T, N, G]`` intermediate."""
     _check(x, w, alpha)
     if x.device.type == "cpu":
         return relation_weighted_matmul_plain(x, w, alpha)
     if x.device.type != "cuda":
         raise ValueError(f"relation_weighted_matmul runs on cpu or cuda tensors, got {x.device}")
     return _RelationWeightedMatmul.apply(x, w, alpha)
-
-
-relation_weighted_matmul.launches = 0
-relation_weighted_matmul.bf16_launches = 0
-relation_weighted_matmul.bf16_mma_launches = 0
-relation_weighted_matmul.dx_launches = 0
-relation_weighted_matmul.dw_launches = 0
-relation_weighted_matmul.dalpha_launches = 0

@@ -138,10 +138,6 @@ def _launch(msgs, seg_sorted, x_base, num_segments, row_ptr):
     fn = launch.bind("segment_mean_base", _SYMBOLS[msgs.dtype], _ARGTYPES)
     launch.launch(fn, msgs.get_device(), msgs.data_ptr(), row_ptr.data_ptr(), x_base.data_ptr(), out.data_ptr(),
                   counts.data_ptr(), num_segments, x_base.shape[0], f, int(vec))
-    if msgs.dtype == torch.bfloat16:
-        segment_mean_base.bf16_launches += 1
-    else:
-        segment_mean_base.launches += 1
     return out, counts
 
 
@@ -185,14 +181,8 @@ def segment_mean_base(
     """``(out [S, F], counts [S])`` for ascending ``seg_sorted``; see the module
     docstring.  ``row_ptr``, ``row_pointers(seg_sorted, num_segments)`` when
     given (a :class:`SegmentPlan`'s), spares the kernel's call building them.
-    Differentiable in ``msgs`` and ``x_base`` on both devices.
-    ``segment_mean_base.launches`` counts the launches on f32 rows,
-    ``segment_mean_base.bf16_launches`` those on bf16 rows."""
+    Differentiable in ``msgs`` and ``x_base`` on both devices."""
     _check(msgs, seg_sorted, x_base, num_segments, row_ptr)
     if msgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"segment_mean_base runs on cpu or cuda tensors, got {msgs.device}")
     return _SegmentMeanBase.apply(msgs, seg_sorted, x_base, num_segments, row_ptr)
-
-
-segment_mean_base.launches = 0
-segment_mean_base.bf16_launches = 0

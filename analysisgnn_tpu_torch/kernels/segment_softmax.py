@@ -105,7 +105,6 @@ def _launch(logits: torch.Tensor, dst_sorted: torch.Tensor) -> torch.Tensor:
         ids = ids.to(torch.int32).contiguous()
     fn = launch.bind("segment_softmax", "segment_softmax_launch", _ARGTYPES)
     launch.launch(fn, logits.get_device(), logits.data_ptr(), ids.data_ptr(), out.data_ptr(), e, h)
-    segment_softmax_sorted.launches += 1
     return out
 
 
@@ -114,13 +113,9 @@ def segment_softmax_sorted(
 ) -> torch.Tensor:
     """``[E, H]`` softmax weights of ``logits`` per run of equal ascending
     destination ids; see the module docstring.  ``tile_offsets`` is accepted
-    for the TPU function's signature and ignored.
-    ``segment_softmax_sorted.launches`` counts kernel launches."""
+    for the TPU function's signature and ignored."""
     del tile_offsets
     _check(logits, dst_sorted, num_nodes)
     if logits.device.type == "cpu":
         return segment_softmax_sorted_plain(logits, dst_sorted, num_nodes)
     return _launch(logits, dst_sorted)
-
-
-segment_softmax_sorted.launches = 0

@@ -28,8 +28,7 @@ the same kernel on a :class:`SegmentPlan`'s sorted ids and row pointers,
 built once per graph, so a call launches the kernel alone.  It carries
 gradients through one ``torch.autograd.Function`` whose backward is plain
 PyTorch (the output gradient gathered by each sorted edge's segment, 0 for
-padding edges), as K1's does.  Both wrappers count their launches in
-``segment_sum_sorted.launches``: they launch the one K4 kernel.
+padding edges), as K1's does.
 """
 
 from __future__ import annotations
@@ -75,7 +74,6 @@ def _launch(msgs: torch.Tensor, row_ptr: torch.Tensor, num_nodes: int) -> torch.
     vec = f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (msgs, out))
     fn = launch.bind("segment_mean_base", "segment_sum_launch", _ARGTYPES)
     launch.launch(fn, msgs.get_device(), msgs.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), num_nodes, f, int(vec))
-    segment_sum_sorted.launches += 1
     return out
 
 
@@ -84,8 +82,7 @@ def segment_sum_sorted(
 ) -> torch.Tensor:
     """``[num_nodes, F]`` sums of ``msgs`` per ascending destination id; see
     the module docstring.  ``tile_offsets`` is accepted for the TPU
-    function's signature and ignored.  ``segment_sum_sorted.launches`` counts
-    kernel launches."""
+    function's signature and ignored."""
     del tile_offsets
     _check(msgs, dst_sorted, num_nodes)
     if msgs.device.type == "cpu":
@@ -94,9 +91,6 @@ def segment_sum_sorted(
     if ids.dtype != torch.int32 or not ids.is_contiguous():
         ids = ids.to(torch.int32).contiguous()
     return _launch(msgs, row_pointers(ids, num_nodes), num_nodes)
-
-
-segment_sum_sorted.launches = 0
 
 
 class _SegmentSum(torch.autograd.Function):

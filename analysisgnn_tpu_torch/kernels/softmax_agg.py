@@ -130,7 +130,6 @@ def _launch(logits, msgs, plan):
     fn = launch.bind("segment_softmax_agg", "segment_softmax_agg_launch", _ARGTYPES)
     launch.launch(fn, msgs.get_device(), logits.data_ptr(), msgs.data_ptr(), plan.row_ptr.data_ptr(),
                   out.data_ptr(), mx.data_ptr(), den.data_ptr(), n, plan.num_blocks, h, f, int(vec))
-    segment_softmax_agg.launches += 1
     return out, mx, den
 
 
@@ -179,12 +178,8 @@ class _SegmentSoftmaxAgg(torch.autograd.Function):
 def segment_softmax_agg(logits: torch.Tensor, msgs: torch.Tensor, plan: SoftmaxAggPlan) -> torch.Tensor:
     """``out [num_nodes, H*D]`` for ``logits [E, H]`` and ``msgs [E, H*D]`` in
     the plan's sorted edge order; see the module docstring.  Differentiable
-    in both on both devices.  ``segment_softmax_agg.launches`` counts kernel
-    launches."""
+    in both on both devices."""
     _check(logits, msgs, plan)
     if msgs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"segment_softmax_agg runs on cpu or cuda tensors, got {msgs.device}")
     return _SegmentSoftmaxAgg.apply(logits, msgs, plan)
-
-
-segment_softmax_agg.launches = 0

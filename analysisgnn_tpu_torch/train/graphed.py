@@ -49,8 +49,8 @@ Spans (``torch.profiler.record_function``): a capturing call opens
 them, and every call that replays (the capturing call too) opens
 ``step.replay`` around the copy-in, the rates, the replay and the clone.
 ``GraphedStep.replays`` counts the calls that replayed without capturing:
-they launch no kernel from the host, so the kernel wrappers' host counters
-(``kernels/launch.py``) do not see them.
+they launch no kernel from the host, so the host's count of launches
+(``kernels/launch.py::launches_by_device``) does not see them.
 """
 
 from __future__ import annotations

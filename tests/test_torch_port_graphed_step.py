@@ -337,7 +337,7 @@ CARD_CASES = {"hybridgnn": ("hybridgnn", {}), "hybridhgt": ("hybridhgt", {}),
               # the benchmark's MetricalGNN: with the note BiGRU of use_rnn on the batches' segment layout
               "metricalgnn-rnn": ("metricalgnn", {})}
 # the parity of two trained copies, as the card's other parities hold them
-# (chip_smoke.py's phase 28): each leaf's difference within LEAF_RTOL of the
+# (chip_smoke.py's mesh phase): each leaf's difference within LEAF_RTOL of the
 # norm of its eager move plus FLOOR_OF_MAX of the largest element of any
 # move an element (a leaf whose gradient is 0 but for rounding, the JK
 # attention's bias, moves by noise), the losses within LOSS_RTOL.  Adam runs at eps 1 there, where a coordinate whose gradient is

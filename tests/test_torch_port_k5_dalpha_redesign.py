@@ -39,7 +39,7 @@ import torch
 from analysisgnn_tpu.kernels.pallas_relmm import relation_weighted_matmul as jrwm
 from analysisgnn_tpu.kernels.pallas_segment import segment_softmax_sorted as pallas_softmax
 from analysisgnn_tpu.kernels.pallas_segment import tile_edge_offsets
-from analysisgnn_tpu_torch.kernels import relmm
+from analysisgnn_tpu_torch.kernels import launch, relmm
 from analysisgnn_tpu_torch.kernels.segment_mean import (
     plan_segments, row_pointers, segment_mean_base, segment_mean_base_plain,
 )
@@ -414,8 +414,7 @@ def test_cpu_paths_take_the_plain_versions_and_count_no_launch():
     gen = torch.Generator().manual_seed(0)
     seg = torch.sort(torch.randint(0, 13, (60,), generator=gen)).values.to(torch.int32)
     msgs, x_base = torch.randn(60, 8, generator=gen), torch.randn(4, 8, generator=gen)
-    counts = (segment_mean_base.launches, segment_sum_sorted.launches, relmm.relation_weighted_matmul.launches,
-              relmm.relation_weighted_matmul.dalpha_launches)
+    counts = dict(launch.launches_by_device)
     plan_ptr = row_pointers(seg, 12)
     with_ptr = segment_mean_base(msgs, seg, x_base, 12, plan_ptr)
     without = segment_mean_base(msgs, seg, x_base, 12)
@@ -430,8 +429,7 @@ def test_cpu_paths_take_the_plain_versions_and_count_no_launch():
     assert torch.equal(out, relmm.relation_weighted_matmul_plain(x, w, alpha))
     gx, ga = torch.autograd.grad(out.sum(), (x, alpha))
     assert torch.allclose(ga, torch.einsum("nf,tfg->tn", x, w).detach(), rtol=1e-5, atol=1e-5)
-    assert (segment_mean_base.launches, segment_sum_sorted.launches, relmm.relation_weighted_matmul.launches,
-            relmm.relation_weighted_matmul.dalpha_launches) == counts
+    assert dict(launch.launches_by_device) == counts
 
 
 def test_segment_mean_base_refuses_row_pointers_of_another_shape_or_type():

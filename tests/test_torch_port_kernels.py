@@ -14,6 +14,7 @@ import torch
 
 from analysisgnn_tpu.kernels import segment_ops as jops
 from analysisgnn_tpu.kernels.pallas_segment import TILE_N, segment_mean_base_sorted
+from analysisgnn_tpu_torch.kernels import launch
 from analysisgnn_tpu_torch.kernels import segment_ops as tops
 from analysisgnn_tpu_torch.kernels.segment_mean import (
     plan_segments,
@@ -167,9 +168,9 @@ def test_k1_wrapper_rejects_bad_inputs_and_counts_no_cpu_launch():
     msgs = torch.zeros(4, 8)
     seg = torch.zeros(4, dtype=torch.int32)
     x_base = torch.zeros(2, 8)
-    before = segment_mean_base.launches
+    before = dict(launch.launches_by_device)
     segment_mean_base(msgs, seg, x_base, 4)
-    assert segment_mean_base.launches == before  # the CPU takes the plain version
+    assert dict(launch.launches_by_device) == before  # the CPU takes the plain version
     with pytest.raises(TypeError):
         segment_mean_base(msgs.double(), seg, x_base.double(), 4)
     with pytest.raises(TypeError):

@@ -10,11 +10,11 @@
   runs it) and against the port's plain version, elementwise within
   ``K3_BF16_RTOL`` of the sum of |terms|: the tolerance chip_smoke.py holds
   the kernel to on the card, so it is shown to fit before the card sees it;
-* the dispatch predicate ``relmm.forward_kernel``: the shapes TMA can
-  describe take ``wgmma``, the rest ``mma.sync``, mixed dtypes the f32
-  kernels;
-* that a failed build or launch of either bf16 kernel raises, with no other
-  kernel or plain version taken.
+* the dispatch predicate ``relmm.forward_kernel``: the bf16 shapes TMA can
+  describe take ``wgmma``; the rest, and mixed dtypes, the f32 kernels;
+* that a failed build or launch of the kernel it names raises, with no other
+  kernel or plain version taken, and that the bf16 operands it sends to the
+  f32 kernel reach it as float32 copies.
 """
 
 import jax
@@ -122,7 +122,7 @@ def test_forward_kernel_takes_mma_sync_for_the_rest(case):
     else:
         f, g = (int(v[2:]) for v in case.split())
         x, w = _pair(f, g)
-    assert relmm.forward_kernel(x, w) == "mma.sync"
+    assert relmm.forward_kernel(x, w) == "f32"
 
 
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
@@ -132,26 +132,34 @@ def test_forward_kernel_promotes_mixed_and_f32_operands_to_the_f32_kernels(dtype
     assert relmm.forward_kernel(x.to(dtypes[0]), w.to(dtypes[1])) == "f32"
 
 
-@pytest.mark.parametrize("kernel,fn", [("wgmma", "rwm_forward_bf16_wgmma"), ("mma.sync", "rwm_forward_bf16_mma")])
+@pytest.mark.parametrize("kernel,fn", [("wgmma", "rwm_forward_bf16_wgmma"), ("f32", "rwm_forward")])
 def test_a_failed_bf16_build_raises_and_takes_no_other_path(monkeypatch, kernel, fn):
     """``rwm_forward_bf16`` launches the kernel that ``forward_kernel`` names
-    or raises: a failed build of it is not answered by the other kernel or
-    the plain version, and no counter moves."""
+    or raises: a failed build of it is not answered by another kernel or the
+    plain version, and nothing launches.  A bf16 pair that ``wgmma`` cannot
+    take (F=25 G=20) reaches the f32 launcher as float32 copies."""
     asked = []
+    real_launch = relmm._launch
+
+    def record(symbol, out_shape, a, b, *args, **kwargs):
+        asked.append((symbol, a.dtype, b.dtype))
+        return real_launch(symbol, out_shape, a, b, *args, **kwargs)
 
     def refuse(name, symbol, argtypes, restype=None):
-        asked.append(symbol)
         raise RuntimeError(f"CUDA build of {name} failed")
 
+    monkeypatch.setattr(relmm, "_launch", record)
     monkeypatch.setattr(launch, "bind", refuse)
     x, w = _pair(256, 256) if kernel == "wgmma" else _pair(25, 20)
+    assert relmm.forward_kernel(x, w) == kernel
+    operands = (x, w) if kernel == "wgmma" else (x.float(), w.float())
     alpha = torch.ones(w.shape[0], x.shape[0])
-    k3 = relmm.relation_weighted_matmul
-    before = (k3.bf16_launches, k3.bf16_mma_launches, k3.launches)
+    before = dict(launch.launches_by_device)
     with pytest.raises(RuntimeError, match="build of relation_weighted_matmul failed"):
         relmm.rwm_forward_bf16(x, w, alpha)
     with pytest.raises(RuntimeError, match="build of relation_weighted_matmul failed"):
-        getattr(relmm, fn)(x, w, alpha)
-    expect = "rwm_bf16_wgmma_launch" if kernel == "wgmma" else "rwm_bf16_forward_launch"
-    assert asked == [expect, expect]
-    assert (k3.bf16_launches, k3.bf16_mma_launches, k3.launches) == before
+        getattr(relmm, fn)(*operands, alpha)
+    expect = "rwm_bf16_wgmma_launch" if kernel == "wgmma" else "rwm_forward_launch"
+    dtype = operands[0].dtype
+    assert asked == [(expect, dtype, dtype)] * 2
+    assert dict(launch.launches_by_device) == before

@@ -20,6 +20,7 @@ from analysisgnn_tpu.kernels.pallas_segment import segment_softmax_sorted as pal
 from analysisgnn_tpu.kernels.pallas_segment import segment_sum_sorted as pallas_sum
 from analysisgnn_tpu.kernels.pallas_segment import tile_edge_offsets
 from analysisgnn_tpu.kernels.segment_ops import segment_softmax as xla_segment_softmax
+from analysisgnn_tpu_torch.kernels import launch
 from analysisgnn_tpu_torch.kernels.segment_softmax import segment_softmax_sorted, segment_softmax_sorted_plain
 from analysisgnn_tpu_torch.kernels.segment_sum import segment_sum_sorted, segment_sum_sorted_plain
 
@@ -152,11 +153,11 @@ def test_softmax_ids_outside_the_pallas_tiles_each_get_their_own_softmax():
 def test_wrappers_on_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     msgs = torch.randn(50, 8, generator=torch.Generator().manual_seed(0))
     dst = torch.sort(torch.randint(0, 20, (50,), generator=torch.Generator().manual_seed(1))).values
-    s0, m0 = segment_sum_sorted.launches, segment_softmax_sorted.launches
+    before = dict(launch.launches_by_device)
     assert torch.equal(segment_sum_sorted(msgs, dst, 20, tile_offsets=object()),
                        segment_sum_sorted_plain(msgs, dst, 20))
     assert torch.equal(segment_softmax_sorted(msgs, dst, 20), segment_softmax_sorted_plain(msgs, dst, 20))
-    assert (segment_sum_sorted.launches, segment_softmax_sorted.launches) == (s0, m0)
+    assert dict(launch.launches_by_device) == before
 
 
 def test_wrappers_refuse_gradients_and_bad_inputs():

@@ -159,8 +159,7 @@ def test_remat_recomputes_the_hidden_convs_and_changes_nothing(conv_impl, dtype,
     """In training (dropout 0.3 drawn from one generator seed on both arms,
     under the bf16 step's parameter casts too) remat gives the same output
     and gradients as no remat, draws the same masks, and runs each hidden
-    conv's K1 / K3 forwards once more in the backward: the launches
-    ``chip_smoke.py`` predicts for a remat train step."""
+    conv's K1 / K3 forwards once more in the backward."""
     _, _, _, _, plain, plans, x = _hybrid(conv_impl)
     remat = HybridGNN(HIDDEN, 2, *metadata(True, True), use_jk=True, final_norm=True, dropout=0.3,
                       conv_impl=conv_impl, final_dropout=True, remat=True)
